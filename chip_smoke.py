@@ -8,14 +8,20 @@ each of which fails the run (non-zero exit, no result line) on error:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
    builds ``jubatus_tpu_torch/csrc/sig_scan.cu`` with nvcc (sm_90a);
-2. kernels: both modes of the signature scan (hamming at hash_num 64, W=2;
-   minhash at H=64) at B in {1, 256} and C = 1,000,003 rows against their
-   plain PyTorch versions on the same tensors — bit-equal required — with
-   kernel, plain and library-call times (CUDA events) and the bound;
+2. kernels: both modes of the signature scan against their plain PyTorch
+   versions on the same tensors, bit-equal required: first at edge shapes
+   (C in {1, 7, 4099}, B around each variant's limits, W in {2, 3, 64, 70},
+   tables on and 4 bytes off 16-byte alignment), which must reach every
+   kernel variant; then (hamming at hash_num 64, W=2; minhash at H=64) at
+   B in {1, 256} and C = 1,000,003 rows with kernel, plain and library-call
+   times (CUDA events), the variant that ran, the bound, and the same
+   operations at the card's int32 issue rate;
 3. backends: an lsh and a minhash NNBackend on the card with 10^6 rows of
    32 hashed features (dim_bits 18), 200 ``neighbors(vec, 10)`` queries
    each; the kernel's launch count must rise by 200, and 5 queries redone
-   with the plain scan on the same device tensors must agree;
+   with the plain scan on the same device tensors must agree; 20 more
+   queries under torch.profiler split the device-busy time per query into
+   signature, scan, live mask, top-k and copies;
 4. server: ``python -m jubatus_tpu_torch.server nearest_neighbor -f
    config/nearest_neighbor/lsh.json`` on the card, 10^4 set_row and the
    four query methods plus get_all_rows over the port's RpcClient, compared
@@ -50,12 +56,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 # so this upper rate is used and the operations bound is stricter than the
 # card can reach.
 ALU_OPS_PER_S = 67e12
+# int32 lanes per SM and clock on Hopper: the int32 issue rate is this times
+# the SMs times the maximum SM clock (nvidia-smi clocks.max.sm)
+INT32_LANES_PER_SM = 64
 C_SCAN = 1_000_003            # candidate rows of the kernel phase (ragged)
 ROWS = 1_000_000              # rows of each full-size backend
 QUERIES = 200                 # timed neighbors() queries per backend
 PROFILED_QUERIES = 20         # further queries under torch.profiler
 SERVER_ROWS = 10_000          # set_row calls over the wire
 REPS = 30                     # timed kernel launches per shape (median)
+EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
+EDGE_W = (2, 3, 64, 70)
+EDGE_B_EXTRA = ((4100, 4099, 2),)  # hamming past one shared query tile
 KERNELS = {
     # ops_per_word: the least int32 ALU work per (query, row, word):
     # xor + popcount + add for hamming, compare + add for minhash
@@ -79,13 +91,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str, units: bool = True) -> str:
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
     proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, timeout=60)
     check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def int32_ops_per_s(torch) -> float:
+    """64 int32 lanes x SMs x the maximum SM clock."""
+    mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +167,62 @@ def scan_inputs(torch, mode: str, b: int, c: int, w: int, seed: int):
             torch.from_numpy(r.view(np.int32)).to(dev))
 
 
+def edge_inputs(torch, mode: str, b: int, c: int, w: int, rng,
+                misaligned: bool):
+    hi = 1 << 32 if mode == "hamming" else 40
+    q = rng.integers(0, hi, (b, w), dtype=np.uint32).view(np.int32)
+    r = rng.integers(0, hi, (c, w), dtype=np.uint32).view(np.int32)
+    qd = torch.from_numpy(q).cuda()
+    if not misaligned:
+        return qd, torch.from_numpy(r).cuda()
+    flat = torch.zeros(r.size + 1, dtype=torch.int32, device="cuda")
+    flat[1:] = torch.from_numpy(r.reshape(-1)).cuda()
+    rd = flat[1:].view(c, w)
+    check(rd.data_ptr() % 16 == 4, "misaligned table is not 4 bytes off")
+    return qd, rd
+
+
+def phase_edges(torch, sig_scan, seed: int) -> dict:
+    """Every variant's edges on the card: ragged tiles, lane groups, the
+    bulk-copy tail, misaligned output rows and tables, bit-equal to plain."""
+    rng = np.random.default_rng(seed)
+    small = sig_scan.SMALL_B
+    shapes = [(b, c, w) for c in EDGE_C for w in EDGE_W
+              for b in (1, 3, small, small + 1, 256, 300)]
+    seen, n = set(), 0
+    t0 = time.perf_counter()
+    for mode in KERNELS:
+        kern = sig_scan.hamming if mode == "hamming" else sig_scan.minhash
+        extra = EDGE_B_EXTRA if mode == "hamming" else ()
+        for b, c, w in shapes + list(extra):
+            for misaligned in (False, True):
+                q, r = edge_inputs(torch, mode, b, c, w, rng, misaligned)
+                if mode == "hamming":
+                    got = kern(q, r, 32 * w)
+                    ref = sig_scan.hamming_plain(q, r, 32 * w)
+                else:
+                    got, ref = kern(q, r), sig_scan.minhash_plain(q, r)
+                torch.cuda.synchronize()
+                variant = sig_scan.choose_variant(mode, b, w,
+                                                  r.data_ptr() % 16 == 0)
+                check(torch.equal(got, ref),
+                      f"{mode} ({variant}) B={b} C={c} W={w} misaligned="
+                      f"{misaligned}: kernel != plain (max abs err "
+                      f"{float((got - ref).abs().max())})")
+                seen.add((mode, variant))
+                n += 1
+    want = {(m, v) for m, vs in sig_scan.VARIANTS.items() for v in vs}
+    check(seen == want, f"edge shapes reached {sorted(seen)}, not every "
+                        f"variant {sorted(want)}")
+    return dict(shapes=n, variants=sorted(f"{m}.{v}" for m, v in seen),
+                bit_equal=True, seconds=time.perf_counter() - t0)
+
+
 def phase_kernels(torch, sig_scan, seed: int) -> dict:
+    int32_rate = int32_ops_per_s(torch)
+    # what the timing method reads for a kernel that does nothing (the
+    # spin kernel with no cycles): the floor under every time below
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), REPS)
     # a buffer twice the L2 size, rewritten before each cold timing
     l2_flush = torch.empty(25 * (1 << 20), dtype=torch.float32, device="cuda")
     results = {}
@@ -177,9 +255,17 @@ def phase_kernels(torch, sig_scan, seed: int) -> dict:
             lib = (time_ms(torch, run_l, REPS // 4)
                    if run_l is not None else None)
             bms, by = bound(b, C_SCAN, w, spec["ops_per_word"])
-            row = dict(B=b, C=C_SCAN, W=w, kernel_ms=cold, kernel_warm_ms=warm,
+            int32_ms = spec["ops_per_word"] * b * C_SCAN * w / int32_rate * 1e3
+            row = dict(B=b, C=C_SCAN, W=w,
+                       variant=sig_scan.choose_variant(
+                           mode, b, w, r.data_ptr() % 16 == 0),
+                       kernel_ms=cold, kernel_warm_ms=warm,
                        plain_ms=plain, library_ms=lib, bound_ms=bms,
-                       bound_by=by, max_abs_err=err)
+                       bound_by=by, bound_share=bms / cold,
+                       int32_issue_ms=int32_ms,
+                       int32_issue_share=int32_ms / cold,
+                       int32_ops_per_s=int32_rate, event_floor_ms=floor,
+                       max_abs_err=err)
             shapes.append(row)
             log(f"[kernels] {spec['name']} " + json.dumps(row))
             del q, r, got, ref
@@ -269,25 +355,95 @@ def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
     return out
 
 
+SIGNATURE_LABEL = "neighbors.query_signature"
+
+
+def step_of(event) -> str:
+    """The step of ``neighbors`` that a CPU op belongs to, from its
+    ancestors: the query signature (under SIGNATURE_LABEL, which
+    ``profile_queries`` puts around ``NNBackend._query_sig``), top-k (under
+    aten::topk), the live mask (an aten::where outside the signature: the
+    dead-slot mask of ``_distances_dev``), else ``other``."""
+    names, p = set(), event
+    while p is not None:
+        names.add(p.name)
+        p = p.cpu_parent
+    if SIGNATURE_LABEL in names:
+        return "signature"
+    if "aten::topk" in names:
+        return "topk"
+    if "aten::where" in names:
+        return "live_mask"
+    return "other"
+
+
+def busy_breakdown(prof, dev, n: int) -> dict:
+    """Device time per query (ms) by step: the scan kernel (by name),
+    copies (memcpy/memset items), and every other kernel by the step of the
+    CPU op that launched it (``step_of``). Kernels the profiler linked to
+    no CPU op are ``unattributed``."""
+    from torch.autograd import DeviceType
+
+    def is_copy(name: str) -> bool:
+        return name.startswith(("Memcpy", "Memset"))
+
+    us = dict(signature=0.0, scan=0.0, live_mask=0.0, topk=0.0, copies=0.0,
+              other=0.0)
+    for e in dev:
+        if "sig_scan" in e.name:
+            us["scan"] += e.time_range.elapsed_us()
+        elif is_copy(e.name):
+            us["copies"] += e.time_range.elapsed_us()
+    attributed = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        step = step_of(e)
+        for kern in e.kernels:
+            if ("sig_scan" in kern.name or is_copy(kern.name)
+                    or kern.name == SIGNATURE_LABEL):
+                continue
+            attributed += kern.duration
+            us[step] += kern.duration
+    rest = sum(e.time_range.elapsed_us() for e in dev
+               if "sig_scan" not in e.name and not is_copy(e.name))
+    us["unattributed"] = rest - attributed
+    return {f"{key}_ms": v / 1e3 / n for key, v in us.items()}
+
+
 def profile_queries(torch, be, vecs, k: int, unprofiled_ms: float) -> dict:
     """Where a query's time goes: ``neighbors`` under torch.profiler gives
     the device-busy time (sum of kernel and copy durations), the device
-    work items and the scan kernel's time per query. The profiler slows
-    the host side, so the idle and scan shares are taken against
-    ``unprofiled_ms``, the mean wall time of the same backend's timed
-    queries; the profiled wall time is reported beside them."""
+    work items, the scan kernel's time per query and the busy time split
+    by step (``busy_breakdown``). The profiler slows the host side, so the
+    idle and scan shares are taken against ``unprofiled_ms``, the mean wall
+    time of the same backend's timed queries; the profiled wall time is
+    reported beside them."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    def labelled(vec):
+        with record_function(SIGNATURE_LABEL):
+            return query_sig(vec)
+
+    query_sig = be._query_sig
+    be._query_sig = labelled  # for these queries only; removed below
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for vec in vecs:
-            be.neighbors(vec, k)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for vec in vecs:
+                be.neighbors(vec, k)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del be._query_sig
+    # device work items; the label's own range on the device timeline spans
+    # the whole signature step, idle time included, and is not one
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name != SIGNATURE_LABEL
+           and not getattr(e, "is_user_annotation", False)]
     check(dev, "torch.profiler recorded no device work")
     n = len(vecs)
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
@@ -305,6 +461,7 @@ def profile_queries(torch, be, vecs, k: int, unprofiled_ms: float) -> dict:
                 device_items_per_query=len(dev) / n,
                 sig_scan_ms_per_query=scan_ms,
                 sig_scan_share=scan_ms / unprofiled_ms,
+                busy_by_step=busy_breakdown(prof, dev, n),
                 top_device_us=[(name[:60], us / n) for name, us in top])
 
 
@@ -466,9 +623,13 @@ def main(argv=None) -> int:
         log(f"[build] {sig_scan.SOURCE.name} built and loaded in "
             f"{time.perf_counter() - t0:.2f} s")
         for line in sig_scan.build_log.splitlines():
+            if "entry function" in line:
+                log(f"[build] {line.strip()[:120]}")
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
-        # -- phase 2: kernels vs plain
+        # -- phase 2: kernels vs plain, edge shapes first
+        edges = phase_edges(torch, sig_scan, args.seed)
+        log(f"[edges] {json.dumps(edges)}")
         scans = phase_kernels(torch, sig_scan, args.seed)
         # -- phases 3 + 4: the main path, counted from zero
         sig_scan.hamming.launches = 0

@@ -18,7 +18,11 @@ the two packages, so this module reproduces those draws:
   bits (tests state the ULP bound). Every other step is exact integer work
   or a correctly rounded float operation, so the draws agree on the CPU and
   on the card unless the two float64 logs differ in a last bit that
-  survives the rounding to float32.
+  survives the rounding to float32. The square root is one of those
+  correctly rounded steps by construction (``_sqrt``), not by trust in the
+  library: on the CPU torch takes it from MKL's vector math, which is not
+  correctly rounded, and once returned results good to about 12 bits in one
+  worker thread of a process, which moved draws by thousands of ULP.
 
 The 32-bit words are held in ``int64`` tensors masked with ``0xFFFFFFFF``:
 ``torch.uint32`` lacks shifts and adds on some backends. Keys are plain
@@ -117,13 +121,30 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+def _sqrt(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``sqrt(v)``, correctly rounded. On a CUDA tensor torch's sqrt
+    already is (IEEE round to nearest). On the CPU three Newton steps in
+    float64 take the library's estimate, from within 1e-2, to within an ulp
+    of float64, and float64 keeps enough bits that rounding to float32 is
+    then exact."""
+    if v.is_cuda:
+        return torch.sqrt(v)
+    v64 = v.double()
+    s0 = torch.sqrt(v64)
+    s = s0
+    for _ in range(3):
+        s = 0.5 * (s + v64 / s)
+    # 0 and inf give 0/0 and inf/inf: keep the estimate there
+    return torch.where(torch.isfinite(s), s, s0).float()
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv as XLA lowers it: each Horner step a fused
     multiply-add (emulated exactly in float64), the ``log1p`` in float64
     (see the module note)."""
     w = -torch.log1p((x * -x).double()).float()
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
     a = torch.tensor(np.float32(_ERFINV_LT5), device=x.device)
     b = torch.tensor(np.float32(_ERFINV_GE5), device=x.device)
     p = torch.where(lt, a[0], b[0])

@@ -2,9 +2,18 @@
 
 Replaces the Pallas TPU kernel ``jubatus_tpu/ops/pallas_kernels.py:_sig_scan``
 (XOR+popcount / lane-match over packed LSH and minhash signature tables).
-The kernel is ``jubatus_tpu_torch/csrc/sig_scan.cu``; its source note says
-what bounds it (bytes: it reads C·W·4 and writes B·C·4) and what is left for
-later (wider loads, a transposed table, cp.async/TMA staging).
+The kernels are in ``jubatus_tpu_torch/csrc/sig_scan.cu``; its source note
+says what bounds each shape and what each variant does about it.
+``choose_variant`` picks the variant from the mode, the query count, the
+width and the table's alignment:
+
+- hamming at W = 2 on a 16-byte-aligned table: ``w2`` (four rows per
+  thread, 16-byte loads and streaming stores);
+- minhash at W % 4 == 0 on a 16-byte-aligned table: ``stream`` for at most
+  ``SMALL_B`` queries (a persistent grid streaming the table through a
+  bulk-copy ring), ``tiled`` above that (a register tile over rows and
+  queries);
+- anything else: ``generic``, one thread per row.
 
 Signature words are uint32 bit patterns held in ``int32`` tensors.
 
@@ -13,9 +22,9 @@ Signature words are uint32 bit patterns held in ``int32`` tensors.
 - ``minhash_distances_batch(q [B, H], r [C, H])`` → [B, C]
   ``1 - (#equal lanes) * (1/H)``.
 
-On a CUDA tensor a wrapper launches the kernel (or raises); on a CPU tensor,
-and only there, it runs the plain PyTorch version beside it. Each wrapper
-counts its kernel launches in ``.launches``.
+On a CUDA tensor a wrapper launches the chosen kernel (or raises); on a CPU
+tensor, and only there, it runs the plain PyTorch version beside it. Each
+wrapper counts its kernel launches in ``.launches``, whatever the variant.
 
 The kernel is built at first use with ``nvcc`` into a shared library with a
 plain C interface (``build/torch_kernels/`` under the checkout), loaded with
@@ -42,6 +51,17 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sig_scan.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the kernel variants of each mode, each one C entry point
+#: ``jt_sig_scan_<mode>_<variant>`` with the same arguments
+VARIANTS = {"hamming": ("generic", "w2"),
+            "minhash": ("generic", "stream", "tiled")}
+#: minhash: the most queries the ``stream`` variant takes (csrc: kSmallB)
+SMALL_B = 4
+#: minhash: the widest rows of ``stream`` and ``tiled`` (kStreamMaxW,
+#: kTiledMaxW)
+STREAM_MAX_W = 512
+TILED_MAX_W = 128
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -78,11 +98,13 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        for fn in (lib.jt_sig_scan_hamming, lib.jt_sig_scan_minhash):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        for mode, variants in VARIANTS.items():
+            for variant in variants:
+                fn = getattr(lib, f"jt_sig_scan_{mode}_{variant}")
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -136,6 +158,18 @@ def minhash_plain(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
+def choose_variant(mode: str, b: int, w: int, aligned: bool) -> str:
+    """The kernel variant for ``b`` queries of ``w`` words against a table
+    whose data starts on 16 bytes (``aligned``); see the module note."""
+    if mode == "hamming":
+        return "w2" if w == 2 and aligned else "generic"
+    if not aligned or w % 4:
+        return "generic"
+    if b <= SMALL_B:
+        return "stream" if w <= STREAM_MAX_W else "generic"
+    return "tiled" if w <= TILED_MAX_W else "generic"
+
+
 class SigScan:
     """One mode of the scan. ``launches`` counts kernel launches only."""
 
@@ -174,16 +208,16 @@ class SigScan:
         out = torch.empty((b, c), dtype=torch.float32, device=q.device)
         if b == 0 or c == 0:
             return out
-        lib = library()
-        fn = (lib.jt_sig_scan_hamming if self.mode == "hamming"
-              else lib.jt_sig_scan_minhash)
+        variant = choose_variant(self.mode, b, words, r.data_ptr() % 16 == 0)
+        fn = getattr(library(), f"jt_sig_scan_{self.mode}_{variant}")
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(q.data_ptr(), r.data_ptr(), out.data_ptr(), b, c, words,
                      scale, stream)
         if err != 0:
-            raise RuntimeError(f"sig_scan.{self.mode} launch failed: "
-                               f"cudaError_t {err} (B={b}, C={c}, W={words})")
+            raise RuntimeError(f"sig_scan.{self.mode} ({variant}) launch "
+                               f"failed: cudaError_t {err} (B={b}, C={c}, "
+                               f"W={words})")
         self.launches += 1
         return out
 

@@ -119,17 +119,62 @@ def test_wrapper_rejects_bad_inputs(rng, bad):
         sig_scan.hamming_distances_batch(q, r, hash_num=64)
 
 
+@pytest.mark.parametrize("mode,b,w,aligned,want", [
+    ("hamming", 1, 2, True, "w2"),
+    ("hamming", 256, 2, True, "w2"),
+    ("hamming", 1, 2, False, "generic"),
+    ("hamming", 1, 3, True, "generic"),
+    ("hamming", 300, 64, True, "generic"),
+    ("minhash", 1, 64, True, "stream"),
+    ("minhash", sig_scan.SMALL_B, 64, True, "stream"),
+    ("minhash", sig_scan.SMALL_B + 1, 64, True, "tiled"),
+    ("minhash", 256, 64, True, "tiled"),
+    ("minhash", 1, 64, False, "generic"),
+    ("minhash", 256, 64, False, "generic"),
+    ("minhash", 1, 70, True, "generic"),
+    ("minhash", 256, 3, True, "generic"),
+    ("minhash", 1, sig_scan.STREAM_MAX_W, True, "stream"),
+    ("minhash", 1, sig_scan.STREAM_MAX_W + 4, True, "generic"),
+    ("minhash", 256, sig_scan.TILED_MAX_W, True, "tiled"),
+    ("minhash", 256, sig_scan.TILED_MAX_W + 4, True, "generic"),
+])
+def test_choose_variant(mode, b, w, aligned, want):
+    got = sig_scan.choose_variant(mode, b, w, aligned)
+    assert got == want and got in sig_scan.VARIANTS[mode]
+
+
+def test_every_variant_is_chosen_somewhere():
+    chosen = {(mode, sig_scan.choose_variant(mode, b, w, aligned))
+              for mode in sig_scan.VARIANTS for b in (1, 300)
+              for w in (2, 3, 64, 200) for aligned in (True, False)}
+    assert chosen == {(m, v) for m, vs in sig_scan.VARIANTS.items()
+                      for v in vs}
+
+
+def _table(cuda, r: np.ndarray, misaligned: bool) -> torch.Tensor:
+    """The table on the card, starting 4 bytes past a 16-byte boundary when
+    ``misaligned`` (a sliced table)."""
+    if not misaligned:
+        return _t(r).to(cuda)
+    flat = torch.zeros(r.size + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = _t(r.reshape(-1)).to(cuda)
+    return flat[1:].view(r.shape)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["hamming", "minhash"])
-@pytest.mark.parametrize("b", [1, 5, 300])
+@pytest.mark.parametrize("b", [1, 3, sig_scan.SMALL_B, sig_scan.SMALL_B + 1,
+                               300])
 @pytest.mark.parametrize("w", [2, 3, 64, 70])
-def test_kernel_matches_plain_on_card(cuda, rng, mode, b, w):
-    c = 4099
+@pytest.mark.parametrize("c", [1, 7, 4099])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_kernel_matches_plain_on_card(cuda, rng, mode, b, w, c, misaligned):
     r = rng.integers(0, 2**32 if mode == "hamming" else 40, size=(c, w),
                      dtype=np.uint32)
     q = rng.integers(0, 2**32 if mode == "hamming" else 40, size=(b, w),
                      dtype=np.uint32)
-    qd, rd = _t(q).to(cuda), _t(r).to(cuda)
+    qd, rd = _t(q).to(cuda), _table(cuda, r, misaligned)
+    assert (rd.data_ptr() % 16 != 0) == misaligned
     kern = sig_scan.hamming if mode == "hamming" else sig_scan.minhash
     before = kern.launches
     if mode == "hamming":
@@ -141,3 +186,28 @@ def test_kernel_matches_plain_on_card(cuda, rng, mode, b, w):
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,variant,b,w,misaligned", [
+    ("hamming", "w2", 1, 3, False),
+    ("hamming", "w2", 1, 2, True),
+    ("minhash", "stream", sig_scan.SMALL_B + 1, 64, False),
+    ("minhash", "stream", 1, 70, False),
+    ("minhash", "stream", 1, 64, True),
+    ("minhash", "tiled", 300, sig_scan.TILED_MAX_W + 4, False),
+    ("minhash", "tiled", 300, 64, True),
+])
+def test_variant_refuses_what_it_does_not_take(cuda, mode, variant, b, w,
+                                               misaligned):
+    """An entry point called outside its variant's preconditions returns an
+    error (cudaErrorInvalidValue) and launches nothing."""
+    q = torch.zeros((b, w), dtype=torch.int32, device=cuda)
+    r = _table(cuda, np.zeros((64, w), np.uint32), misaligned)
+    out = torch.full((b, 64), 7.0, device=cuda)
+    fn = getattr(sig_scan.library(), f"jt_sig_scan_{mode}_{variant}")
+    err = fn(q.data_ptr(), r.data_ptr(), out.data_ptr(), b, 64, w, 0.5,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    assert bool((out == 7.0).all())
