@@ -26,17 +26,41 @@ each of which fails the run (non-zero exit, no result line) on error:
    config/nearest_neighbor/lsh.json`` on the card, 10^4 set_row and the
    four query methods plus get_all_rows over the port's RpcClient, compared
    with the port's driver on the CPU fed the same rows; the server's
-   scan-launch count (get_status) must move.
+   scan-launch count (get_status) must move;
+5. recommender: ``config/recommender/{lsh,minhash,default}.json`` (default
+   is inverted_index) with the rows of phase 3 through ``backend.set_row``;
+   50 ``similar_row_from_datum`` (k = 10) and 50
+   ``complete_row_from_datum`` timed (p50/p99), the flush (or, for the
+   exact method, the arenas' upload) timed; the first answers held against
+   the plain scan (hash methods, exactly) or the CPU recomputation of every
+   distance (inverted_index, within EXACT_TOL); 10 more queries under
+   torch.profiler split by step;
+6. anomaly: ``config/anomaly/lof_unlearner_lru.json`` as shipped
+   (euclid_lsh) and with its nested method set to lsh and to minhash, 4096
+   rows through ``backend.set_row``; one cold LOF support rebuild timed and
+   split into scan, readback and host, each chunk's kernel output held
+   against the plain version; 5 ``add`` and 50 ``calc_score`` timed; the
+   support and every score held against the port's driver on the CPU fed
+   the same rows (lsh/minhash exactly, euclid_lsh within LOF_SCORE_RTOL);
+   float32 matmul must be at full precision (no TF32);
+7. servers: the recommender (default.json, 10^4 update_row), anomaly (LOF
+   over lsh, 500 add: each add rebuilds the support) and classifier
+   (``config/classifier/nn.json`` as shipped and with nested lsh, 10^4
+   examples) servers on the card, every answer compared with the port's
+   driver on the CPU fed the same datums.
 
-Phases 3 and 4 are the main path: every launch count is set to 0 just
-before them and read just after. The last lines are a ``{"kernels": ...}``
-JSON line, the nvidia-smi line, and ``{"ok": true, "device": ...}``.
-The sizes are fixed; ``--seed`` picks the random data.
+Phases 3-7 are the main path: each path's launch counts are set to 0 just
+before it and read just after (a server's from its get_status); launches
+made only to compare with the plain version or to time a kernel are not
+counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
+launches per path), the nvidia-smi line, and ``{"ok": true, "device":
+...}``. The sizes are fixed; ``--seed`` picks the random data.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import socket
@@ -63,7 +87,16 @@ C_SCAN = 1_000_003            # candidate rows of the kernel phase (ragged)
 ROWS = 1_000_000              # rows of each full-size backend
 QUERIES = 200                 # timed neighbors() queries per backend
 PROFILED_QUERIES = 20         # further queries under torch.profiler
-SERVER_ROWS = 10_000          # set_row calls over the wire
+SERVER_ROWS = 10_000          # rows written over the wire per server
+REC_ROWS = 1_000_000          # rows of each recommender (phase 5)
+REC_QUERIES = 50              # timed similar_row / complete_row calls each
+REC_PROFILED = 10             # further similar_row calls under the profiler
+REC_CONFIGS = ("lsh.json", "minhash.json", "default.json")
+LOF_ROWS = 4096               # lof_unlearner_lru.json's max_size
+LOF_ADDS = 5
+LOF_SCORES = 50
+LOF_METHODS = ("euclid_lsh", "lsh", "minhash")
+ANOMALY_SERVER_ROWS = 500     # adds over the wire (each rebuilds the support)
 REPS = 30                     # timed kernel launches per shape (median)
 EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
 EDGE_W = (2, 3, 64, 70)
@@ -284,19 +317,27 @@ def random_rows(rng, n: int, nnz: int, dim_bits: int):
     return idx, val
 
 
-def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
-                  seed: int) -> dict:
-    rows, queries = ROWS, QUERIES
-    dim_bits, nnz, k = 18, 32, 10
+def fill_rows(be, rows: int, seed: int, nnz: int = 32,
+              dim_bits: int = 18) -> None:
+    """``rows`` random rows (``nnz`` hashed features over 2^dim_bits) into a
+    backend through ``set_row``; the same seed gives the same rows."""
     rng = np.random.default_rng(seed)
-    be = NNBackend(method, dim=1 << dim_bits, hash_num=64, seed=0,
-                   device="cuda")
-    t0 = time.perf_counter()
     step = 50_000
     for lo in range(0, rows, step):
         idx, val = random_rows(rng, min(step, rows - lo), nnz, dim_bits)
         for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist())):
             be.set_row(f"r{lo + i}", list(zip(ii, vv)))
+
+
+def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
+                  seed: int) -> dict:
+    rows, queries = ROWS, QUERIES
+    dim_bits, nnz, k = 18, 32, 10
+    be = NNBackend(method, dim=1 << dim_bits, hash_num=64, seed=0,
+                   device="cuda")
+    t0 = time.perf_counter()
+    fill_rows(be, rows, seed, nnz, dim_bits)
+    rng = np.random.default_rng(seed + 1)
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
     signed = be.flush()
@@ -339,8 +380,10 @@ def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
     mean_ms = statistics.fmean(lat)
     lat.sort()
     pidx, pval = random_rows(rng, PROFILED_QUERIES, nnz, dim_bits)
-    prof = profile_queries(torch, be, [list(zip(ii, vv)) for ii, vv in zip(
-        pidx.tolist(), pval.tolist())], k, mean_ms)
+    pvecs = [list(zip(ii, vv)) for ii, vv in zip(pidx.tolist(), pval.tolist())]
+    prof = profile_calls(
+        torch, [lambda v=v: be.neighbors(v, k) for v in pvecs], mean_ms,
+        [(be, "_query_sig", "signature")])
     out = dict(method=method, rows=rows, queries=queries,
                load_s=t_load, flush_s=t_flush,
                flush_rows_per_s=rows / t_flush,
@@ -355,21 +398,22 @@ def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
     return out
 
 
-SIGNATURE_LABEL = "neighbors.query_signature"
+LABEL_PREFIX = "smoke."
 
 
 def step_of(event) -> str:
-    """The step of ``neighbors`` that a CPU op belongs to, from its
-    ancestors: the query signature (under SIGNATURE_LABEL, which
-    ``profile_queries`` puts around ``NNBackend._query_sig``), top-k (under
-    aten::topk), the live mask (an aten::where outside the signature: the
-    dead-slot mask of ``_distances_dev``), else ``other``."""
-    names, p = set(), event
+    """The step of a profiled call that a CPU op belongs to, from its
+    ancestors: the innermost ``record_function`` label that
+    ``profile_calls`` put around a step (``smoke.<step>``), else top-k
+    (under aten::topk), the live mask (an aten::where outside every
+    labelled step: the dead-slot mask of ``_distances_dev``), else
+    ``other``."""
+    names, p = [], event
     while p is not None:
-        names.add(p.name)
+        if p.name.startswith(LABEL_PREFIX):
+            return p.name[len(LABEL_PREFIX):]
+        names.append(p.name)
         p = p.cpu_parent
-    if SIGNATURE_LABEL in names:
-        return "signature"
     if "aten::topk" in names:
         return "topk"
     if "aten::where" in names:
@@ -377,8 +421,8 @@ def step_of(event) -> str:
     return "other"
 
 
-def busy_breakdown(prof, dev, n: int) -> dict:
-    """Device time per query (ms) by step: the scan kernel (by name),
+def busy_breakdown(prof, dev, n: int, steps) -> dict:
+    """Device time per call (ms) by step: the scan kernel (by name),
     copies (memcpy/memset items), and every other kernel by the step of the
     CPU op that launched it (``step_of``). Kernels the profiler linked to
     no CPU op are ``unattributed``."""
@@ -387,8 +431,8 @@ def busy_breakdown(prof, dev, n: int) -> dict:
     def is_copy(name: str) -> bool:
         return name.startswith(("Memcpy", "Memset"))
 
-    us = dict(signature=0.0, scan=0.0, live_mask=0.0, topk=0.0, copies=0.0,
-              other=0.0)
+    us = {step: 0.0 for step in steps}
+    us.update(scan=0.0, live_mask=0.0, topk=0.0, copies=0.0, other=0.0)
     for e in dev:
         if "sig_scan" in e.name:
             us["scan"] += e.time_range.elapsed_us()
@@ -401,7 +445,7 @@ def busy_breakdown(prof, dev, n: int) -> dict:
         step = step_of(e)
         for kern in e.kernels:
             if ("sig_scan" in kern.name or is_copy(kern.name)
-                    or kern.name == SIGNATURE_LABEL):
+                    or kern.name.startswith(LABEL_PREFIX)):
                 continue
             attributed += kern.duration
             us[step] += kern.duration
@@ -411,41 +455,50 @@ def busy_breakdown(prof, dev, n: int) -> dict:
     return {f"{key}_ms": v / 1e3 / n for key, v in us.items()}
 
 
-def profile_queries(torch, be, vecs, k: int, unprofiled_ms: float) -> dict:
-    """Where a query's time goes: ``neighbors`` under torch.profiler gives
-    the device-busy time (sum of kernel and copy durations), the device
-    work items, the scan kernel's time per query and the busy time split
-    by step (``busy_breakdown``). The profiler slows the host side, so the
-    idle and scan shares are taken against ``unprofiled_ms``, the mean wall
-    time of the same backend's timed queries; the profiled wall time is
-    reported beside them."""
+def profile_calls(torch, calls, unprofiled_ms: float, steps) -> dict:
+    """Where a call's time goes: the calls under torch.profiler give the
+    device-busy time (sum of kernel and copy durations), the device work
+    items, the scan kernel's time per call and the busy time split by step
+    (``busy_breakdown``). ``steps`` is a list of (object, attribute, step):
+    each such function is wrapped in a ``smoke.<step>`` label for these
+    calls only. The profiler slows the host side, so the idle and scan
+    shares are taken against ``unprofiled_ms``, the mean wall time of the
+    same calls unprofiled; the profiled wall time is reported beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    def labelled(vec):
-        with record_function(SIGNATURE_LABEL):
-            return query_sig(vec)
+    def labelled(fn, label):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
 
-    query_sig = be._query_sig
-    be._query_sig = labelled  # for these queries only; removed below
+    saved = []
+    for obj, attr, step in steps:
+        saved.append((obj, attr, vars(obj).get(attr)))
+        setattr(obj, attr, labelled(getattr(obj, attr), LABEL_PREFIX + step))
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for vec in vecs:
-                be.neighbors(vec, k)
+            for call in calls:
+                call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        del be._query_sig
-    # device work items; the label's own range on the device timeline spans
-    # the whole signature step, idle time included, and is not one
+        for obj, attr, orig in reversed(saved):
+            if orig is None:
+                delattr(obj, attr)      # the class's method shows again
+            else:
+                setattr(obj, attr, orig)
+    # device work items; a label's own range on the device timeline spans
+    # its whole step, idle time included, and is not one
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and e.name != SIGNATURE_LABEL
+           and not e.name.startswith(LABEL_PREFIX)
            and not getattr(e, "is_user_annotation", False)]
     check(dev, "torch.profiler recorded no device work")
-    n = len(vecs)
+    n = len(calls)
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
     scan_ms = sum(e.time_range.elapsed_us() for e in dev
                   if "sig_scan" in e.name) / 1e3 / n
@@ -461,7 +514,8 @@ def profile_queries(torch, be, vecs, k: int, unprofiled_ms: float) -> dict:
                 device_items_per_query=len(dev) / n,
                 sig_scan_ms_per_query=scan_ms,
                 sig_scan_share=scan_ms / unprofiled_ms,
-                busy_by_step=busy_breakdown(prof, dev, n),
+                busy_by_step=busy_breakdown(prof, dev, n,
+                                            [st for _, _, st in steps]),
                 top_device_us=[(name[:60], us / n) for name, us in top])
 
 
@@ -497,23 +551,37 @@ def server_datum(rng, Datum, i: int):
     return d
 
 
-def phase_server(torch, Datum, RpcClient, NearestNeighborDriver,
-                 seed: int) -> dict:
-    config_path = os.path.join(ROOT, "config", "nearest_neighbor", "lsh.json")
-    with open(config_path) as f:
-        config = json.load(f)
+@contextlib.contextmanager
+def serving(engine: str, config_path: str):
+    """``python -m jubatus_tpu_torch.server <engine> -f <config>`` on the
+    card; yields an RpcClient once the server answers. On an error the
+    server log's tail goes to stderr; the server is stopped either way."""
     port = free_port()
     os.makedirs(OUT_DIR, exist_ok=True)
-    log_path = os.path.join(OUT_DIR, "chip_smoke_server.log")
-    cmd = [sys.executable, "-m", "jubatus_tpu_torch.server",
-           "nearest_neighbor", "-f", config_path, "-p", str(port),
-           "-b", "127.0.0.1", "-c", "4", "--device", "cuda"]
+    log_path = os.path.join(OUT_DIR, f"chip_smoke_server_{engine}.log")
+    cmd = [sys.executable, "-m", "jubatus_tpu_torch.server", engine,
+           "-f", config_path, "-p", str(port), "-b", "127.0.0.1", "-c", "4",
+           "--device", "cuda"]
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=logf,
                                 stderr=subprocess.STDOUT)
+    cli = RpcClient("127.0.0.1", port, timeout=120.0)
     try:
-        return _drive_server(torch, Datum, RpcClient, NearestNeighborDriver,
-                             config, port, proc, SERVER_ROWS, seed, log_path)
+        deadline = time.time() + 180
+        while True:
+            check(proc.poll() is None,
+                  f"{engine} server exited with {proc.returncode}; see "
+                  f"{log_path}")
+            try:
+                cli.call("get_status", "smoke")
+                break
+            except Exception:  # broad-ok — the server is still starting
+                check(time.time() < deadline,
+                      f"{engine} server did not answer in 180 s")
+                time.sleep(0.5)
+        yield cli
     except Exception:
         with open(log_path) as f:
             tail = f.read()[-4000:]
@@ -521,6 +589,7 @@ def phase_server(torch, Datum, RpcClient, NearestNeighborDriver,
               file=sys.stderr)
         raise
     finally:
+        cli.close()
         proc.terminate()
         try:
             proc.wait(timeout=20)
@@ -529,20 +598,30 @@ def phase_server(torch, Datum, RpcClient, NearestNeighborDriver,
             proc.wait(timeout=20)
 
 
-def _drive_server(torch, Datum, RpcClient, NearestNeighborDriver, config,
-                  port, proc, rows, seed, log_path) -> dict:
+def server_status(cli) -> dict:
+    st = next(iter(cli.call("get_status", "smoke").values()))
+    check(st.get("driver.device", "").startswith("cuda"),
+          f"server runs on {st.get('driver.device')!r}, not the card")
+    return st
+
+
+def server_launches(st: dict) -> dict:
+    return {mode: int(st[f"kernel.sig_scan.{mode}.launches"])
+            for mode in KERNELS}
+
+
+def phase_server(torch, Datum, NearestNeighborDriver, seed: int) -> dict:
+    config_path = os.path.join(ROOT, "config", "nearest_neighbor", "lsh.json")
+    with open(config_path) as f:
+        config = json.load(f)
+    with serving("nearest_neighbor", config_path) as cli:
+        return _drive_server(Datum, NearestNeighborDriver, config, cli,
+                             SERVER_ROWS, seed)
+
+
+def _drive_server(Datum, NearestNeighborDriver, config, cli, rows,
+                  seed) -> dict:
     name = "smoke"
-    cli = RpcClient("127.0.0.1", port, timeout=60.0)
-    deadline = time.time() + 180
-    while True:
-        check(proc.poll() is None,
-              f"server exited with {proc.returncode}; see {log_path}")
-        try:
-            cli.call("get_status", name)
-            break
-        except Exception:  # broad-ok — the server is still starting
-            check(time.time() < deadline, "server did not answer in 180 s")
-            time.sleep(0.5)
     ref = NearestNeighborDriver(config, device="cpu")
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
@@ -554,7 +633,7 @@ def _drive_server(torch, Datum, RpcClient, NearestNeighborDriver, config,
         ref.set_row(rid, d)
         ids.append(rid)
     t_set = time.perf_counter() - t0
-    st0 = next(iter(cli.call("get_status", name).values()))
+    st0 = server_status(cli)
     calls = 0
     lat = []
     for i in range(20):
@@ -573,20 +652,581 @@ def _drive_server(torch, Datum, RpcClient, NearestNeighborDriver, config,
             compare_ranked([tuple(x) for x in got], want, f"server {method}")
     all_rows = cli.call("get_all_rows", name)
     check(sorted(all_rows) == sorted(ids), "get_all_rows differs")
-    st1 = next(iter(cli.call("get_status", name).values()))
+    st1 = server_status(cli)
     key = "kernel.sig_scan.hamming.launches"
     moved = st1[key] - st0[key]
-    check(st1.get("driver.device", "").startswith("cuda"),
-          f"server runs on {st1.get('driver.device')!r}, not the card")
     check(moved == calls, f"server scan launches moved {moved} for "
                           f"{calls} queries")
-    cli.close()
     lat.sort()
     return dict(rows=rows, set_row_s=t_set, query_calls=calls,
                 query_p50_ms=lat[len(lat) // 2], query_max_ms=lat[-1],
-                server_launches=int(st1[key]),
-                server_minhash_launches=int(st1["kernel.sig_scan.minhash.launches"]),
+                launches=server_launches(st1),
                 server_device=st1.get("driver.device"))
+
+
+# ---------------------------------------------------------------------------
+# shared by the engine phases
+# ---------------------------------------------------------------------------
+def load_config(*parts) -> dict:
+    with open(os.path.join(ROOT, "config", *parts)) as f:
+        return json.load(f)
+
+
+def launch_counts(sig_scan) -> dict:
+    return {"hamming": sig_scan.hamming.launches,
+            "minhash": sig_scan.minhash.launches}
+
+
+def set_counts(sig_scan, counts: dict) -> None:
+    sig_scan.hamming.launches = counts["hamming"]
+    sig_scan.minhash.launches = counts["minhash"]
+
+
+@contextlib.contextmanager
+def uncounted(sig_scan):
+    """Launches made inside (checks against the plain version, timings)
+    do not count as the main path's."""
+    saved = launch_counts(sig_scan)
+    try:
+        yield
+    finally:
+        set_counts(sig_scan, saved)
+
+
+def moved(sig_scan, before: dict) -> dict:
+    now = launch_counts(sig_scan)
+    return {m: now[m] - before[m] for m in now}
+
+
+def pcts(lat) -> dict:
+    """p50 / p99 / mean of call latencies, and the first call's."""
+    first, lat = lat[0], sorted(lat)
+    return dict(p50_ms=lat[len(lat) // 2],
+                p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+                mean_ms=statistics.fmean(lat), first_ms=first)
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def random_datums(rng, Datum, n: int, features: int = 32):
+    """Datums of ``features`` num features named f0..f511 (0.05..1.05)."""
+    out = []
+    for _ in range(n):
+        d = Datum()
+        for j in rng.choice(512, features, replace=False):
+            d.add(f"f{j}", float(np.round(rng.random() + 0.05, 3)))
+        out.append(d)
+    return out
+
+
+def assert_matmul_full_precision(torch) -> None:
+    """euclid_lsh's batched distances are a float32 matmul (cuBLAS): TF32
+    would move them far past the stated tolerances."""
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmul is not at full precision (TF32 on)")
+
+
+def compare_close(got, want, what: str, tol: float) -> None:
+    """(id, score) lists: scores within ``tol`` (absolute), ids equal as a
+    set where the score is clear of the last one by more than ``tol``."""
+    gs = np.array([float(s) for _, s in got])
+    ws = np.array([float(s) for _, s in want])
+    check(gs.shape == ws.shape, f"{what}: {len(gs)} results, want {len(ws)}")
+    if not len(ws):
+        return
+    err = float(np.abs(gs - ws).max())
+    check(err <= tol, f"{what}: scores off by {err} (> {tol})")
+    edge = ws[-1]
+    clear = (lambda v: v > edge + tol) if ws[0] >= ws[-1] else \
+        (lambda v: v < edge - tol)
+    g_in = {i for (i, _), v in zip(got, gs) if clear(v)}
+    w_in = {i for (i, _), v in zip(want, ws) if clear(v)}
+    check(g_in == w_in, f"{what}: ids clear of the boundary differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the recommender at 10^6 rows
+# ---------------------------------------------------------------------------
+EXACT_TOL = 1e-5      # exact distances on the card against the CPU (abs)
+
+
+def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
+                      config_name: str, seed: int) -> dict:
+    config = load_config("recommender", config_name)
+    rec = RecommenderDriver(config, device="cuda")
+    be = rec.backend
+    exact = be.method in ("inverted_index", "euclid")
+    t0 = time.perf_counter()
+    fill_rows(be, REC_ROWS, seed)
+    t_load = time.perf_counter() - t0
+    # the write path: signatures of every row (hash methods) or the
+    # arenas' upload (the exact methods' device_view)
+    t0 = time.perf_counter()
+    signed = be.flush()
+    if exact:
+        view = be.store.device_view(be.device)
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    check(signed == (0 if exact else REC_ROWS),
+          f"{config_name}: flushed {signed} rows")
+    queries = random_datums(np.random.default_rng(seed + 2), Datum,
+                            REC_QUERIES)
+    before = launch_counts(sig_scan)
+    sim_lat, comp_lat, answers = [], [], []
+    for q in queries:
+        res, ms = timed(rec.similar_row_from_datum, q, 10)
+        sim_lat.append(ms)
+        answers.append(res)
+        check(len(res) == 10 and all(np.isfinite(v) for _, v in res),
+              f"{config_name}: bad similar_row answer {res[:3]}")
+    for q in queries:
+        comp, ms = timed(rec.complete_row_from_datum, q)
+        comp_lat.append(ms)
+        check(all(np.isfinite(v) for _, v in comp.num_values),
+              f"{config_name}: non-finite complete_row value")
+    launched = moved(sig_scan, before)
+    if exact:
+        check(sum(launched.values()) == 0,
+              f"{config_name}: the exact method launched {launched}")
+    else:
+        mode = "hamming" if be.method == "lsh" else "minhash"
+        check(launched[mode] == 2 * REC_QUERIES,
+              f"{config_name}: {launched[mode]} scans for "
+              f"{2 * REC_QUERIES} queries")
+    with uncounted(sig_scan):
+        checked = check_recommender(torch, sig_scan, knn, rec, queries[:3],
+                                    answers[:3], config_name, exact)
+    sim_mean = statistics.fmean(sim_lat)
+    pq = random_datums(np.random.default_rng(seed + 3), Datum, REC_PROFILED)
+    steps = ([(knn, "densify", "densify"), (knn, "dot_scores", "gather_dot"),
+              (knn, "row_norms", "norms"), (be, "_exact_distances", "score")]
+             if exact else [(be, "_query_sig", "signature")])
+    prof = profile_calls(
+        torch, [lambda q=q: rec.similar_row_from_datum(q, 10) for q in pq],
+        sim_mean, steps)
+    out = dict(config=f"config/recommender/{config_name}", method=be.method,
+               rows=REC_ROWS, queries=REC_QUERIES, load_s=t_load,
+               flush_s=t_flush, flush_rows_per_s=REC_ROWS / t_flush,
+               similar_row=pcts(sim_lat), complete_row=pcts(comp_lat),
+               launches=launched, parity=checked, profile=prof)
+    if exact:
+        out["view_bytes"] = int(sum(t.numel() * t.element_size()
+                                    for t in view))
+        del view
+    else:
+        out["table_bytes"] = int(be._sigs.numel() * be._sigs.element_size())
+    del rec, be
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_recommender(torch, sig_scan, knn, rec, queries, answers,
+                      config_name, exact) -> dict:
+    """The first queries' answers against their plain versions: for the
+    hash methods the plain scan on the same device tensors (exact equality
+    of the similarity lists); for the exact methods the whole [C] distance
+    vector recomputed on the CPU from the host arenas (within
+    ``EXACT_TOL``), and the same for vectors made of stored rows (half
+    their entries dropped), which score many rows above 0."""
+    be = rec.backend
+    worst = 0.0
+    if exact:
+        idx = torch.from_numpy(be.store.idx)
+        val = torch.from_numpy(be.store.val)
+        live = torch.from_numpy(be.store.live)
+        rng = np.random.default_rng(5)
+        vecs = [rec.converter.convert(q) for q in queries]
+        for s in rng.integers(0, REC_ROWS, 3):
+            row = be.store.get_row(f"r{int(s)}")
+            vecs.append(row[::2] + [(int(i), 0.5) for i in
+                                    rng.integers(1, be.dim, 4)])
+        for n, vec in enumerate(vecs):
+            qd = knn.densify(torch.tensor([i for i, _ in vec], dtype=torch.int32),
+                             torch.tensor([v for _, v in vec], dtype=torch.float32),
+                             dim=be.dim)
+            d_cpu = (1.0 - knn.cosine_scores(idx, val, qd)
+                     if be.method == "inverted_index"
+                     else knn.euclid_distances(idx, val, qd))
+            d_cpu = torch.where(live, d_cpu, torch.tensor(float("inf")))
+            d_dev = torch.from_numpy(be.distances(vec))
+            fin = torch.isfinite(d_cpu)
+            check(torch.equal(fin, torch.isfinite(d_dev)),
+                  f"{config_name}: dead slots differ")
+            err = float((d_dev[fin] - d_cpu[fin]).abs().max())
+            worst = max(worst, err)
+            check(err <= EXACT_TOL, f"{config_name}: card distances off the "
+                                    f"CPU's by {err} (> {EXACT_TOL})")
+            vals, order = torch.topk(d_cpu, 10, largest=False, sorted=True)
+            want = [(be.store.ids[s], float(be.similarity_from_distance(
+                np.float32(v)))) for s, v in zip(order.tolist(), vals.tolist())]
+            got = answers[n] if n < len(answers) else be.similar(vec, 10)
+            compare_close(got, want, f"{config_name} query {n}", EXACT_TOL)
+        return dict(vectors=len(vecs), max_abs_err=worst, tol=EXACT_TOL)
+    table = be.sig_table()
+    live = torch.tensor(be.store.live, device=table.device)
+    for q, res in zip(queries, answers):
+        sb = rec.converter.convert(q)
+        qi = torch.tensor([[i for i, _ in sb]], dtype=torch.int32,
+                          device=table.device)
+        qv = torch.tensor([[v for _, v in sb]], dtype=torch.float32,
+                          device=table.device)
+        if be.method == "lsh":
+            qs = knn.lsh_signature(qi, qv, hash_num=be.hash_num, seed=be.seed)
+            d = sig_scan.hamming_plain(qs, table, be.hash_num)[0]
+        else:
+            qs = knn.minhash_signature(qi, qv, hash_num=be.hash_num,
+                                       seed=be.seed)
+            d = sig_scan.minhash_plain(qs, table)[0]
+        d = torch.where(live, d, torch.tensor(float("inf"), device=d.device))
+        vals, order = torch.topk(d, 10, largest=False, sorted=True)
+        want = [(be.store.ids[s], float(be.similarity_from_distance(
+            np.float32(v)))) for s, v in zip(order.tolist(), vals.tolist())]
+        compare_ranked(res, want, f"{config_name} plain recompute")
+    return dict(vectors=len(queries), max_abs_err=0.0, tol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: anomaly LOF at 4096 rows
+# ---------------------------------------------------------------------------
+LOF_SCORE_RTOL = 1e-4   # euclid_lsh LOF, card against the CPU
+
+
+def lof_config(nn_method: str) -> dict:
+    """config/anomaly/lof_unlearner_lru.json, its nested method set to
+    ``nn_method`` (the file's own is euclid_lsh)."""
+    config = load_config("anomaly", "lof_unlearner_lru.json")
+    config["parameter"]["method"] = nn_method
+    return config
+
+
+def phase_anomaly(torch, sig_scan, AnomalyDriver, Datum, nn_method: str,
+                  seed: int) -> dict:
+    config = lof_config(nn_method)
+    drv = AnomalyDriver(config, device="cuda")
+    ref = AnomalyDriver(config, device="cpu")
+    be = drv.backend
+    exact = nn_method in ("lsh", "minhash")
+    mode = {"lsh": "hamming", "minhash": "minhash"}.get(nn_method)
+    rng = np.random.default_rng(seed + 7)
+    idx, val = random_rows(rng, LOF_ROWS, 32, 18)
+    t0 = time.perf_counter()
+    for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist())):
+        be.set_row(f"r{i}", list(zip(ii, vv)))
+        ref.backend.set_row(f"r{i}", list(zip(ii, vv)))
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    be.flush()
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    slots = np.asarray(sorted(be.store.slots.values()), np.int64)
+    n, c = len(slots), be.store.capacity
+    # one cold support rebuild, as calc_score runs it
+    before = launch_counts(sig_scan)
+    (kdist, lrd), support_ms = timed(drv._support)
+    rebuild_launches = moved(sig_scan, before)
+    chunks = -(-n // 256)
+    if exact:
+        check(rebuild_launches[mode] == chunks,
+              f"LOF {nn_method}: {rebuild_launches[mode]} scans for one "
+              f"rebuild of {n} rows, want {chunks}")
+    else:
+        check(sum(rebuild_launches.values()) == 0,
+              f"LOF euclid_lsh launched {rebuild_launches}")
+    with uncounted(sig_scan):
+        split, shape = lof_split(torch, sig_scan, be, slots, mode, support_ms)
+    # the CPU port driver on the same rows: the same support
+    rk, rl = ref._support()
+    if exact:
+        check(np.array_equal(kdist, rk) and np.array_equal(lrd, rl),
+              f"LOF {nn_method}: support differs from the CPU driver's")
+    else:
+        for a, b_, what in ((kdist, rk, "kdist"), (lrd, rl, "lrd")):
+            fin = np.isfinite(b_)
+            check(np.array_equal(fin, np.isfinite(a)) and np.allclose(
+                a[fin], b_[fin], rtol=LOF_SCORE_RTOL, atol=0),
+                f"LOF {nn_method}: {what} off the CPU driver's")
+    datums = random_datums(np.random.default_rng(seed + 8), Datum,
+                           LOF_ADDS + LOF_SCORES)
+    before = launch_counts(sig_scan)
+    add_lat, score_lat, got, want = [], [], [], []
+    for d in datums[:LOF_ADDS]:
+        (rid, score), ms = timed(drv.add, d)
+        add_lat.append(ms)
+        rid_ref, score_ref = ref.add(d)
+        check(rid == rid_ref, f"LOF add minted {rid}, the CPU {rid_ref}")
+        got.append(score)
+        want.append(score_ref)
+    for d in datums[LOF_ADDS:]:
+        score, ms = timed(drv.calc_score, d)
+        score_lat.append(ms)
+        got.append(score)
+        want.append(ref.calc_score(d))
+    path_launches = moved(sig_scan, before)
+    got, want = np.array(got), np.array(want)
+    check(bool(np.isfinite(got).all()), f"LOF {nn_method}: non-finite score")
+    if exact:
+        check(np.array_equal(got, want),
+              f"LOF {nn_method}: scores differ from the CPU driver's")
+        err = 0.0
+    else:
+        err = float(np.abs(got / want - 1.0).max())
+        check(err <= LOF_SCORE_RTOL, f"LOF {nn_method}: scores off the "
+                                     f"CPU's by rtol {err}")
+    check(len(be.store) == LOF_ROWS, "LRU max_size not held")
+    launched = {m: rebuild_launches[m] + path_launches[m] for m in KERNELS}
+    del drv, ref, be
+    torch.cuda.empty_cache()
+    return dict(config="config/anomaly/lof_unlearner_lru.json",
+                nn_method=nn_method, rows=n, capacity=c, load_s=t_load,
+                flush_s=t_flush, support_cold_ms=support_ms,
+                support_split=split, rebuild_launches=rebuild_launches,
+                add=pcts(add_lat), calc_score=pcts(score_lat),
+                parity=dict(against="the port's driver on the CPU",
+                            support_and_scores="bit-equal" if exact else
+                            f"rtol {LOF_SCORE_RTOL}", score_max_rtol=err),
+                launches=launched, lof_shape=shape)
+
+
+def lof_split(torch, sig_scan, be, slots, mode, support_ms):
+    """The rebuild's parts, each timed on its own: the scans alone (CUDA
+    events over every chunk), ``distances_from_slots`` (scans plus the
+    [n, C] readback; the readback is the difference) and the host work
+    (numpy sorts; the cold rebuild less ``distances_from_slots``). For
+    lsh/minhash each chunk's kernel output is held against the plain
+    version, and one chunk at B = 256 is timed against it."""
+    sigs = be._sigs
+    sel = [torch.as_tensor(slots[lo:lo + 256], device=sigs.device)
+           for lo in range(0, len(slots), 256)]
+    be._scan(sigs[sel[0]], sigs)                       # warm
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    outs = [be._scan(sigs[s], sigs) for s in sel]
+    end.record()
+    end.synchronize()
+    scan_ms = start.elapsed_time(end)
+    _, dfs_ms = timed(be.distances_from_slots, slots)
+    split = dict(scan_ms=scan_ms, readback_ms=dfs_ms - scan_ms,
+                 host_ms=support_ms - dfs_ms,
+                 readback_bytes=int(len(slots) * be.store.capacity * 4),
+                 chunks=len(sel))
+    if mode is None:
+        return split, None
+    spec = KERNELS[mode]
+    plain = ((lambda q: sig_scan.hamming_plain(q, sigs, be.hash_num))
+             if mode == "hamming" else
+             (lambda q: sig_scan.minhash_plain(q, sigs)))
+    err = 0.0
+    for s, out in zip(sel, outs):
+        ref = plain(sigs[s])
+        err = max(err, float((out - ref).abs().max()))
+        check(torch.equal(out, ref), f"{mode} at the LOF shape: kernel != "
+                                     f"plain (max abs err {err})")
+    q = sigs[sel[0]]
+    b, c, w = q.shape[0], sigs.shape[0], sigs.shape[1]
+    kern_ms = time_ms(torch, lambda: be._scan(q, sigs), REPS)
+    plain_ms = time_ms(torch, lambda: plain(q), REPS // 4)
+    lib_ms = None
+    if mode == "minhash":   # lane values < 2^24 or -1: exact in float32
+        qf, rf = q.float(), sigs.float()
+        lib_ms = time_ms(torch, lambda: torch.cdist(qf, rf, p=0) / w,
+                         REPS // 4)
+    bms, by = bound(b, c, w, spec["ops_per_word"])
+    return split, dict(B=b, C=c, W=w, variant=sig_scan.choose_variant(
+        mode, b, w, sigs.data_ptr() % 16 == 0), kernel_warm_ms=kern_ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+        bound_share=bms / kern_ms, max_abs_err=err)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the recommender, anomaly and classifier servers over RPC
+# ---------------------------------------------------------------------------
+def write_config(name: str, config: dict) -> str:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, name)
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def phase_recommender_server(Datum, RecommenderDriver, seed: int) -> dict:
+    """config/recommender/default.json (inverted_index, cosine), 10^4
+    update_row calls; every query method against the CPU driver.
+    complete_row averages the 128 nearest rows: its values are compared
+    where the CPU's 128th and 129th distances differ by more than
+    ``EXACT_TOL`` (else the rows at the boundary may differ by a tie)."""
+    path = os.path.join(ROOT, "config", "recommender", "default.json")
+    config = load_config("recommender", "default.json")
+    ref = RecommenderDriver(config, device="cpu")
+    rng = np.random.default_rng(seed + 11)
+    with serving("recommender", path) as cli:
+        t0 = time.perf_counter()
+        for i in range(SERVER_ROWS):
+            d = server_datum(rng, Datum, i)
+            check(cli.call("update_row", "smoke", f"u{i}", d) is True,
+                  "update_row failed")
+            ref.update_row(f"u{i}", d)
+        t_set = time.perf_counter() - t0
+        lat, compared, skipped = [], 0, 0
+        for i in range(20):
+            q = server_datum(rng, Datum, SERVER_ROWS + i)
+            rid = f"u{int(rng.integers(SERVER_ROWS))}"
+            for method, arg, local in (
+                    ("similar_row_from_datum", q, ref.similar_row_from_datum),
+                    ("similar_row_from_id", rid, ref.similar_row_from_id)):
+                got, ms = timed(cli.call, method, "smoke", arg, 10)
+                lat.append(ms)
+                compare_close([tuple(x) for x in got], local(arg, 10),
+                              f"recommender server {method}", EXACT_TOL)
+            for method, arg, local, vec in (
+                    ("complete_row_from_datum", q, ref.complete_row_from_datum,
+                     ref.converter.convert(q)),
+                    ("complete_row_from_id", rid, ref.complete_row_from_id,
+                     ref.backend.store.get_row(rid))):
+                got, ms = timed(cli.call, method, "smoke", arg)
+                lat.append(ms)
+                nn = ref.backend.neighbors(vec, 129)
+                if abs(nn[127][1] - nn[128][1]) <= EXACT_TOL:
+                    skipped += 1
+                    continue
+                want = local(arg)
+                got = Datum.from_msgpack(got)
+                check([k for k, _ in got.num_values] ==
+                      [k for k, _ in want.num_values]
+                      and got.string_values == want.string_values,
+                      f"recommender server {method}: keys differ")
+                err = max([abs(a - b) for (_, a), (_, b) in
+                           zip(got.num_values, want.num_values)] or [0.0])
+                check(err <= 1e-4, f"recommender server {method}: values "
+                                   f"off by {err}")
+                compared += 1
+            dec = Datum.from_msgpack(cli.call("decode_row", "smoke", rid))
+            check(dec == ref.decode_row(rid), "decode_row differs")
+            check(cli.call("calc_similarity", "smoke", q, dec) ==
+                  ref.calc_similarity(q, dec), "calc_similarity differs")
+            check(cli.call("calc_l2norm", "smoke", q) == ref.calc_l2norm(q),
+                  "calc_l2norm differs")
+        check(compared >= 20, f"complete_row compared {compared} of 40")
+        st = server_status(cli)
+    return dict(engine="recommender", config="config/recommender/default.json",
+                rows=SERVER_ROWS, update_row_s=t_set, query=pcts(lat),
+                parity=dict(similar_row_abs_tol=EXACT_TOL,
+                            complete_compared=compared,
+                            complete_tied=skipped),
+                launches=server_launches(st))
+
+
+def phase_anomaly_server(Datum, AnomalyDriver, seed: int) -> dict:
+    """LOF over nested lsh (lof_unlearner_lru.json's settings), fed through
+    ``add``: every add rebuilds the support (per store version), so the
+    whole fill costs ~n^3 host work and runs at ANOMALY_SERVER_ROWS, not
+    10^4. Scores must equal the CPU driver's bit for bit."""
+    config = lof_config("lsh")
+    path = write_config("anomaly_lof_lsh.json", config)
+    ref = AnomalyDriver(config, device="cpu")
+    rng = np.random.default_rng(seed + 13)
+    with serving("anomaly", path) as cli:
+        st0 = server_status(cli)
+        lat = []
+        t0 = time.perf_counter()
+        for i in range(ANOMALY_SERVER_ROWS):
+            d = server_datum(rng, Datum, i)
+            (rid, score), ms = timed(cli.call, "add", "smoke", d)
+            lat.append(ms)
+            check([rid, score] == list(ref.add(d)),
+                  f"anomaly server add {i}: ({rid}, {score}) differs")
+        t_add = time.perf_counter() - t0
+        score_lat = []
+        for i in range(20):
+            d = server_datum(rng, Datum, ANOMALY_SERVER_ROWS + i)
+            got, ms = timed(cli.call, "calc_score", "smoke", d)
+            score_lat.append(ms)
+            check(got == ref.calc_score(d), "anomaly calc_score differs")
+        d = server_datum(rng, Datum, 0)
+        check(cli.call("update", "smoke", "3", d) == ref.update("3", d),
+              "anomaly update differs")
+        check(cli.call("overwrite", "smoke", "zz", d) ==
+              ref.overwrite("zz", d), "anomaly overwrite differs")
+        check(sorted(cli.call("get_all_rows", "smoke")) ==
+              sorted(ref.get_all_rows()), "anomaly get_all_rows differs")
+        st = server_status(cli)
+    launched = {m: server_launches(st)[m] - server_launches(st0)[m]
+                for m in KERNELS}
+    check(launched["hamming"] > 0, "the anomaly server never scanned")
+    return dict(engine="anomaly", config="lof_unlearner_lru.json, nested lsh",
+                rows=ANOMALY_SERVER_ROWS, add_s=t_add, add=pcts(lat),
+                calc_score=pcts(score_lat), parity="bit-equal",
+                launches=launched)
+
+
+def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
+                            seed: int) -> dict:
+    """config/classifier/nn.json (k = 128), its nested method as shipped
+    (euclid_lsh) or lsh; 10^4 examples through ``train``. Tie rule: where
+    the CPU's k-th and (k+1)-th distances differ (by more than
+    ``EXACT_TOL`` for euclid_lsh), the per-label scores are compared;
+    where they tie, the scores' sum over the labels, which depends only on
+    the k nearest distances."""
+    config = load_config("classifier", "nn.json")
+    if nn_method != config["parameter"]["method"]:
+        config["parameter"]["method"] = nn_method
+        path = write_config(f"classifier_nn_{nn_method}.json", config)
+    else:
+        path = os.path.join(ROOT, "config", "classifier", "nn.json")
+    exact = nn_method in ("lsh", "minhash")
+    rtol = 1e-9 if exact else 1e-4
+    gap = 0.0 if exact else EXACT_TOL
+    ref = ClassifierNNDriver(config, device="cpu")
+    rng = np.random.default_rng(seed + 17)
+    with serving("classifier", path) as cli:
+        t0 = time.perf_counter()
+        for lo in range(0, SERVER_ROWS, 200):
+            batch = [[f"l{int(rng.integers(5))}", server_datum(rng, Datum, i)]
+                     for i in range(lo, lo + 200)]
+            check(cli.call("train", "smoke", batch) == len(batch),
+                  "train failed")
+            ref.train([(lab, d) for lab, d in batch])
+        t_train = time.perf_counter() - t0
+        check(cli.call("get_labels", "smoke") == ref.get_labels(),
+              "get_labels differs")
+        st0 = server_status(cli)
+        queries = [server_datum(rng, Datum, SERVER_ROWS + i) for i in range(20)]
+        lat, per_label, by_sum = [], 0, 0
+        for q in queries:
+            (got,), ms = timed(cli.call, "classify", "smoke", [q])
+            lat.append(ms)
+            (want,) = ref.classify([q])
+            check([lab for lab, _ in got] == [lab for lab, _ in want],
+                  "classify labels differ")
+            g = np.array([s for _, s in got])
+            w = np.array([s for _, s in want])
+            nn = ref.backend.neighbors(ref.converter.convert(q), ref.k + 1)
+            if abs(nn[ref.k - 1][1] - nn[ref.k][1]) > gap:
+                check(np.allclose(g, w, rtol=rtol, atol=0),
+                      f"classify ({nn_method}) scores differ: {got} {want}")
+                per_label += 1
+            else:
+                check(np.isclose(g.sum(), w.sum(), rtol=rtol, atol=0),
+                      f"classify ({nn_method}) score sums differ")
+                by_sum += 1
+        st = server_status(cli)
+    launched = {m: server_launches(st)[m] - server_launches(st0)[m]
+                for m in KERNELS}
+    if nn_method == "lsh":
+        check(launched["hamming"] == len(queries),
+              f"classifier server: {launched} scans for {len(queries)} "
+              f"queries")
+    return dict(engine="classifier", config=f"config/classifier/nn.json, "
+                f"nested {nn_method}", rows=SERVER_ROWS, train_s=t_train,
+                classify=pcts(lat),
+                parity=dict(rtol=rtol, compared_per_label=per_label,
+                            compared_by_sum=by_sum),
+                launches=server_launches(st))
 
 
 # ---------------------------------------------------------------------------
@@ -605,9 +1245,11 @@ def main(argv=None) -> int:
         from jubatus_tpu_torch.core.datum import Datum
         from jubatus_tpu_torch.core.sparse import SparseBatch
         from jubatus_tpu_torch.models._nn_backend import NNBackend
+        from jubatus_tpu_torch.models.anomaly import AnomalyDriver
+        from jubatus_tpu_torch.models.classifier_nn import ClassifierNNDriver
         from jubatus_tpu_torch.models.nearest_neighbor import NearestNeighborDriver
+        from jubatus_tpu_torch.models.recommender import RecommenderDriver
         from jubatus_tpu_torch.ops import knn, sig_scan
-        from jubatus_tpu_torch.rpc.client import RpcClient
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -631,40 +1273,103 @@ def main(argv=None) -> int:
         edges = phase_edges(torch, sig_scan, args.seed)
         log(f"[edges] {json.dumps(edges)}")
         scans = phase_kernels(torch, sig_scan, args.seed)
-        # -- phases 3 + 4: the main path, counted from zero
-        sig_scan.hamming.launches = 0
-        sig_scan.minhash.launches = 0
-        backends = {}
-        for method in ("lsh", "minhash"):
-            res = phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch,
-                                method, args.seed)
-            backends[method] = res
-            log(f"[backend] {json.dumps(res)} | {kind} | {smi}")
-        srv = phase_server(torch, Datum, RpcClient, NearestNeighborDriver,
-                           args.seed)
-        log(f"[server] {json.dumps(srv)} | {kind} | {smi}")
-        launches = {"hamming": sig_scan.hamming.launches + srv["server_launches"],
-                    "minhash": sig_scan.minhash.launches
-                    + srv["server_minhash_launches"]}
+        # -- phases 3-7: the main path; each path's launch counts are set
+        # to 0 just before it and read just after (the servers' own counts
+        # come from their get_status)
+        paths, path_s = {}, {}
+
+        def run_path(name, fn, *fn_args):
+            set_counts(sig_scan, {"hamming": 0, "minhash": 0})
+            t0 = time.perf_counter()
+            res = fn(*fn_args)
+            path_s[name] = time.perf_counter() - t0
+            counts = launch_counts(sig_scan)
+            paths[name] = {m: counts[m] + res.get("server_launches", {})
+                           .get(m, 0) for m in KERNELS}
+            return res
+
+        def nn_path():
+            for method in ("lsh", "minhash"):
+                res = phase_backend(torch, sig_scan, knn, NNBackend,
+                                    SparseBatch, method, args.seed)
+                log(f"[backend] {json.dumps(res)} | {kind} | {smi}")
+            return {}
+
+        def nn_server_path():
+            res = phase_server(torch, Datum, NearestNeighborDriver, args.seed)
+            log(f"[server] {json.dumps(res)} | {kind} | {smi}")
+            return {"server_launches": res["launches"]}
+
+        def recommender_path():
+            for name in REC_CONFIGS:
+                res = phase_recommender(torch, sig_scan, knn,
+                                        RecommenderDriver, Datum, name,
+                                        args.seed)
+                log(f"[recommender] {json.dumps(res)} | {kind} | {smi}")
+            return {}
+
+        def anomaly_path():
+            assert_matmul_full_precision(torch)
+            for nn_method in LOF_METHODS:
+                res = phase_anomaly(torch, sig_scan, AnomalyDriver, Datum,
+                                    nn_method, args.seed)
+                log(f"[anomaly] {json.dumps(res)} | {kind} | {smi}")
+                if res["lof_shape"] is not None:
+                    mode = "hamming" if nn_method == "lsh" else "minhash"
+                    lof_shapes[mode] = res["lof_shape"]
+            return {}
+
+        def servers_path():
+            total = {m: 0 for m in KERNELS}
+            runs = [lambda: phase_recommender_server(Datum, RecommenderDriver,
+                                                     args.seed),
+                    lambda: phase_anomaly_server(Datum, AnomalyDriver,
+                                                 args.seed)]
+            runs += [lambda m=m: phase_classifier_server(
+                Datum, ClassifierNNDriver, m, args.seed)
+                for m in ("euclid_lsh", "lsh")]
+            for run in runs:
+                res = run()
+                tag = {"classifier": "classifier_nn"}.get(
+                    res["engine"], res["engine"] + "_server")
+                log(f"[{tag}] {json.dumps(res)} | {kind} | {smi}")
+                for m in KERNELS:
+                    total[m] += res["launches"][m]
+            return {"server_launches": total}
+
+        lof_shapes = {}
+        run_path("nearest_neighbor", nn_path)
+        run_path("nearest_neighbor_server", nn_server_path)
+        run_path("recommender", recommender_path)
+        run_path("anomaly", anomaly_path)
+        run_path("servers", servers_path)
+        log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
+        launches = {m: sum(p[m] for p in paths.values()) for m in KERNELS}
         for mode, n in launches.items():
             check(n > 0, f"sig_scan.{mode} never launched on the main path")
+        for path in ("recommender", "anomaly"):
+            for mode in KERNELS:
+                check(paths[path][mode] > 0,
+                      f"sig_scan.{mode} never launched on the {path} path")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
     for mode, spec in KERNELS.items():
-        serving = scans[mode][0]  # B = 1, the single-query serving shape
+        first = scans[mode][0]  # B = 1, the single-query serving shape
         kernels.append({
             "name": spec["name"], "route": "cuda",
             "source": "jubatus_tpu_torch/csrc/sig_scan.cu",
             "replaces": "jubatus_tpu/ops/pallas_kernels.py:87",
             "launches": launches[mode],
-            "max_abs_err": max(s["max_abs_err"] for s in scans[mode]),
-            "ms": serving["kernel_ms"], "plain_ms": serving["plain_ms"],
-            "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
-            "library_ms": serving["library_ms"],
-            "shapes": scans[mode],
+            "launches_by_path": {p: c[mode] for p, c in paths.items()},
+            "max_abs_err": max([s["max_abs_err"] for s in scans[mode]]
+                               + [lof_shapes[mode]["max_abs_err"]]),
+            "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "shapes": scans[mode], "lof_shape": lof_shapes[mode],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

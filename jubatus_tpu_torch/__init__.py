@@ -7,8 +7,10 @@ PyTorch and the TPU kernels rewritten by hand for NVIDIA Hopper
 JAX or of ``jubatus_tpu``: host layers it needs are copied, module by module,
 under the same names.
 
-Ported so far: the nearest_neighbor engine (lsh, minhash, euclid_lsh) with
-the signature-scan kernel (``ops/sig_scan.py``, ``csrc/sig_scan.cu``).
+Ported so far: the engines on the nearest-neighbor backend — nearest_neighbor,
+recommender, anomaly (LOF) and the NN classifier — with the exact methods
+(inverted_index, euclid) and the LSH family, whose signature scan is the
+CUDA kernel (``ops/sig_scan.py``, ``csrc/sig_scan.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

@@ -1,15 +1,21 @@
-"""Carry state from the JAX package into the port.
+"""Carry state between the JAX package and the port.
 
-- ``from_jax_pack(obj, config)`` builds the port's NearestNeighborDriver from
-  the JAX driver's ``pack()`` output (store rows, converter weights, method)
-  as plain msgpack/numpy data. The feature space size is read from the
-  packed df table; the signatures are recomputed from the rows at the first
-  query, with the same draws (ops/prng.py).
+- ``from_jax_pack(obj, config, engine=...)`` builds the port's driver of
+  ``engine`` (nearest_neighbor, recommender, anomaly, classifier) from the
+  JAX driver's ``pack()`` output, as plain msgpack/numpy data: the store's
+  rows with their datums (recommender) or labels (classifier), the
+  converter's weight state, anomaly's next id and the classifier's label
+  states. The feature space size is read from the packed df table; the
+  signatures are recomputed from the rows at the first query, with the
+  same draws (ops/prng.py).
+- The way back is the port driver's own ``pack()``: it has the JAX
+  driver's layout, and the JAX driver's ``unpack`` takes it as it is.
 - ``sigs_from_numpy`` moves a uint32 signature table onto a device as int32
   bit patterns (``ndarray.view``, never a value cast); ``sigs_to_numpy`` is
   the way back.
 
-Nothing here imports the JAX package: the pack is plain data.
+Nothing here imports the JAX package: the pack is plain data. The hasher's
+reverse table is not part of a pack in either package.
 """
 
 from __future__ import annotations
@@ -20,33 +26,31 @@ import numpy as np
 import torch
 
 from jubatus_tpu_torch import resolve_device
-from jubatus_tpu_torch.models.nearest_neighbor import NearestNeighborDriver
+from jubatus_tpu_torch.server.factory import driver_class
 
 
 def _text(x: Any) -> Any:
     return x.decode() if isinstance(x, bytes) else x
 
 
-def from_jax_pack(obj: Any, config: dict, *,
-                  device=None) -> NearestNeighborDriver:
-    """A port driver holding the state of a packed JAX nearest_neighbor
-    driver. ``config`` is the engine config the JAX driver was built from:
-    the pack holds rows and weights, not the converter, hash_num or seed."""
+def from_jax_pack(obj: Any, config: dict, *, engine: str = "nearest_neighbor",
+                  device=None):
+    """A port driver of ``engine`` holding the state of a packed JAX driver.
+    ``config`` is the engine config the JAX driver was built from: the pack
+    holds rows and weights, not the converter, hash_num or seed."""
     method = _text(obj["method"])
     if config.get("method") != method:
         raise ValueError(f"pack method {method!r} != config method "
                          f"{config.get('method')!r}")
-    weights = obj["weights"]
-    dim = int(np.asarray(weights["df"]).shape[0])
+    dim = int(np.asarray(obj["weights"]["df"]).shape[0])
     if dim & (dim - 1):
         raise ValueError(f"packed df table has {dim} entries, not a power of 2")
-    driver = NearestNeighborDriver(config, dim_bits=dim.bit_length() - 1,
-                                   device=device)
+    driver = driver_class(engine, config)(
+        config, dim_bits=dim.bit_length() - 1, device=device)
     if driver.converter.dim != dim:
         raise ValueError(f"config gives a {driver.converter.dim}-feature "
                          f"space, the pack {dim}")
-    driver.unpack({"method": method, "backend": obj["backend"],
-                   "weights": weights})
+    driver.unpack(obj)
     return driver
 
 

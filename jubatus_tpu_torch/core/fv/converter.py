@@ -1,10 +1,13 @@
 """Config-driven datum → weighted sparse feature vector.
 
-Copy of ``jubatus_tpu/core/fv/converter.py``, trimmed to the per-datum path
-(``convert``) that the ported engines use: no batch pipeline, no memo
-caches, no tracing counter, no plugins (a ``dynamic`` type raises "not yet
-ported"). The feature names, hashing and weights are the JAX package's, so
-both packages turn a datum into the same ``SparseVector``:
+Copy of ``jubatus_tpu/core/fv/converter.py``, trimmed to what the ported
+engines use: the per-datum path (``convert``), the batch path
+(``convert_batch``, which the NN classifier trains and classifies through)
+and ``revert_feature`` (the recommender's ``complete_row_*``). No string
+or token memo caches, no tracing counter, no quality hook, no plugins (a
+``dynamic`` type raises "not yet ported"). The feature names, hashing and
+weights are the JAX package's, so both packages turn a datum into the same
+``SparseVector``:
 
   string features:  "<key>$<value>@<type>#<sample_weight>/<global_weight>"
   num features:     "<key>@num" / "<key>@log" / "<key>$<value>@str"
@@ -17,12 +20,14 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv.hashing import FeatureHasher
 from jubatus_tpu_torch.core.fv.weight_manager import WeightManager
-from jubatus_tpu_torch.core.sparse import SparseVector
+from jubatus_tpu_torch.core.sparse import CSRBatch, SparseVector
 
 
 class ConverterError(ValueError):
@@ -261,8 +266,47 @@ class ConverterConfig:
 # ---------------------------------------------------------------------------
 # the converter
 # ---------------------------------------------------------------------------
+#: global-weight kind codes carried through the batch pipeline's flat arrays
+_GW_BIN, _GW_IDF, _GW_USER = 0, 1, 2
+_GW_CODE = {"bin": _GW_BIN, "idf": _GW_IDF, "weight": _GW_USER}
+
+#: bound of the name memo (entries; cleared when full)
+NAME_MEMO_SIZE = 1 << 16
+
+
+class _ComboPlan:
+    """The combination cross product as a function of the base
+    feature-name schema: slot names, hashed indices, gw kinds, and the
+    bilinear terms feeding each slot. On a schema hit ``convert_batch``
+    replays the combination stage as numpy gathers and multiplies."""
+
+    __slots__ = ("slot_idx", "slot_kind", "a_idx", "b_idx", "mul_mask",
+                 "t_starts", "slot_names")
+
+    def __init__(self, slot_names, slot_idx, slot_kind,
+                 a_idx, b_idx, mul_mask, t_starts):
+        self.slot_names = slot_names
+        self.slot_idx = slot_idx      # int32 [S]
+        self.slot_kind = slot_kind    # uint8 [S]
+        self.a_idx = a_idx            # int32 [T] base column of left term
+        self.b_idx = b_idx            # int32 [T]
+        self.mul_mask = mul_mask      # bool  [T] mul (True) vs add
+        self.t_starts = t_starts      # int64 [S] first term per slot
+
+    def slot_values(self, base_vals: np.ndarray) -> np.ndarray:
+        """[G, nbase] float64 base values → [G, S] slot values."""
+        va = base_vals[:, self.a_idx]
+        vb = base_vals[:, self.b_idx]
+        tv = np.where(self.mul_mask, va * vb, va + vb)
+        if self.t_starts.shape[0] == tv.shape[1]:
+            return tv  # one term per slot, the common case
+        return np.add.reduceat(tv, self.t_starts, axis=1)
+
+
 class DatumToFVConverter:
-    """datum → hashed weighted sparse feature vector (per datum)."""
+    """datum → hashed weighted sparse feature vector: ``convert`` per
+    datum, ``convert_batch`` for a batch (one hash sweep, vectorized global
+    weights, CSR output). Both run the same extraction code."""
 
     def __init__(
         self,
@@ -275,10 +319,21 @@ class DatumToFVConverter:
         self.weights = weights or WeightManager(self.hasher.dim)
         #: num values dropped for being inf/NaN (they would poison a model)
         self.nonfinite_rejected = 0
+        # weight-independent facts only (hashed index, gw kind per name;
+        # combination plans per schema), so no weighted value goes stale
+        self._name_memo: Dict[str, Tuple[int, int]] = {}
+        self._combo_plans: Dict[tuple, _ComboPlan] = {}
 
     @property
     def dim(self) -> int:
         return self.hasher.dim
+
+    @staticmethod
+    def _memo_put(memo: dict, key, value):
+        if len(memo) >= NAME_MEMO_SIZE:
+            memo.clear()
+        memo[key] = value
+        return value
 
     # -- filters ------------------------------------------------------------
     def _apply_filters(self, datum: Datum) -> Datum:
@@ -412,6 +467,193 @@ class DatumToFVConverter:
                 value *= self.weights.user_weight(idx)
             hashed[idx] = hashed.get(idx, 0.0) + value
         return sorted(hashed.items())
+
+    # -- batch pipeline ------------------------------------------------------
+    def _resolve_names(self, names: List[str]):
+        """names → (int32 indices, uint8 gw kinds): memo lookups plus one
+        ``index_array`` sweep for the misses."""
+        n = len(names)
+        idx = np.empty(n, dtype=np.int32)
+        kind = np.empty(n, dtype=np.uint8)
+        memo = self._name_memo
+        miss_pos: List[int] = []
+        miss_names: List[str] = []
+        for i, nm in enumerate(names):
+            e = memo.get(nm)
+            if e is None:
+                miss_pos.append(i)
+                miss_names.append(nm)
+            else:
+                idx[i] = e[0]
+                kind[i] = e[1]
+        if miss_names:
+            new_idx = self.hasher.index_array(miss_names)
+            for p, nm, ix in zip(miss_pos, miss_names, new_idx.tolist()):
+                k = _GW_CODE[_global_weight_kind(nm)]
+                self._memo_put(memo, nm, (ix, k))
+                idx[p] = ix
+                kind[p] = k
+        return idx, kind
+
+    def _combo_plan_for(self, base_names: tuple) -> _ComboPlan:
+        """Build (or fetch) the combination plan for one base-name schema:
+        ``_apply_combos`` replayed with the values left abstract."""
+        plan = self._combo_plans.get(base_names)
+        if plan is not None:
+            return plan
+        cfg = self.config
+        slot_names: List[str] = []
+        slot_map: Dict[str, int] = {}
+        slot_terms: List[List[Tuple[int, int, bool]]] = []
+        for rule in cfg.combination_rules:
+            mul = cfg.combination_types[rule.type_name] == "mul"
+            seen = set()
+            left = [i for i, nm in enumerate(base_names)
+                    if rule.match_left(nm)]
+            right = [i for i, nm in enumerate(base_names)
+                     if rule.match_right(nm)]
+            for li in left:
+                ln = base_names[li]
+                for ri in right:
+                    if li == ri:
+                        continue
+                    rn = base_names[ri]
+                    a, b = (ln, rn) if ln < rn else (rn, ln)
+                    if (a, b) in seen:
+                        continue
+                    seen.add((a, b))
+                    name = f"{a}&{b}"
+                    s = slot_map.get(name)
+                    if s is None:
+                        s = len(slot_names)
+                        slot_map[name] = s
+                        slot_names.append(name)
+                        slot_terms.append([])
+                    slot_terms[s].append((li, ri, mul))
+        a_idx, b_idx, mul_mask, t_starts = [], [], [], []
+        for terms in slot_terms:
+            t_starts.append(len(a_idx))
+            for li, ri, mul in terms:
+                a_idx.append(li)
+                b_idx.append(ri)
+                mul_mask.append(mul)
+        sidx, skind = self._resolve_names(slot_names)
+        plan = _ComboPlan(
+            slot_names, sidx, skind,
+            np.asarray(a_idx, dtype=np.int32),
+            np.asarray(b_idx, dtype=np.int32),
+            np.asarray(mul_mask, dtype=bool),
+            np.asarray(t_starts, dtype=np.int64),
+        )
+        if len(self._combo_plans) >= 64:
+            self._combo_plans.clear()
+        self._combo_plans[base_names] = plan
+        return plan
+
+    def convert_batch(self, data: Sequence[Datum],
+                      update_weights: bool = False) -> CSRBatch:
+        """Convert a batch: extract per datum, hash every feature name in
+        one sweep, apply global weights as numpy gathers, and return a CSR
+        batch.
+
+        The same result as ``convert`` per datum, with one difference under
+        ``update_weights=True``: the document frequencies of the whole
+        batch are observed first (one ``observe_batch``), so every row's
+        idf reflects the whole batch, where a ``convert`` loop lets each
+        document see only its predecessors. The two agree for a batch of
+        one."""
+        b = len(data)
+        if b == 0:
+            return CSRBatch(np.zeros(0, np.int32), np.zeros(0, np.float32),
+                            np.zeros(1, np.int64))
+        base = [self._base_named_features(d) for d in data]
+        if not self.config.combination_rules:
+            flat_names: List[str] = []
+            counts = np.empty(b, dtype=np.int64)
+            for i, nd in enumerate(base):
+                flat_names.extend(nd.keys())
+                counts[i] = len(nd)
+            flat_idx, flat_kind = self._resolve_names(flat_names)
+            flat_val = np.empty(len(flat_names), dtype=np.float64)
+            pos = 0
+            for nd in base:
+                for v in nd.values():
+                    flat_val[pos] = v
+                    pos += 1
+        else:
+            # rows grouped by base-name schema; the cross product becomes
+            # one vectorized bilinear evaluation per group
+            row_idx: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+            row_val: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+            row_kind: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+            groups: Dict[tuple, List[int]] = {}
+            for i, nd in enumerate(base):
+                groups.setdefault(tuple(nd.keys()), []).append(i)
+            for names_t, members in groups.items():
+                bidx, bkind = self._resolve_names(list(names_t))
+                plan = self._combo_plan_for(names_t)
+                bvals = np.array(
+                    [list(base[r].values()) for r in members],
+                    dtype=np.float64).reshape(len(members), len(names_t))
+                svals = plan.slot_values(bvals) if len(plan.slot_names) \
+                    else np.zeros((len(members), 0))
+                gidx = np.concatenate([bidx, plan.slot_idx])
+                gkind = np.concatenate([bkind, plan.slot_kind])
+                for gi, r in enumerate(members):
+                    row_idx[r] = gidx
+                    row_kind[r] = gkind
+                    row_val[r] = np.concatenate([bvals[gi], svals[gi]])
+            counts = np.fromiter((a.shape[0] for a in row_idx),
+                                 dtype=np.int64, count=b)
+            flat_idx = np.concatenate(row_idx)
+            flat_val = np.concatenate(row_val)
+            flat_kind = np.concatenate(row_kind)
+        entry_rows = np.repeat(np.arange(b, dtype=np.int64), counts)
+
+        # global weights; the batch is observed once, before any lookup
+        idf_mask = flat_kind == _GW_IDF
+        if idf_mask.any():
+            if update_weights:
+                self.weights.observe_batch(flat_idx[idf_mask],
+                                           entry_rows[idf_mask])
+            flat_val[idf_mask] *= self.weights.idf_many(flat_idx[idf_mask])
+        user_mask = flat_kind == _GW_USER
+        if user_mask.any():
+            flat_val[user_mask] *= self.weights.user_weight_many(
+                flat_idx[user_mask])
+
+        # per-row merge by hashed index (``convert``'s sorted dict): the
+        # stable lexsort keeps insertion order for colliding entries, so
+        # they sum in the order ``convert`` sums them
+        if flat_idx.shape[0] == 0:
+            return CSRBatch(np.zeros(0, np.int32), np.zeros(0, np.float32),
+                            np.zeros(b + 1, np.int64))
+        order = np.lexsort((flat_idx, entry_rows))
+        srow = entry_rows[order]
+        sidx = flat_idx[order]
+        sval = flat_val[order]
+        boundary = np.ones(sidx.shape[0], dtype=bool)
+        boundary[1:] = (srow[1:] != srow[:-1]) | (sidx[1:] != sidx[:-1])
+        starts = np.flatnonzero(boundary)
+        midx = sidx[starts].astype(np.int32)
+        mval = np.add.reduceat(sval, starts)
+        mcounts = np.bincount(srow[starts], minlength=b)
+        off = np.zeros(b + 1, dtype=np.int64)
+        np.cumsum(mcounts, out=off[1:])
+        return CSRBatch(midx, mval.astype(np.float32), off)
+
+    def revert_feature(self, index: int) -> Optional[Tuple[str, str]]:
+        """Best-effort hash→(key, value) decode through the hasher's
+        reverse table, for ``complete_row_*``."""
+        name = self.hasher.name_of(index)
+        if name is None:
+            return None
+        if "$" in name:
+            key, rest = name.split("$", 1)
+            value = rest.split("@", 1)[0]
+            return key, value
+        return name.split("@", 1)[0], ""
+
 
 
 def _format_num(v: float) -> str:

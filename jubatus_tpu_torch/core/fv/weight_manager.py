@@ -1,10 +1,10 @@
 """Global-weight state: document frequencies for idf + user-set weights.
 
 Copy of ``jubatus_tpu/core/fv/weight_manager.py`` (the reference's
-core::fv_converter::weight_manager), trimmed to what the per-datum converter
-uses. Document-frequency counts live in a dense float32 array over the
-hashed feature space; the state packs to the same layout as the JAX
-package's, so a model moves between the two.
+core::fv_converter::weight_manager), trimmed to what the per-datum and the
+batch converter use. Document-frequency counts live in a dense float32
+array over the hashed feature space; the state packs to the same layout as
+the JAX package's, so a model moves between the two.
 """
 
 from __future__ import annotations
@@ -36,6 +36,22 @@ class WeightManager:
             self._df_diff[np.asarray(list(indices), dtype=np.int64)] += 1.0
             self._ndocs_diff[0] += 1.0
 
+    def observe_batch(self, indices: np.ndarray, rows: np.ndarray) -> None:
+        """Record a whole batch of documents at once (``convert_batch``'s
+        train path). Entry j says document ``rows[j]`` contained feature
+        ``indices[j]``; duplicate (row, index) pairs count once, and the
+        number of documents is the number of distinct rows."""
+        if indices.size == 0:
+            return
+        rows = np.asarray(rows, dtype=np.int64)
+        pair = rows * np.int64(self.dim) + np.asarray(indices, np.int64)
+        uniq = np.unique(pair)
+        ndocs = int(np.unique(rows).size)
+        uidx = uniq % np.int64(self.dim)
+        with self.lock:
+            np.add.at(self._df_diff, uidx, 1.0)
+            self._ndocs_diff[0] += float(ndocs)
+
     # -- lookup -------------------------------------------------------------
     @property
     def ndocs(self) -> float:
@@ -48,8 +64,31 @@ class WeightManager:
             return 1.0
         return math.log(n / df)
 
+    def idf_many(self, indices: np.ndarray) -> np.ndarray:
+        """``idf`` of many indices at once, equal to it element by element:
+        the master + diff sum stays float32 before widening, log in
+        float64."""
+        ix = np.asarray(indices, dtype=np.int64)
+        n = self.ndocs
+        df = (self._df_master[ix] + self._df_diff[ix]).astype(np.float64)
+        out = np.ones(ix.shape, dtype=np.float64)
+        if n <= 0:
+            return out
+        live = df > 0
+        out[live] = np.log(n / df[live])
+        return out
+
     def user_weight(self, index: int) -> float:
         return self._user_weights.get(index, 1.0)
+
+    def user_weight_many(self, indices: np.ndarray) -> np.ndarray:
+        """``user_weight`` of many indices at once (global_weight "weight")."""
+        ix = np.asarray(indices, dtype=np.int64)
+        if not self._user_weights:
+            return np.ones(ix.shape, dtype=np.float64)
+        uw = self._user_weights
+        return np.fromiter((uw.get(int(i), 1.0) for i in ix),
+                           dtype=np.float64, count=ix.shape[0])
 
     # -- mixable protocol ---------------------------------------------------
     def get_diff(self):

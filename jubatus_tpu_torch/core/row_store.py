@@ -7,10 +7,11 @@ of the nearest-neighbor backend.
 - Capacity C and pad width K grow by doubling.
 - ``max_size`` caps the live row count with least-recently-touched eviction
   (the reference's "unlearner": "lru").
-- Host numpy is the source of truth; the backend uploads what it scans
-  (the pending rows at a flush, the live mask per ``version``). The JAX
-  package's ``device_view`` of the whole arenas serves its exact methods,
-  which are not ported.
+- Host numpy is the source of truth; the backend uploads what it scans:
+  the hash methods the pending rows at a flush and the live mask per
+  ``version``, the exact methods the whole arenas through
+  ``device_view``, cached per ``version`` and uploaded again in full when
+  it moves (as the JAX package does).
 - The live-slot mask is kept up to date on every write (the JAX package
   rebuilds it per query, a loop over every row).
 - Mix support: ``updated_since_mix`` tracks locally-written row ids.
@@ -21,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from jubatus_tpu_torch.core.sparse import SparseVector
 
@@ -55,6 +57,7 @@ class RowStore:
         self.datums: Dict[str, Any] = {}      # id -> original datum
         self.updated_since_mix: Dict[str, None] = {}
         self.version = 0                      # bumped on every write
+        self._dev_cache: Optional[Tuple[int, torch.device, tuple]] = None
 
     # -- sizing --------------------------------------------------------------
     def __len__(self) -> int:
@@ -155,6 +158,21 @@ class RowStore:
 
     def live_mask(self) -> np.ndarray:
         return self.live.copy()
+
+    def device_view(self, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+        """(idx [C, K] int32, val [C, K] float32, live [C] bool) as tensors
+        on ``device``, cached per store version: any write uploads all
+        three again."""
+        device = torch.device(device)
+        cache = self._dev_cache
+        if cache is None or cache[0] != self.version or cache[1] != device:
+            self._dev_cache = cache = (
+                self.version, device,
+                (torch.from_numpy(self.idx).to(device, copy=True),
+                 torch.from_numpy(self.val).to(device, copy=True),
+                 torch.from_numpy(self.live).to(device, copy=True)))
+        return cache[2]
 
     # -- mix / persistence ----------------------------------------------------
     def pop_update_diff(self) -> Dict[str, Tuple[list, list, Any]]:

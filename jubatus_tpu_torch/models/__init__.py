@@ -1,3 +1,7 @@
-"""Engine drivers of the port (so far: nearest_neighbor)."""
+"""Engine drivers of the port: nearest_neighbor, recommender, anomaly and
+the instance-based (NN) classifier."""
 
+from jubatus_tpu_torch.models.anomaly import AnomalyDriver  # noqa: F401
+from jubatus_tpu_torch.models.classifier_nn import ClassifierNNDriver  # noqa: F401
 from jubatus_tpu_torch.models.nearest_neighbor import NearestNeighborDriver  # noqa: F401
+from jubatus_tpu_torch.models.recommender import RecommenderDriver  # noqa: F401

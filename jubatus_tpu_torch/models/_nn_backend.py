@@ -1,9 +1,10 @@
 """Similarity-search backend for the instance-based engines, in torch.
 
-Counterpart of ``jubatus_tpu/models/_nn_backend.py`` for the hash methods
-(lsh, minhash, euclid_lsh), single device. Composes a RowStore
-(core/row_store.py) with one of the ops/knn.py methods and keeps a signature
-table on the device aligned with the store's slots:
+Counterpart of ``jubatus_tpu/models/_nn_backend.py``, single device, used by
+nearest_neighbor, recommender, anomaly and the NN classifier. Composes a
+RowStore (core/row_store.py) with one of the ops/knn.py methods. The hash
+methods keep a signature table on the device aligned with the store's
+slots:
 
   lsh          [C, W] int32 (uint32 bit patterns); Hamming distance in
                [0, 1]; similarity = 1 - distance. Scanned by the CUDA kernel.
@@ -12,12 +13,18 @@ table on the device aligned with the store's slots:
   euclid_lsh   [C, H] float32 JL projections; distance ||p_q - p_r||/√H;
                similarity = -distance.
 
+The exact methods hold no signatures; they score the store's arenas
+(``RowStore.device_view``) against the densified query:
+
+  inverted_index  distance = 1 - cosine similarity; similarity = 1 - d.
+  euclid          exact euclidean distance; similarity = -distance.
+
 Write path is buffered: set_row queues the row id, and the next query
 computes the signatures of ALL pending rows in one batch, straight from the
 store's padded arenas. Dead slots score +inf. Top-k runs on the device.
 
-Not ported yet: the exact methods (inverted_index, euclid), the mesh-sharded
-layout (``attach_mesh``) and the IVF tier (``configure_ann("ivf")``).
+Not ported yet: the mesh-sharded layout (``attach_mesh``) and the IVF tier
+(``configure_ann("ivf")``).
 """
 
 from __future__ import annotations
@@ -43,9 +50,6 @@ class NNBackend:
                  keep_datum: bool = False, device=None):
         if method not in METHODS:
             raise ValueError(f"unknown nearest-neighbor method {method!r}")
-        if method in EXACT_METHODS:
-            raise NotImplementedError(
-                f"nearest-neighbor method {method!r} is not yet ported")
         self.device = resolve_device(device)
         self.method = method
         self.dim = dim
@@ -58,19 +62,23 @@ class NNBackend:
 
     def _init_sigs(self) -> None:
         c = self.store.capacity
+        self._live_dev: Optional[Tuple[int, torch.Tensor]] = None
         if self.method == "lsh":
             shape, dtype = (c, knn.packed_words(self.hash_num)), torch.int32
         elif self.method == "minhash":
             shape, dtype = (c, self.hash_num), torch.int32
-        else:
+        elif self.method == "euclid_lsh":
             shape, dtype = (c, self.hash_num), torch.float32
+        else:
+            self._sigs: Optional[torch.Tensor] = None
+            return
         self._sigs = torch.zeros(shape, dtype=dtype, device=self.device)
-        self._live_dev: Optional[Tuple[int, torch.Tensor]] = None
 
     # -- writes ---------------------------------------------------------------
     def set_row(self, row_id: str, vec: SparseVector, datum: Any = None) -> None:
         self.store.set_row(row_id, vec, datum=datum)
-        self._pending[row_id] = None
+        if self._sigs is not None:
+            self._pending[row_id] = None
 
     def remove_row(self, row_id: str) -> bool:
         self._pending.pop(row_id, None)
@@ -94,7 +102,9 @@ class NNBackend:
 
     def flush(self) -> int:
         """Compute the signatures of every pending row in one batch;
-        returns how many rows it signed."""
+        returns how many rows it signed (0 for the exact methods)."""
+        if self._sigs is None:
+            return 0
         # keep the table sized to the store even when nothing is pending
         grow = self.store.capacity - self._sigs.shape[0]
         if grow:
@@ -148,16 +158,32 @@ class NNBackend:
             return knn.minhash_distances_batch(q, sigs)
         return knn.euclid_lsh_distances_batch(q, sigs, hash_num=self.hash_num)
 
+    def _exact_distances(self, vec: SparseVector) -> torch.Tensor:
+        """[C] exact distances on the device (dead slots not masked)."""
+        idx, val, _ = self.store.device_view(self.device)
+        qd = knn.densify(
+            torch.tensor([i for i, _ in vec] or [0], dtype=torch.int32,
+                         device=self.device),
+            torch.tensor([v for _, v in vec] or [0.0], dtype=torch.float32,
+                         device=self.device),
+            dim=self.dim)
+        if self.method == "inverted_index":
+            return 1.0 - knn.cosine_scores(idx, val, qd)
+        return knn.euclid_distances(idx, val, qd)
+
     def _distances_dev(self, vec: SparseVector) -> torch.Tensor:
         """[C] distances on the device, dead slots +inf."""
+        inf = torch.tensor(float("inf"), device=self.device)
+        if self._sigs is None:
+            live = self.store.device_view(self.device)[2]
+            return torch.where(live, self._exact_distances(vec), inf)
         sigs = self.sig_table()
         q = self._query_sig(vec)
         if self.method == "euclid_lsh":
             d = knn.euclid_lsh_distances(q, sigs, hash_num=self.hash_num)
         else:
             d = self._scan(q[None, :], sigs)[0]
-        return torch.where(self._live_view(), d,
-                           torch.tensor(float("inf"), device=self.device))
+        return torch.where(self._live_view(), d, inf)
 
     def distances(self, vec: SparseVector) -> np.ndarray:
         """Distance of every live slot to the query; dead slots +inf. [C]."""
@@ -167,7 +193,7 @@ class NNBackend:
         return self._distances_dev(vec).cpu().numpy()
 
     def similarity_from_distance(self, d: np.ndarray) -> np.ndarray:
-        if self.method == "euclid_lsh":
+        if self.method in ("euclid_lsh", "euclid"):
             return -d
         return 1.0 - d
 
@@ -191,12 +217,20 @@ class NNBackend:
     def distances_from_slots(self, slots: np.ndarray,
                              chunk: int = 256) -> np.ndarray:
         """Distances from each of the given row slots to every slot:
-        [len(slots), C]; dead columns +inf. One batched scan per chunk."""
-        sigs = self.sig_table()
+        [len(slots), C]; dead columns +inf. The hash methods run one
+        batched scan per chunk of ``chunk`` rows; the exact methods loop
+        over the rows, one single-query scan each."""
+        self.flush()
         c = self.store.capacity
         out = np.full((len(slots), c), np.inf, np.float32)
         if not len(self.store):
             return out
+        if self._sigs is None:
+            for row, s in enumerate(slots):
+                vec = self.store.get_row(self.store.ids[int(s)]) or []
+                out[row] = self._distances_dev(vec).cpu().numpy()
+            return out
+        sigs = self._sigs
         for lo in range(0, len(slots), chunk):
             sel = torch.as_tensor(np.asarray(slots[lo:lo + chunk], np.int64),
                                   device=self.device)
@@ -212,7 +246,8 @@ class NNBackend:
     def unpack(self, obj: Any, datum_decoder=None) -> None:
         self.clear()
         self.store.unpack(obj["store"], datum_decoder=datum_decoder)
-        self._pending = dict.fromkeys(self.store.all_ids())
+        if self._sigs is not None:
+            self._pending = dict.fromkeys(self.store.all_ids())
 
     def pop_update_diff(self):
         return self.store.pop_update_diff()

@@ -1,8 +1,13 @@
-"""Nearest-neighbor signatures and distances: the LSH family in torch.
+"""Nearest-neighbor scoring in torch: exact cosine/euclid and the LSH family.
 
-Counterpart of ``jubatus_tpu/ops/knn.py`` (lsh, minhash, euclid_lsh; the
-exact methods are not ported yet). The per-feature projections are the same
-threefry draws (``ops/prng.py``), keyed by ``(seed, tag, feature index)``:
+Counterpart of ``jubatus_tpu/ops/knn.py``. The exact scorers (``densify``,
+``dot_scores``, ``row_norms``, ``cosine_scores``, ``euclid_distances``) are
+XLA programs there and plain torch here: the query is scattered into a dense
+[D] vector once, and every row's score is a gather + multiply + row sum over
+the store's padded [C, K] arenas (padding entries (0, 0.0) add nothing).
+
+The LSH family's per-feature projections are the same threefry draws
+(``ops/prng.py``), keyed by ``(seed, tag, feature index)``:
 
 - lsh: sign random projection, bits packed 32 to a word (uint32 bit patterns
   in int32); distance = normalized Hamming, scanned by ``ops/sig_scan.py``;
@@ -38,6 +43,53 @@ ROW_CHUNK = 1 << 16
 DRAW_CHUNK = 1 << 15
 
 
+# ---------------------------------------------------------------------------
+# dense/exact scoring
+# ---------------------------------------------------------------------------
+def densify(idx: torch.Tensor, val: torch.Tensor, *, dim: int) -> torch.Tensor:
+    """Scatter one sparse vector [K] into dense [dim]; duplicate indices
+    sum (``index_add_``, as ``.at[idx].add`` does)."""
+    out = torch.zeros(dim, dtype=torch.float32, device=val.device)
+    return out.index_add_(0, idx, val.float())
+
+
+def dot_scores(row_idx: torch.Tensor, row_val: torch.Tensor,
+               q_dense: torch.Tensor) -> torch.Tensor:
+    """row_i · q for all rows: gather q at each row's indices. [C]."""
+    gathered = q_dense.index_select(0, row_idx.reshape(-1))
+    return (row_val * gathered.view_as(row_val)).sum(dim=1)
+
+
+def row_norms(row_idx: torch.Tensor, row_val: torch.Tensor) -> torch.Tensor:
+    """L2 norm per row; padding zeros add nothing. [C]."""
+    return torch.sqrt((row_val * row_val).sum(dim=1))
+
+
+def cosine_scores(row_idx: torch.Tensor, row_val: torch.Tensor,
+                  q_dense: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of every row against the query. [C]; dead and
+    zero rows (and a zero query) score 0."""
+    dots = dot_scores(row_idx, row_val, q_dense)
+    rn = row_norms(row_idx, row_val)
+    qn = torch.sqrt((q_dense * q_dense).sum())
+    denom = rn * qn
+    return torch.where(denom > 0, dots / torch.clamp(denom, min=1e-30),
+                       torch.zeros_like(dots))
+
+
+def euclid_distances(row_idx: torch.Tensor, row_val: torch.Tensor,
+                     q_dense: torch.Tensor) -> torch.Tensor:
+    """Exact euclidean distance of every row to the query, expanded as
+    ||r||² - 2 r·q + ||q||², clamped at 0 before the square root. [C]."""
+    dots = dot_scores(row_idx, row_val, q_dense)
+    rn2 = (row_val * row_val).sum(dim=1)
+    qn2 = (q_dense * q_dense).sum()
+    return torch.sqrt(torch.clamp(rn2 - 2.0 * dots + qn2, min=0.0))
+
+
+# ---------------------------------------------------------------------------
+# the LSH family
+# ---------------------------------------------------------------------------
 def packed_words(hash_num: int) -> int:
     return (hash_num + 31) // 32
 

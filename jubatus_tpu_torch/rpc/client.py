@@ -2,8 +2,10 @@
 
 One connection, one call at a time under a lock, responses matched by msgid
 (a stale response to a timed-out call is dropped). No retries, trace
-context, deadlines or principals. ``NearestNeighborClient`` wraps the
-engine's methods with the cluster name every jubatus call carries first.
+context, deadlines or principals. ``NearestNeighborClient``,
+``RecommenderClient``, ``AnomalyClient`` and ``ClassifierClient`` wrap
+their engine's methods with the cluster name every jubatus call carries
+first.
 """
 
 from __future__ import annotations
@@ -95,14 +97,12 @@ class RpcClient:
             unpacker.feed(data)
 
 
-class NearestNeighborClient:
-    """The nearest_neighbor service plus the get_config / get_status
-    built-ins, each call prefixed with the cluster ``name``."""
+class _ServiceClient:
+    """One engine's service methods (``METHODS``) plus the get_config /
+    get_status built-ins, each call prefixed with the cluster ``name``."""
 
-    METHODS = ("clear", "set_row", "neighbor_row_from_id",
-               "neighbor_row_from_datum", "similar_row_from_id",
-               "similar_row_from_datum", "get_all_rows", "get_config",
-               "get_status")
+    METHODS: tuple = ()
+    BUILTINS = ("get_config", "get_status")
 
     def __init__(self, host: str, port: int, name: str,
                  timeout: float = 10.0) -> None:
@@ -110,7 +110,7 @@ class NearestNeighborClient:
         self.client = RpcClient(host, port, timeout)
 
     def __getattr__(self, method: str):
-        if method not in self.METHODS:
+        if method not in self.METHODS and method not in self.BUILTINS:
             raise AttributeError(method)
         return lambda *args: self.client.call(method, self.name, *args)
 
@@ -122,3 +122,26 @@ class NearestNeighborClient:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class NearestNeighborClient(_ServiceClient):
+    METHODS = ("clear", "set_row", "neighbor_row_from_id",
+               "neighbor_row_from_datum", "similar_row_from_id",
+               "similar_row_from_datum", "get_all_rows")
+
+
+class RecommenderClient(_ServiceClient):
+    METHODS = ("clear_row", "update_row", "clear", "complete_row_from_id",
+               "complete_row_from_datum", "similar_row_from_id",
+               "similar_row_from_datum", "decode_row", "get_all_rows",
+               "calc_similarity", "calc_l2norm")
+
+
+class AnomalyClient(_ServiceClient):
+    METHODS = ("clear_row", "add", "update", "overwrite", "clear",
+               "calc_score", "get_all_rows")
+
+
+class ClassifierClient(_ServiceClient):
+    METHODS = ("train", "classify", "get_labels", "set_label",
+               "delete_label", "clear")

@@ -2,6 +2,7 @@
 
     python -m jubatus_tpu_torch.server nearest_neighbor \\
         -f config/nearest_neighbor/lsh.json -p 9199 [--device cpu]
+    python -m jubatus_tpu_torch.server {recommender,anomaly,classifier} -f <config>
     python -m jubatus_tpu_torch.server nearest_neighbor --config-test -f conf.json
 """
 

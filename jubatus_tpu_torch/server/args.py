@@ -32,7 +32,8 @@ class ServerArgs:
 def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=prog, description="jubatus_tpu_torch engine server")
-    p.add_argument("engine", help="engine type (nearest_neighbor)")
+    p.add_argument("engine", help="engine type (nearest_neighbor, recommender, "
+                                  "anomaly, classifier)")
     p.add_argument("-p", "--rpc-port", type=int, default=9199)
     p.add_argument("-b", "--listen-addr", default="")
     p.add_argument("-c", "--thread", type=int, default=2)

@@ -19,6 +19,14 @@ def _datum(obj: Any) -> Datum:
     return Datum.from_msgpack(obj)
 
 
+def _datums(objs: Any) -> List[Datum]:
+    return [Datum.from_msgpack(o) for o in objs]
+
+
+def _wire_datum(d: Datum):
+    return d.to_msgpack()
+
+
 def _scored(results: List) -> List:
     """[(id, score)] → [[id, score]] (id_with_score wire shape)."""
     return [[i, float(s)] for i, s in results]
@@ -70,3 +78,58 @@ def _bind_nearest_neighbor(rpc: RpcServer, server: Any) -> None:
     rpc.register("similar_row_from_datum",
                  lambda name, q, n: _scored(d.similar_row_from_datum(_datum(q), int(n))), arity=3)
     rpc.register("get_all_rows", lambda name: d.get_all_rows(), arity=1)
+
+
+@_binder("recommender")
+def _bind_recommender(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+    rpc.register("clear_row", _updating(server, lambda name, rid: d.clear_row(rid)), arity=2)
+    rpc.register(
+        "update_row",
+        _updating(server, lambda name, rid, row: d.update_row(rid, _datum(row))),
+        arity=3,
+    )
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+    rpc.register("complete_row_from_id", lambda name, rid: _wire_datum(d.complete_row_from_id(rid)), arity=2)
+    rpc.register("complete_row_from_datum",
+                 lambda name, row: _wire_datum(d.complete_row_from_datum(_datum(row))), arity=2)
+    rpc.register("similar_row_from_id",
+                 lambda name, rid, size: _scored(d.similar_row_from_id(rid, int(size))), arity=3)
+    rpc.register("similar_row_from_datum",
+                 lambda name, row, size: _scored(d.similar_row_from_datum(_datum(row), int(size))), arity=3)
+    rpc.register("decode_row", lambda name, rid: _wire_datum(d.decode_row(rid)), arity=2)
+    rpc.register("get_all_rows", lambda name: d.get_all_rows(), arity=1)
+    rpc.register("calc_similarity", lambda name, lhs, rhs: float(d.calc_similarity(_datum(lhs), _datum(rhs))),
+                 arity=3)
+    rpc.register("calc_l2norm", lambda name, row: float(d.calc_l2norm(_datum(row))), arity=2)
+
+
+@_binder("anomaly")
+def _bind_anomaly(rpc: RpcServer, server: Any) -> None:
+    """The standalone anomaly service: ``add`` is the driver's local add
+    (no coordinator, so no replicated write)."""
+    d = server.driver
+    rpc.register("clear_row", _updating(server, lambda name, rid: d.clear_row(rid)), arity=2)
+    rpc.register("add", _updating(server, lambda name, row: list(d.add(_datum(row)))), arity=2)
+    rpc.register("update", _updating(server, lambda name, rid, row: float(d.update(rid, _datum(row)))),
+                 arity=3)
+    rpc.register("overwrite", _updating(server, lambda name, rid, row: float(d.overwrite(rid, _datum(row)))),
+                 arity=3)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+    rpc.register("calc_score", lambda name, row: float(d.calc_score(_datum(row))), arity=2)
+    rpc.register("get_all_rows", lambda name: d.get_all_rows(), arity=1)
+
+
+@_binder("classifier")
+def _bind_classifier(rpc: RpcServer, server: Any) -> None:
+    """The NN classifier: plain train / classify and label management."""
+    d = server.driver
+    rpc.register("train", _updating(server, lambda name, data: d.train(
+        [(p[0], _datum(p[1])) for p in data])), arity=2)
+    rpc.register("classify",
+                 lambda name, data: [_scored(r) for r in d.classify(_datums(data))],
+                 arity=2)
+    rpc.register("get_labels", lambda name: {k: int(v) for k, v in d.get_labels().items()}, arity=1)
+    rpc.register("set_label", _updating(server, lambda name, lbl: d.set_label(lbl)), arity=2)
+    rpc.register("delete_label", _updating(server, lambda name, lbl: d.delete_label(lbl)), arity=2)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)

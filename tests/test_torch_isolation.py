@@ -25,7 +25,24 @@ bad = sorted(m for m in sys.modules
              or m == "jubatus_tpu" or m.startswith("jubatus_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
+
+#: modules each slice added; the walk above must reach every one of them
+SLICE_MODULES = (
+    "jubatus_tpu_torch.models.recommender",
+    "jubatus_tpu_torch.models.anomaly",
+    "jubatus_tpu_torch.models.classifier_nn",
+    "jubatus_tpu_torch.core.fv.hashing",
+    "jubatus_tpu_torch.core.fv.converter",
+    "jubatus_tpu_torch.core.row_store",
+    "jubatus_tpu_torch.ops.knn",
+    "jubatus_tpu_torch.models._nn_backend",
+    "jubatus_tpu_torch.server.factory",
+    "jubatus_tpu_torch.server.service",
+    "jubatus_tpu_torch.rpc.client",
+    "jubatus_tpu_torch.convert",
+)
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -35,8 +52,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0]) >= 20
+    assert int(lines[0]) >= 23
     assert lines[1] == "", f"imported: {lines[1]}"
+    walked = set(lines[2].split(","))
+    assert not set(SLICE_MODULES) - walked
 
 
 @pytest.fixture
@@ -81,3 +100,19 @@ def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("engine,conf", [
+    ("recommender", {"method": "inverted_index"}),
+    ("anomaly", {"method": "lof", "parameter": {"method": "lsh"}}),
+    ("classifier", {"method": "cosine"}),
+])
+def test_new_engines_without_device_raise_without_cuda(no_cuda, engine, conf):
+    from jubatus_tpu_torch.server import EngineServer
+    from jubatus_tpu_torch.server.factory import create_driver
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_driver(engine, conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EngineServer(engine, conf)
+    assert create_driver(engine, conf, device="cpu").device.type == "cpu"

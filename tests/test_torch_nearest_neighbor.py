@@ -177,8 +177,11 @@ def test_unported_layouts_raise():
         be.configure_ann("ivf")
     with pytest.raises(NotImplementedError):
         be.attach_mesh(object())
+    exact = NNBackend("inverted_index", dim=1 << DIM_BITS, device="cpu")
     with pytest.raises(NotImplementedError):
-        NNBackend("inverted_index", dim=1 << DIM_BITS, device="cpu")
+        exact.configure_ann("ivf")
+    with pytest.raises(NotImplementedError):
+        exact.attach_mesh(object())
 
 
 def test_backend_live_mask_is_cached_per_store_version():
