@@ -7,7 +7,9 @@ Drives the port only; imports nothing of JAX or of ``jubatus_tpu``. Phases,
 each of which fails the run (non-zero exit, no result line) on error:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-   builds ``jubatus_tpu_torch/csrc/sig_scan.cu`` with nvcc (sm_90a);
+   builds ``jubatus_tpu_torch/csrc/sig_scan.cu`` and
+   ``jubatus_tpu_torch/csrc/online_scan.cu`` with nvcc (sm_90a), one nvcc
+   per source, started together;
 2. kernels: both modes of the signature scan against their plain PyTorch
    versions on the same tensors, bit-equal required: first at edge shapes
    (C in {1, 7, 4099}, B around each variant's limits, W in {2, 3, 64, 70},
@@ -15,7 +17,12 @@ each of which fails the run (non-zero exit, no result line) on error:
    kernel variant; then (hamming at hash_num 64, W=2; minhash at H=64) at
    B in {1, 256} and C = 1,000,003 rows with kernel, plain and library-call
    times (CUDA events), the variant that ran, the bound, and the same
-   operations at the card's int32 issue rate;
+   operations at the card's int32 issue rate; then regression's scan
+   kernel (``[scan]``): PA, PA1 and PA2 at B = 1024, K = 64, D = 2^18 with
+   padding and duplicate indices, bit-equal to the plain version on the
+   CPU and within SCAN_CARD_TOL of it on the card; its time at B = 8192 (median of CUDA events)
+   against the plain version's, its bound, and the dependence chain's
+   bound from the measured latency of a dependent load and shuffle;
 3. backends: an lsh and a minhash NNBackend on the card with 10^6 rows of
    32 hashed features (dim_bits 18), 200 ``neighbors(vec, 10)`` queries
    each; the kernel's launch count must rise by 200, and 5 queries redone
@@ -47,9 +54,23 @@ each of which fails the run (non-zero exit, no result line) on error:
    over lsh, 500 add: each add rebuilds the support) and classifier
    (``config/classifier/nn.json`` as shipped and with nested lsh, 10^4
    examples) servers on the card, every answer compared with the port's
-   driver on the CPU fed the same datums.
+   driver on the CPU fed the same datums;
+8. classifier: AROW ``train_batch_parallel`` at the JAX package's bench
+   shape (L = 2, K = 64, B = 32768, D = 2^20 and 2^24): examples/s (median
+   of 10 steps after 2), one step under torch.profiler (device busy and
+   idle share), the state after 4 steps against the CPU port (within
+   CLF_TOL), the deterministic-mode reproduction and one PA1 and CW step
+   (D = 2^20); the driver's ``train_hashed`` examples/s and
+   ``classify_hashed`` p50/p99 at B = 1 and B = 32768;
+9. linear servers: ``config/classifier/arow.json`` and
+   ``config/regression/default.json`` on the card; 10^4 rows through
+   ``train`` in calls of 256 from 4 clients at once (the coalescer merges
+   them), then again from one client after ``clear`` beside a CPU driver
+   fed the same calls; 50 ``classify`` / ``estimate`` calls (p50/p99,
+   ``first_ms`` apart) against the CPU driver within LINEAR_TOL; the
+   regression server's scan-kernel launches must move.
 
-Phases 3-7 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8 and 9 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -60,6 +81,7 @@ launches per path), the nvidia-smi line, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -101,6 +123,8 @@ REPS = 30                     # timed kernel launches per shape (median)
 EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
 EDGE_W = (2, 3, 64, 70)
 EDGE_B_EXTRA = ((4100, 4099, 2),)  # hamming past one shared query tile
+#: launch counts a path reads: K1's two modes and regression's scan
+COUNTED = ("hamming", "minhash", "pa_scan")
 KERNELS = {
     # ops_per_word: the least int32 ALU work per (query, row, word):
     # xor + popcount + add for hamming, compare + add for minhash
@@ -606,8 +630,10 @@ def server_status(cli) -> dict:
 
 
 def server_launches(st: dict) -> dict:
-    return {mode: int(st[f"kernel.sig_scan.{mode}.launches"])
-            for mode in KERNELS}
+    out = {mode: int(st[f"kernel.sig_scan.{mode}.launches"])
+           for mode in KERNELS}
+    out["pa_scan"] = int(st["kernel.online_scan.launches"])
+    return out
 
 
 def phase_server(torch, Datum, NearestNeighborDriver, seed: int) -> dict:
@@ -673,13 +699,19 @@ def load_config(*parts) -> dict:
 
 
 def launch_counts(sig_scan) -> dict:
+    from jubatus_tpu_torch.ops import online_scan
+
     return {"hamming": sig_scan.hamming.launches,
-            "minhash": sig_scan.minhash.launches}
+            "minhash": sig_scan.minhash.launches,
+            "pa_scan": online_scan.pa_scan.launches}
 
 
 def set_counts(sig_scan, counts: dict) -> None:
+    from jubatus_tpu_torch.ops import online_scan
+
     sig_scan.hamming.launches = counts["hamming"]
     sig_scan.minhash.launches = counts["minhash"]
+    online_scan.pa_scan.launches = counts["pa_scan"]
 
 
 @contextlib.contextmanager
@@ -1230,6 +1262,398 @@ def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the linear classifier at the JAX package's bench shape
+# ---------------------------------------------------------------------------
+CLF_B = 32768                 # bench.py: AROW, L = 2, K = 64, B = 32768
+CLF_K = 64
+CLF_L = 2
+CLF_DIM_BITS = (20, 24)
+CLF_WARMUP = 2
+CLF_STEPS = 10                # timed steps (median)
+CLF_CHECK_STEPS = 4           # steps held against the CPU port
+CLF_QUERIES = 200             # classify_hashed at B = 1
+CLF_BIG_QUERIES = 10          # classify_hashed at B = CLF_B
+# card against CPU: |d| <= CLF_TOL * max|cpu| + 1e-4 * |cpu|. Sums over K
+# and the scatter's order of duplicate adds differ (CUDA sorts the indices
+# and may add in another order than the CPU's serial loop)
+CLF_TOL = 1e-5
+CLF_CONFIG = {"method": "AROW", "parameter": {"regularization_weight": 1.0},
+              "converter": {"num_rules": [{"key": "*", "type": "num"}]}}
+
+
+def bench_batch(rng, dim_bits: int, b: int = CLF_B):
+    """bench.py's make_data: uniform indices in [1, D), normal values,
+    labels in {0, 1}."""
+    idx = rng.integers(1, 1 << dim_bits, size=(b, CLF_K), dtype=np.int32)
+    val = rng.normal(size=(b, CLF_K)).astype(np.float32)
+    lab = rng.integers(0, CLF_L, size=b).astype(np.int32)
+    return idx, val, lab
+
+
+def table_err(got, want) -> float:
+    """max |got - want| over CLF_TOL * max|want| + 1e-4 |want|: <= 1 holds."""
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    limit = CLF_TOL * float(want.abs().max()) + 1e-4 * want.abs() + 1e-30
+    return float(((got - want).abs() / limit).max())
+
+
+def run_steps(C, state, batches, mask, method):
+    for idx, val, lab in batches:
+        C.train_batch_parallel(state, idx, val, lab, mask, 1.0, method=method)
+    return state
+
+
+def phase_classifier_ops(torch, C, dim_bits: int, seed: int) -> dict:
+    """train_batch_parallel at the bench shape: examples/s (median of
+    CLF_STEPS CUDA-event-timed steps), one step profiled, the state after
+    CLF_CHECK_STEPS steps against the CPU port, the deterministic-mode
+    reproduction (D = 2^20) and one PA1 and CW step against the CPU."""
+    dev = torch.device("cuda")
+    d = 1 << dim_bits
+    rng = np.random.default_rng(seed + dim_bits)
+    host = [bench_batch(rng, dim_bits)
+            for _ in range(CLF_WARMUP + CLF_STEPS)]
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in host]
+    mask = torch.ones(CLF_L, dtype=torch.bool, device=dev)
+    st = C.init_state(CLF_L, d, True, device=dev)
+    run_steps(C, st, batches[:CLF_WARMUP], mask, "AROW")
+    torch.cuda.synchronize()
+    times, walls = [], []
+    for b in batches[CLF_WARMUP:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run_steps(C, st, [b], mask, "AROW")
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    wall_ms = statistics.median(walls)
+    prof = profile_calls(
+        torch, [lambda: run_steps(C, st, [batches[-1]], mask, "AROW")],
+        wall_ms, [])
+    check(bool(torch.isfinite(st.dw).all()), "AROW state is not finite")
+    # the card against the CPU port, CLF_CHECK_STEPS steps from init
+    mask_cpu = mask.cpu()
+    on_card = run_steps(C, C.init_state(CLF_L, d, True, device=dev),
+                        batches[:CLF_CHECK_STEPS], mask, "AROW")
+    on_cpu = run_steps(C, C.init_state(CLF_L, d, True, device="cpu"),
+                       [tuple(torch.from_numpy(a) for a in b)
+                        for b in host[:CLF_CHECK_STEPS]], mask_cpu, "AROW")
+    errs = {name: table_err(a, b) for name, a, b in
+            zip(("w", "dw", "prec", "dprec"), on_card, on_cpu)}
+    check(max(errs.values()) <= 1.0,
+          f"AROW D=2^{dim_bits}: card off the CPU port {errs}")
+    q_idx, q_val, _ = host[0]
+    s_card = C.scores(on_card, batches[0][0][:256], batches[0][1][:256], mask)
+    s_cpu = C.scores(on_cpu, torch.from_numpy(q_idx[:256]),
+                     torch.from_numpy(q_val[:256]), mask_cpu)
+    errs["scores"] = table_err(s_card, s_cpu)
+    check(errs["scores"] <= 1.0, f"AROW scores off the CPU: {errs}")
+    del on_card, on_cpu
+    out = dict(dim_bits=dim_bits, B=CLF_B, K=CLF_K, L=CLF_L,
+               step_ms=step_ms, step_wall_ms=wall_ms,
+               examples_per_s=CLF_B / step_ms * 1e3,
+               step_ms_all=times, profile=prof,
+               cpu_parity=dict(steps=CLF_CHECK_STEPS, tol=CLF_TOL,
+                               err_over_limit=errs))
+    if dim_bits == 20:
+        out["deterministic"] = deterministic_repro(torch, C, batches, mask, d)
+        out["other_methods"] = {}
+        for method in ("PA1", "CW"):
+            conf = method in C.CONFIDENCE_METHODS
+            a = run_steps(C, C.init_state(CLF_L, d, conf, device=dev),
+                          batches[:1], mask, method)
+            b = run_steps(C, C.init_state(CLF_L, d, conf, device="cpu"),
+                          [tuple(torch.from_numpy(x) for x in host[0])],
+                          mask_cpu, method)
+            e = max(table_err(x, y) for x, y in zip(a, b))
+            check(e <= 1.0, f"{method}: card off the CPU port ({e})")
+            out["other_methods"][method] = e
+    return out
+
+
+def deterministic_repro(torch, C, batches, mask, d) -> dict:
+    """Under torch.use_deterministic_algorithms(True), CLF_CHECK_STEPS
+    steps from init twice: the two states must be equal bit for bit."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [run_steps(C, C.init_state(CLF_L, d, True,
+                                          device=batches[0][0].device),
+                          batches[:CLF_CHECK_STEPS], mask, "AROW")
+                for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(same, "deterministic mode: two runs of the same steps differ")
+    return dict(steps=CLF_CHECK_STEPS, bit_equal=same)
+
+
+def phase_classifier_driver(torch, C, ClassifierDriver, dim_bits: int,
+                            seed: int) -> dict:
+    """The driver's train_hashed (label slots, upload, the step at the
+    driver's capacity of 8 rows) and classify_hashed at B = 1 and B =
+    CLF_B; its answers against ops.scores of its own state on the CPU."""
+    drv = ClassifierDriver(CLF_CONFIG, dim_bits=dim_bits, device="cuda")
+    rng = np.random.default_rng(seed + 100 + dim_bits)
+    host = [bench_batch(rng, dim_bits) for _ in range(CLF_WARMUP + CLF_STEPS)]
+    names = np.array(["neg", "pos"])
+    walls = []
+    for i, (idx, val, lab) in enumerate(host):
+        t0 = time.perf_counter()
+        check(drv.train_hashed(list(names[lab]), idx, val) == CLF_B,
+              "train_hashed count")
+        torch.cuda.synchronize()
+        if i >= CLF_WARMUP:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    train_ms = statistics.median(walls)
+    q_idx, q_val, _ = bench_batch(rng, dim_bits)
+    lat1 = []
+    for i in range(CLF_QUERIES):
+        _, ms = timed(drv.classify_hashed, q_idx[i:i + 1], q_val[i:i + 1])
+        lat1.append(ms)
+    lat_big = []
+    for _ in range(CLF_BIG_QUERIES):
+        big, ms = timed(drv.classify_hashed, q_idx, q_val)
+        lat_big.append(ms)
+    state_cpu = C.ClassifierState(*(t.cpu() for t in drv.state))
+    mask = torch.zeros(drv.capacity, dtype=torch.bool)
+    mask[list(drv.label_slots.values())] = True
+    want = C.scores(state_cpu, torch.from_numpy(q_idx[:64]),
+                    torch.from_numpy(q_val[:64]), mask)
+    got = torch.tensor([[s for _, s in row] for row in big[:64]])
+    slots = [drv.label_slots[lab] for lab, _ in big[0]]
+    err = table_err(got, want[:, slots])
+    check(err <= 1.0, f"driver classify off the CPU recomputation ({err})")
+    return dict(dim_bits=dim_bits, B=CLF_B, capacity=drv.capacity,
+                train_hashed_ms=train_ms,
+                train_examples_per_s=CLF_B / train_ms * 1e3,
+                classify_b1=pcts(lat1), classify_big=pcts(lat_big),
+                classify_parity_err_over_limit=err)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: regression's scan kernel against its plain version
+# ---------------------------------------------------------------------------
+SCAN_DIM_BITS = 18            # the server's feature space
+SCAN_K = 64
+SCAN_CHECK_B = 1024
+SCAN_TIME_B = 8192            # the server's --microbatch-max
+SCAN_REPS = 10
+SCAN_FLOPS_PER_FEATURE = 7    # 2 mul + add (pred), mul + add (x2), mul, add
+# kernel against the plain version on the card: |d| <= SCAN_CARD_TOL *
+# max|dw|. Only the order of duplicate adds differs there (and what it
+# feeds into the later examples' predictions)
+SCAN_CARD_TOL = 1e-5
+
+
+def pa_scan_inputs(rng, b: int):
+    """Rows as the server's batches look: 48 features and 16 padding
+    columns (index 0, value 0), with duplicate indices inside a round of 32
+    lanes and across rounds."""
+    d = 1 << SCAN_DIM_BITS
+    idx = rng.integers(1, d, size=(b, SCAN_K)).astype(np.int32)
+    val = rng.normal(size=(b, SCAN_K)).astype(np.float32)
+    idx[:, 48:] = 0
+    val[:, 48:] = 0.0
+    idx[::3, 5] = idx[::3, 2]
+    idx[::5, 37] = idx[::5, 2]
+    y = (rng.normal(size=b) * 3).astype(np.float32)
+    w = (rng.normal(size=d) * 0.1).astype(np.float32)
+    return idx, val, y, w
+
+
+def phase_scan(torch, online_scan, seed: int) -> dict:
+    """Each method's kernel bit-equal to the plain version on the CPU,
+    whose serial ``index_put_`` adds an example's duplicate indices in k
+    order as the kernel does; and within SCAN_CARD_TOL of the plain
+    version on the card (deterministic algorithms on), whose ``index_put_``
+    sums each run of duplicates in its own order first. Then the kernel's
+    time at B = SCAN_TIME_B against the plain version's, its bound, and
+    the dependence chain."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 31)
+    d = 1 << SCAN_DIM_BITS
+    checks = {}
+    for method in online_scan.METHODS:
+        idx, val, y, w = pa_scan_inputs(rng, SCAN_CHECK_B)
+        cpu = [torch.from_numpy(a) for a in (idx, val, y, w)]
+        card = [a.to(dev) for a in cpu]
+        dw_k = torch.zeros(d, device=dev)
+        online_scan.pa_scan(card[3], dw_k, card[0], card[1], card[2], 0.1,
+                            0.7, method)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            dw_p = online_scan.pa_scan_plain(card[3], torch.zeros(d, device=dev),
+                                             card[0], card[1], card[2], 0.1,
+                                             0.7, method)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        dw_c = online_scan.pa_scan_plain(cpu[3], torch.zeros(d), cpu[0],
+                                         cpu[1], cpu[2], 0.1, 0.7, method)
+        torch.cuda.synchronize()
+        err = float((dw_k - dw_p).abs().max())
+        scale = float(dw_p.abs().max())
+        check(scale > 0.0, f"scan {method}: no update")
+        check(torch.equal(dw_k.cpu(), dw_c),
+              f"scan {method}: kernel != plain on the CPU (max "
+              f"{float((dw_k.cpu() - dw_c).abs().max())})")
+        check(err <= SCAN_CARD_TOL * scale,
+              f"scan {method}: kernel off the plain version on the card by "
+              f"{err} (> {SCAN_CARD_TOL} x {scale})")
+        checks[method] = dict(B=SCAN_CHECK_B, max_abs_err=err,
+                              max_abs=scale, bit_equal_cpu=True,
+                              bit_equal_card=bool(torch.equal(dw_k, dw_p)))
+    # timing, PA (config/regression/default.json's method)
+    idx, val, y, w = pa_scan_inputs(rng, SCAN_TIME_B)
+    card = [torch.from_numpy(a).to(dev) for a in (idx, val, y, w)]
+    dw = torch.zeros(d, device=dev)
+
+    def kernel():
+        online_scan.pa_scan(card[3], dw, card[0], card[1], card[2], 0.1,
+                            1.0, "PA")
+
+    kernel_ms = time_ms(torch, kernel, SCAN_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    online_scan.pa_scan_plain(card[3], torch.zeros(d, device=dev), card[0],
+                              card[1], card[2], 0.1, 1.0, "PA")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    uniq = int(np.unique(idx).size)
+    t_bytes = (SCAN_TIME_B * SCAN_K * 8 + SCAN_TIME_B * 4
+               + uniq * 12) / HBM_BYTES_PER_S * 1e3
+    t_ops = (SCAN_FLOPS_PER_FEATURE * SCAN_TIME_B * SCAN_K
+             / ALU_OPS_PER_S * 1e3)
+    lat = online_scan.latency_probe(dev)
+    chain_ms = SCAN_TIME_B * (2 * lat["load_ns"]
+                              + 5 * lat["shuffle_ns"]) / 1e6
+    return dict(checks=checks, B=SCAN_TIME_B, K=SCAN_K,
+                dim_bits=SCAN_DIM_BITS, distinct_indices=uniq,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                chain=dict(lat, chain_bound_ms=chain_ms,
+                           per_example_us=kernel_ms * 1e3 / SCAN_TIME_B),
+                max_abs_err=max(c["max_abs_err"] for c in checks.values()))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the linear classifier and regression servers over RPC
+# ---------------------------------------------------------------------------
+LINEAR_BATCH = 256            # rows per train call
+LINEAR_THREADS = 4            # concurrent train clients (coalesced)
+LINEAR_QUERIES = 50
+# answers of the card's server against the CPU port's driver fed the same
+# batches: |d| <= LINEAR_TOL * max|want| + 1e-4 |want|
+LINEAR_TOL = 1e-5
+
+
+def linear_example(rng, Datum, engine: str, i: int):
+    d = server_datum(rng, Datum, i)
+    if engine == "classifier":
+        return [f"l{i % 3}", d]
+    return [float(sum(v for _, v in d.num_values)), d]
+
+
+def phase_linear_server(Datum, Driver, engine: str, config_name: str,
+                        seed: int) -> dict:
+    """config/<engine>/<config_name> on the card. First SERVER_ROWS rows
+    in LINEAR_BATCH-row train calls from LINEAR_THREADS clients at once
+    (the coalescer merges them; each call must return its own count); then
+    ``clear`` and the same rows from one client, so each call is one flush
+    and a CPU driver fed the same batches holds the same model; then
+    LINEAR_QUERIES classify / estimate calls against it."""
+    path = os.path.join(ROOT, "config", engine, config_name)
+    config = load_config(engine, config_name)
+    ref = Driver(config, device="cpu")
+    rng = np.random.default_rng(seed + 41)
+    rows = [linear_example(rng, Datum, engine, i) for i in range(SERVER_ROWS)]
+    batches = [rows[lo:lo + LINEAR_BATCH]
+               for lo in range(0, SERVER_ROWS, LINEAR_BATCH)]
+    query = "classify" if engine == "classifier" else "estimate"
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    with serving(engine, path) as cli:
+        st0 = server_status(cli)
+        counts, errors = [], []
+
+        def client(k):
+            try:
+                with RpcClient(cli.host, cli.port, timeout=120.0) as c:
+                    for b in batches[k::LINEAR_THREADS]:
+                        counts.append((len(b), c.call("train", "smoke", b)))
+            except Exception as e:  # broad-ok — reported below
+                errors.append(e)
+
+        import threading
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(LINEAR_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_conc = time.perf_counter() - t0
+        check(not errors, f"{engine} concurrent train failed: {errors[:1]}")
+        check(all(a == b for a, b in counts) and len(counts) == len(batches),
+              f"{engine}: a train call got another count back")
+        st1 = server_status(cli)
+        flushes = (st1["microbatch.train.flush_count"]
+                   - st0.get("microbatch.train.flush_count", 0))
+        check(st1["microbatch.train.item_count"] == SERVER_ROWS,
+              f"{engine}: {st1['microbatch.train.item_count']} examples "
+              f"flushed, want {SERVER_ROWS}")
+        check(cli.call("clear", "smoke") is True, "clear failed")
+        t0 = time.perf_counter()
+        for b in batches:
+            check(cli.call("train", "smoke", b) == len(b), "train count")
+        t_seq = time.perf_counter() - t0
+        for b in batches:
+            ref.train([(lab, d) for lab, d in b])
+        qs = [server_datum(rng, Datum, SERVER_ROWS + i)
+              for i in range(LINEAR_QUERIES)]
+        lat, got = [], []
+        for q in qs:
+            (ans,), ms = timed(cli.call, query, "smoke", [q])
+            lat.append(ms)
+            got.append(ans)
+        want = (ref.classify(qs) if engine == "classifier"
+                else ref.estimate(qs))
+        if engine == "classifier":
+            check([[lab for lab, _ in r] for r in got] ==
+                  [[lab for lab, _ in r] for r in want], "labels differ")
+            check(cli.call("get_labels", "smoke") == ref.get_labels(),
+                  "get_labels differs")
+            g = np.array([[s for _, s in r] for r in got], dtype=np.float64)
+            w = np.array([[s for _, s in r] for r in want], dtype=np.float64)
+        else:
+            g = np.array(got, dtype=np.float64)
+            w = np.array(want, dtype=np.float64)
+        check(np.isfinite(g).all(), f"{engine}: answers not finite")
+        limit = LINEAR_TOL * float(np.abs(w).max()) + 1e-4 * np.abs(w) + 1e-30
+        err = float((np.abs(g - w) / limit).max())
+        check(err <= 1.0, f"{engine} {query}: off the CPU driver ({err})")
+        st = server_status(cli)
+    return dict(engine=engine, config=f"config/{engine}/{config_name}",
+                rows=SERVER_ROWS, batch=LINEAR_BATCH,
+                concurrent=dict(threads=LINEAR_THREADS, calls=len(batches),
+                                flushes=flushes, seconds=t_conc,
+                                rows_per_s=SERVER_ROWS / t_conc),
+                sequential=dict(calls=len(batches), seconds=t_seq,
+                                rows_per_s=SERVER_ROWS / t_seq),
+                **{query: pcts(lat)},
+                parity=dict(tol=LINEAR_TOL, err_over_limit=err),
+                launches=server_launches(st))
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1246,10 +1670,13 @@ def main(argv=None) -> int:
         from jubatus_tpu_torch.core.sparse import SparseBatch
         from jubatus_tpu_torch.models._nn_backend import NNBackend
         from jubatus_tpu_torch.models.anomaly import AnomalyDriver
+        from jubatus_tpu_torch.models.classifier import ClassifierDriver
         from jubatus_tpu_torch.models.classifier_nn import ClassifierNNDriver
         from jubatus_tpu_torch.models.nearest_neighbor import NearestNeighborDriver
         from jubatus_tpu_torch.models.recommender import RecommenderDriver
-        from jubatus_tpu_torch.ops import knn, sig_scan
+        from jubatus_tpu_torch.models.regression import RegressionDriver
+        from jubatus_tpu_torch.ops import classifier as clf_ops
+        from jubatus_tpu_torch.ops import knn, online_scan, sig_scan
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1261,10 +1688,13 @@ def main(argv=None) -> int:
         log(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
             f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
         t0 = time.perf_counter()
-        sig_scan.library()
-        log(f"[build] {sig_scan.SOURCE.name} built and loaded in "
-            f"{time.perf_counter() - t0:.2f} s")
-        for line in sig_scan.build_log.splitlines():
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            # one nvcc per source, started together
+            for fut in [pool.submit(m.library) for m in (sig_scan, online_scan)]:
+                fut.result()
+        log(f"[build] {sig_scan.SOURCE.name}, {online_scan.SOURCE.name} built "
+            f"and loaded in {time.perf_counter() - t0:.2f} s")
+        for line in (sig_scan.build_log + online_scan.build_log).splitlines():
             if "entry function" in line:
                 log(f"[build] {line.strip()[:120]}")
             if "registers" in line or "spill" in line:
@@ -1273,19 +1703,22 @@ def main(argv=None) -> int:
         edges = phase_edges(torch, sig_scan, args.seed)
         log(f"[edges] {json.dumps(edges)}")
         scans = phase_kernels(torch, sig_scan, args.seed)
+        with uncounted(sig_scan):
+            pa = phase_scan(torch, online_scan, args.seed)
+        log(f"[scan] {json.dumps(pa)} | {kind} | {smi}")
         # -- phases 3-7: the main path; each path's launch counts are set
         # to 0 just before it and read just after (the servers' own counts
         # come from their get_status)
         paths, path_s = {}, {}
 
         def run_path(name, fn, *fn_args):
-            set_counts(sig_scan, {"hamming": 0, "minhash": 0})
+            set_counts(sig_scan, {m: 0 for m in COUNTED})
             t0 = time.perf_counter()
             res = fn(*fn_args)
             path_s[name] = time.perf_counter() - t0
             counts = launch_counts(sig_scan)
             paths[name] = {m: counts[m] + res.get("server_launches", {})
-                           .get(m, 0) for m in KERNELS}
+                           .get(m, 0) for m in COUNTED}
             return res
 
         def nn_path():
@@ -1337,20 +1770,45 @@ def main(argv=None) -> int:
                     total[m] += res["launches"][m]
             return {"server_launches": total}
 
+        def classifier_path():
+            for dim_bits in CLF_DIM_BITS:
+                res = phase_classifier_ops(torch, clf_ops, dim_bits, args.seed)
+                log(f"[classifier_ops] {json.dumps(res)} | {kind} | {smi}")
+                res = phase_classifier_driver(torch, clf_ops, ClassifierDriver,
+                                              dim_bits, args.seed)
+                log(f"[classifier_driver] {json.dumps(res)} | {kind} | {smi}")
+            return {}
+
+        def linear_servers_path():
+            total = {m: 0 for m in COUNTED}
+            for engine, driver, config in (
+                    ("classifier", ClassifierDriver, "arow.json"),
+                    ("regression", RegressionDriver, "default.json")):
+                res = phase_linear_server(Datum, driver, engine, config,
+                                          args.seed)
+                log(f"[{engine}_server] {json.dumps(res)} | {kind} | {smi}")
+                for m in COUNTED:
+                    total[m] += res["launches"][m]
+            return {"server_launches": total}
+
         lof_shapes = {}
         run_path("nearest_neighbor", nn_path)
         run_path("nearest_neighbor_server", nn_server_path)
         run_path("recommender", recommender_path)
         run_path("anomaly", anomaly_path)
         run_path("servers", servers_path)
+        run_path("classifier", classifier_path)
+        run_path("linear_servers", linear_servers_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
-        launches = {m: sum(p[m] for p in paths.values()) for m in KERNELS}
+        launches = {m: sum(p[m] for p in paths.values()) for m in COUNTED}
         for mode, n in launches.items():
-            check(n > 0, f"sig_scan.{mode} never launched on the main path")
+            check(n > 0, f"{mode} never launched on the main path")
         for path in ("recommender", "anomaly"):
             for mode in KERNELS:
                 check(paths[path][mode] > 0,
                       f"sig_scan.{mode} never launched on the {path} path")
+        check(paths["linear_servers"]["pa_scan"] > 0,
+              "online_scan.pa never launched on the linear servers path")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1371,6 +1829,19 @@ def main(argv=None) -> int:
             "library_ms": first["library_ms"],
             "shapes": scans[mode], "lof_shape": lof_shapes[mode],
         })
+    kernels.append({
+        "name": "online_scan.pa", "route": "cuda",
+        "source": "jubatus_tpu_torch/csrc/online_scan.cu",
+        "replaces": "jubatus_tpu/ops/regression.py:74",
+        "replaces_kind": "jax.lax.scan (no Pallas kernel)",
+        "launches": launches["pa_scan"],
+        "launches_by_path": {p: c["pa_scan"] for p, c in paths.items()},
+        "max_abs_err": pa["max_abs_err"], "ms": pa["kernel_ms"],
+        "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
+        "bound_by": pa["bound_by"], "library_ms": None,
+        "chain_bound_ms": pa["chain"]["chain_bound_ms"],
+        "shape": dict(B=pa["B"], K=pa["K"], dim_bits=pa["dim_bits"]),
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ under the same names.
 
 Ported so far: the engines on the nearest-neighbor backend — nearest_neighbor,
 recommender, anomaly (LOF) and the NN classifier — with the exact methods
-(inverted_index, euclid) and the LSH family, whose signature scan is the
-CUDA kernel (``ops/sig_scan.py``, ``csrc/sig_scan.cu``).
+(inverted_index, euclid) and the LSH family, whose signature scan is a CUDA
+kernel (``ops/sig_scan.py``, ``csrc/sig_scan.cu``); and the linear
+classifier and regression engines, whose per-example scan is a CUDA kernel
+(``ops/online_scan.py``, ``csrc/online_scan.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

@@ -1,11 +1,13 @@
 """Carry state between the JAX package and the port.
 
 - ``from_jax_pack(obj, config, engine=...)`` builds the port's driver of
-  ``engine`` (nearest_neighbor, recommender, anomaly, classifier) from the
-  JAX driver's ``pack()`` output, as plain msgpack/numpy data: the store's
-  rows with their datums (recommender) or labels (classifier), the
-  converter's weight state, anomaly's next id and the classifier's label
-  states. The feature space size is read from the packed df table; the
+  ``engine`` (nearest_neighbor, recommender, anomaly, classifier,
+  regression) from the JAX driver's ``pack()`` output, as plain
+  msgpack/numpy data: the store's rows with their datums (recommender) or
+  labels (NN classifier), the converter's weight state, anomaly's next id,
+  the NN classifier's label states, and the linear classifier's and
+  regression's weight tables (``w``, ``prec``, ``labels``, ``capacity``,
+  ``label_counts``), which go onto the driver's device. The feature space size is read from the packed df table; the
   signatures are recomputed from the rows at the first query, with the
   same draws (ops/prng.py).
 - The way back is the port driver's own ``pack()``: it has the JAX

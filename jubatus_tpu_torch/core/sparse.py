@@ -14,9 +14,23 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # (index, weight) pairs, already hashed. The canonical sparse vector type.
 SparseVector = List[Tuple[int, float]]
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: on the CPU it shares the
+    array's memory; to a card it goes through pinned memory with a
+    non-blocking copy on the current stream."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch.from_numpy wants a writable array
+        a = a.copy()
+    t = torch.from_numpy(a)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _bucket(n: int, minimum: int = 8) -> int:

@@ -28,29 +28,22 @@ wrapper counts its kernel launches in ``.launches``, whatever the variant.
 
 The kernel is built at first use with ``nvcc`` into a shared library with a
 plain C interface (``build/torch_kernels/`` under the checkout), loaded with
-ctypes; the library's name carries a hash of the source, so an edited source
-is rebuilt.
+ctypes (``ops/_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from jubatus_tpu_torch.ops import _build
+
 MASK = 0xFFFFFFFF
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sig_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "sig_scan.cu"
 
 #: the kernel variants of each mode, each one C entry point
 #: ``jt_sig_scan_<mode>_<variant>`` with the same arguments
@@ -69,35 +62,13 @@ _lib_lock = threading.Lock()
 build_log = ""
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the sig_scan kernel cannot be built")
-
-
 def library() -> ctypes.CDLL:
     """Build (once per source version) and load the kernel library."""
     global _lib, build_log
     with _lib_lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"libsig_scan_{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib, build_log = _build.build(SOURCE)
         for mode, variants in VARIANTS.items():
             for variant in variants:
                 fn = getattr(lib, f"jt_sig_scan_{mode}_{variant}")

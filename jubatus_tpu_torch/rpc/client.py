@@ -3,7 +3,8 @@
 One connection, one call at a time under a lock, responses matched by msgid
 (a stale response to a timed-out call is dropped). No retries, trace
 context, deadlines or principals. ``NearestNeighborClient``,
-``RecommenderClient``, ``AnomalyClient`` and ``ClassifierClient`` wrap
+``RecommenderClient``, ``AnomalyClient``, ``ClassifierClient`` and
+``RegressionClient`` wrap
 their engine's methods with the cluster name every jubatus call carries
 first.
 """
@@ -145,3 +146,7 @@ class AnomalyClient(_ServiceClient):
 class ClassifierClient(_ServiceClient):
     METHODS = ("train", "classify", "get_labels", "set_label",
                "delete_label", "clear")
+
+
+class RegressionClient(_ServiceClient):
+    METHODS = ("train", "estimate", "clear")

@@ -9,16 +9,22 @@ correlated by msgid, so a client may pipeline calls on one connection.
 A wrong parameter count answers ARGUMENT_ERROR, an unknown method
 NO_METHOD_ERROR. Not carried over: tracing, fault injection, deadlines,
 principals, the legacy-wire scan and the raw fast path.
+
+``stop()`` waits on nothing: it shuts the listening socket and every open
+connection down (which wakes a reader blocked in ``recv`` and a worker
+blocked in ``sendall`` to a peer that does not read), drops the requests
+still queued, and leaves the workers, daemon threads, to finish or die
+with the process. A request already running finishes, but nothing joins it.
 """
 
 from __future__ import annotations
 
 import inspect
 import logging
+import queue
 import socket
 import threading
-from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Set
 
 import msgpack
 
@@ -48,7 +54,11 @@ class RpcServer:
         self._methods: Dict[str, Callable[..., Any]] = {}
         self._arity: Dict[str, Optional[int]] = {}
         self._sock: Optional[socket.socket] = None
-        self._pool: Optional[ThreadPoolExecutor] = None
+        #: requests for the workers: (fn, args), or None to end a worker
+        self._work: "queue.SimpleQueue[Optional[tuple]]" = queue.SimpleQueue()
+        self._workers: List[threading.Thread] = []
+        self._conns: Set[socket.socket] = set()
+        self._conns_lock = threading.Lock()
         self._running = False
         self.port: Optional[int] = None
 
@@ -67,32 +77,51 @@ class RpcServer:
         self._sock = sock
         self.port = sock.getsockname()[1]
         self._running = True
-        self._pool = ThreadPoolExecutor(max_workers=max(2, nthreads),
-                                        thread_name_prefix="rpc-worker")
-        threading.Thread(target=self._accept_loop, daemon=True,
+        self._workers = [threading.Thread(target=self._worker, daemon=True,
+                                          name=f"rpc-worker-{i}")
+                         for i in range(max(2, nthreads))]
+        for t in self._workers:
+            t.start()
+        threading.Thread(target=self._accept_loop, args=(sock,), daemon=True,
                          name="rpc-accept").start()
         return self.port
 
     def stop(self) -> None:
         self._running = False
-        if self._sock is not None:
-            try:
-                self._sock.close()
-            except OSError:
-                pass
-            self._sock = None
-        if self._pool is not None:
-            self._pool.shutdown(wait=False)
-            self._pool = None
+        sock, self._sock = self._sock, None
+        if sock is not None:
+            _shutdown(sock)  # wakes the accept loop
+            sock.close()
+        with self._conns_lock:
+            conns, self._conns = self._conns, set()
+        for conn in conns:
+            _shutdown(conn)  # its reader closes it
+        for _ in self._workers:
+            self._work.put(None)
+        self._workers = []
+
+    def _worker(self) -> None:
+        while True:
+            item = self._work.get()
+            if item is None:
+                return
+            if self._running:  # a request queued before stop() is dropped
+                fn, args = item
+                fn(*args)
 
     # -- wire loop -----------------------------------------------------------
-    def _accept_loop(self) -> None:
-        while self._running and self._sock is not None:
+    def _accept_loop(self, sock: socket.socket) -> None:
+        while self._running:
             try:
-                conn, _addr = self._sock.accept()
+                conn, _addr = sock.accept()
             except OSError:
                 return
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            with self._conns_lock:
+                if not self._running:
+                    conn.close()
+                    return
+                self._conns.add(conn)
             threading.Thread(target=self._conn_loop, args=(conn,),
                              daemon=True, name="rpc-conn").start()
 
@@ -109,10 +138,11 @@ class RpcServer:
                 unpacker.feed(data)
                 for msg in unpacker:
                     self._handle(conn, wlock, msg)
-        # RuntimeError: pool.submit after stop()
-        except (OSError, ValueError, RuntimeError):
+        except (OSError, ValueError):
             pass
         finally:
+            with self._conns_lock:
+                self._conns.discard(conn)
             try:
                 conn.close()
             except OSError:
@@ -122,14 +152,12 @@ class RpcServer:
                 msg: Any) -> None:
         if not isinstance(msg, (list, tuple)) or not msg:
             return
-        pool = self._pool
-        if pool is None:
-            return
         if msg[0] == REQUEST and 4 <= len(msg) <= 7:
             _, msgid, method, params = msg[:4]
-            pool.submit(self._dispatch, conn, wlock, msgid, method, params)
+            self._work.put((self._dispatch, (conn, wlock, msgid, method,
+                                             params)))
         elif msg[0] == NOTIFY and len(msg) == 3:
-            pool.submit(self._invoke_silent, msg[1], msg[2])
+            self._work.put((self._invoke_silent, (msg[1], msg[2])))
 
     def _dispatch(self, conn, wlock, msgid, method, params) -> None:
         error, result = None, None
@@ -161,6 +189,13 @@ class RpcServer:
             self._invoke(method, params)
         except Exception:  # broad-ok — a notify has no one to answer
             log.debug("rpc notify %s raised", method, exc_info=True)
+
+
+def _shutdown(sock: socket.socket) -> None:
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:  # not connected, or already shut
+        pass
 
 
 def build_response(msgid: int, error: Any, result: Any) -> bytes:

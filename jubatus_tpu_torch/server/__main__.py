@@ -2,12 +2,21 @@
 
     python -m jubatus_tpu_torch.server nearest_neighbor \\
         -f config/nearest_neighbor/lsh.json -p 9199 [--device cpu]
-    python -m jubatus_tpu_torch.server {recommender,anomaly,classifier} -f <config>
+    python -m jubatus_tpu_torch.server {recommender,anomaly,classifier,regression} -f <config>
     python -m jubatus_tpu_torch.server nearest_neighbor --config-test -f conf.json
+
+SIGTERM and SIGINT stop the server: it stops accepting, shuts its open
+connections down and exits at once, through ``os._exit`` after flushing
+stdout and stderr. The interpreter's own teardown (freeing the modules of
+torch, the libraries' exit handlers) is skipped: the server holds nothing
+that needs it, and under a loaded CPU that teardown alone can take seconds.
+A fatal signal (SIGABRT, SIGSEGV) prints every thread's stack to stderr.
 """
 
 from __future__ import annotations
 
+import faulthandler
+import os
 import signal
 import sys
 
@@ -35,4 +44,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    faulthandler.enable()
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

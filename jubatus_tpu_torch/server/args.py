@@ -22,6 +22,9 @@ class ServerArgs:
     config_test: bool = False
     #: "cuda" (default) or "cpu"; never falls back on its own
     device: str = "cuda"
+    #: most examples one coalesced train flush takes; 0 = the direct
+    #: per-RPC path (server/microbatch.py)
+    microbatch_max: int = 8192
 
     def flags_status(self) -> Dict[str, Any]:
         """Flag dump for get_status."""
@@ -33,7 +36,7 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p = argparse.ArgumentParser(
         prog=prog, description="jubatus_tpu_torch engine server")
     p.add_argument("engine", help="engine type (nearest_neighbor, recommender, "
-                                  "anomaly, classifier)")
+                                  "anomaly, classifier, regression)")
     p.add_argument("-p", "--rpc-port", type=int, default=9199)
     p.add_argument("-b", "--listen-addr", default="")
     p.add_argument("-c", "--thread", type=int, default=2)
@@ -43,6 +46,9 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device the model runs on; cuda unless cpu is asked "
                         "for (no fallback)")
+    p.add_argument("--microbatch-max", type=int, default=8192,
+                   help="most examples one coalesced train flush takes "
+                        "(classifier, regression); 0 trains per RPC")
     return p
 
 
@@ -54,6 +60,8 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
         raise SystemExit("--thread must be >= 1")
     if args.rpc_port < 0 or args.rpc_port > 65535:
         raise SystemExit("--rpc-port out of range")
+    if args.microbatch_max < 0:
+        raise SystemExit("--microbatch-max must be >= 0")
     if not args.configpath:
         raise SystemExit("-f/--configpath is required")
     return args

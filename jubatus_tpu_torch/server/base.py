@@ -14,7 +14,7 @@ import time
 from typing import Any, Dict, Optional
 
 from jubatus_tpu_torch import __version__
-from jubatus_tpu_torch.ops import sig_scan
+from jubatus_tpu_torch.ops import online_scan, sig_scan
 from jubatus_tpu_torch.rpc.server import RpcServer
 from jubatus_tpu_torch.server.args import ServerArgs
 from jubatus_tpu_torch.server.factory import create_driver
@@ -33,6 +33,8 @@ class EngineServer:
             device=device if device is not None else self.args.device)
         self.start_time = time.time()  # wall-clock
         self.rpc = RpcServer()
+        #: method -> its microbatch coalescer (server/service.py)
+        self.coalescers: Dict[str, Any] = {}
         self._stopped = threading.Event()
 
     @classmethod
@@ -46,8 +48,8 @@ class EngineServer:
         return self.config_json
 
     def get_status(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
-        """One map keyed by <ip>_<port>: uptime, flags, driver state and
-        the signature-scan kernel's launch counts in this process."""
+        """One map keyed by <ip>_<port>: uptime, flags, driver state, the
+        coalescers' stats and the kernels' launch counts in this process."""
         st: Dict[str, Any] = {
             "timestamp": int(time.time()),  # wall-clock
             "uptime": int(time.time() - self.start_time),  # wall-clock
@@ -59,8 +61,12 @@ class EngineServer:
         }
         st.update(self.args.flags_status())
         st.update({f"driver.{k}": v for k, v in self.driver.get_status().items()})
+        for method, co in self.coalescers.items():
+            st.update({f"microbatch.{method}.{k}": v
+                       for k, v in co.stats().items()})
         for kern in (sig_scan.hamming, sig_scan.minhash):
             st[f"kernel.sig_scan.{kern.mode}.launches"] = kern.launches
+        st["kernel.online_scan.launches"] = online_scan.pa_scan.launches
         host = self.args.listen_addr or "127.0.0.1"
         return {f"{host}_{self.rpc.port or self.args.rpc_port}": st}
 

@@ -4,7 +4,10 @@
 Registers the built-ins get_config and get_status and the engine's IDL
 methods, each under its wire name with the leading cluster-name parameter
 every jubatus call carries. Update methods run under the driver lock and
-bump the driver's update counter when the driver did not.
+bump the driver's update counter when the driver did not. The classifier's
+and regression's ``train`` go through the microbatch coalescer
+(``server/microbatch.py``). Not carried over: the raw-wire train path
+(``_register_train_raw``), which needs the raw fast path of the RPC server.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Any, Callable, Dict, List
 
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.rpc.server import RpcServer
+from jubatus_tpu_torch.server.microbatch import Coalescer, PipelinedCoalescer
 
 
 def _datum(obj: Any) -> Datum:
@@ -50,18 +54,61 @@ def bind_engine(rpc: RpcServer, server: Any) -> None:
     _BINDERS[server.engine](rpc, server)
 
 
-def _updating(server: Any, fn: Callable) -> Callable:
-    """Driver lock + one update event, unless the driver counted it."""
+def _updating(server: Any, fn: Callable,
+              count: Callable[[Any], int] = lambda r: 1) -> Callable:
+    """Driver lock + ``count(result)`` update events, unless the driver
+    counted them itself."""
 
     def wrapped(*args):
         with server.driver.lock:
             before = server.driver.update_count
             result = fn(*args)
             if server.driver.update_count == before:
-                server.driver.event_model_updated(1)
+                n = count(result)
+                if n:
+                    server.driver.event_model_updated(n)
         return result
 
     return wrapped
+
+
+#: how long a train RPC waits for the flush that holds its examples
+TRAIN_WAIT_S = 60.0
+
+
+def _register_train(rpc: RpcServer, server: Any, decode_pair,
+                    train_fn) -> None:
+    """Register "train" with microbatch coalescing: concurrent train RPCs
+    merge into one driver batch (``--microbatch-max``; 0 = one driver call
+    per RPC). Either way each caller's reply is its own item count.
+    Drivers with the featurize / apply split (``featurize_train`` +
+    ``train_hashed``) ride the two-stage PipelinedCoalescer: the next
+    batch featurizes on the host while the device takes the previous."""
+    max_batch = getattr(server.args, "microbatch_max", 8192)
+    flush = _updating(server, train_fn, count=lambda r: r)
+    if not max_batch:
+        rpc.register("train", lambda name, data: flush(
+            [decode_pair(p) for p in data]), arity=2)
+        return
+    driver = server.driver
+    featurize = getattr(driver, "featurize_train", None)
+    apply_fn = getattr(driver, "train_hashed", None)
+    if featurize is not None and apply_fn is not None:
+        device_step = _updating(server, lambda prepared: apply_fn(*prepared),
+                                count=lambda r: r)
+        co = PipelinedCoalescer(featurize, device_step, max_batch=max_batch)
+    else:
+        co = Coalescer(flush, max_batch=max_batch)
+    server.coalescers["train"] = co
+
+    def train(name, data):
+        pairs = [decode_pair(p) for p in data]
+        if not pairs:
+            return 0
+        co.submit(pairs, timeout=TRAIN_WAIT_S)
+        return len(pairs)
+
+    rpc.register("train", train, arity=2)
 
 
 @_binder("nearest_neighbor")
@@ -122,14 +169,25 @@ def _bind_anomaly(rpc: RpcServer, server: Any) -> None:
 
 @_binder("classifier")
 def _bind_classifier(rpc: RpcServer, server: Any) -> None:
-    """The NN classifier: plain train / classify and label management."""
+    """Both classifier drivers: the linear one (its train pipelined) and
+    the instance-based one."""
     d = server.driver
-    rpc.register("train", _updating(server, lambda name, data: d.train(
-        [(p[0], _datum(p[1])) for p in data])), arity=2)
+    _register_train(rpc, server, lambda p: (p[0], _datum(p[1])), d.train)
     rpc.register("classify",
                  lambda name, data: [_scored(r) for r in d.classify(_datums(data))],
                  arity=2)
     rpc.register("get_labels", lambda name: {k: int(v) for k, v in d.get_labels().items()}, arity=1)
     rpc.register("set_label", _updating(server, lambda name, lbl: d.set_label(lbl)), arity=2)
     rpc.register("delete_label", _updating(server, lambda name, lbl: d.delete_label(lbl)), arity=2)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+
+
+@_binder("regression")
+def _bind_regression(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+    _register_train(rpc, server, lambda p: (float(p[0]), _datum(p[1])),
+                    d.train)
+    rpc.register("estimate",
+                 lambda name, data: [float(x) for x in d.estimate(_datums(data))],
+                 arity=2)
     rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)

@@ -82,8 +82,12 @@ def test_classify_separable(method, param):
 def test_factory_routes_nn_methods():
     assert isinstance(create_driver("classifier", _conf("cosine"),
                                     device="cpu"), ClassifierNNDriver)
+    linear = create_driver("classifier", {"method": "AROW", "converter": CONV},
+                           device="cpu")
+    assert not isinstance(linear, ClassifierNNDriver)
+    assert linear.method == "AROW"
     with pytest.raises(NotYetPorted):
-        create_driver("classifier", {"method": "AROW", "converter": CONV},
+        create_driver("clustering", {"method": "kmeans", "converter": CONV},
                       device="cpu")
 
 

@@ -42,6 +42,13 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.server.service",
     "jubatus_tpu_torch.rpc.client",
     "jubatus_tpu_torch.convert",
+    "jubatus_tpu_torch.ops.classifier",
+    "jubatus_tpu_torch.ops.regression",
+    "jubatus_tpu_torch.ops.online_scan",
+    "jubatus_tpu_torch.ops._build",
+    "jubatus_tpu_torch.models.classifier",
+    "jubatus_tpu_torch.models.regression",
+    "jubatus_tpu_torch.server.microbatch",
 )
 
 
@@ -52,7 +59,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert int(lines[0]) >= 23
+    assert int(lines[0]) >= 30
     assert lines[1] == "", f"imported: {lines[1]}"
     walked = set(lines[2].split(","))
     assert not set(SLICE_MODULES) - walked
@@ -106,6 +113,8 @@ def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
     ("recommender", {"method": "inverted_index"}),
     ("anomaly", {"method": "lof", "parameter": {"method": "lsh"}}),
     ("classifier", {"method": "cosine"}),
+    ("classifier", {"method": "AROW"}),
+    ("regression", {"method": "PA1"}),
 ])
 def test_new_engines_without_device_raise_without_cuda(no_cuda, engine, conf):
     from jubatus_tpu_torch.server import EngineServer

@@ -8,9 +8,14 @@ from __future__ import annotations
 
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
+import threading
+import time
 
+import msgpack
 import pytest
 
 from jubatus_tpu.client import Datum as JDatum
@@ -129,7 +134,7 @@ def test_port_client_round_trips_and_errors():
 
 def test_unported_engine_is_refused():
     with pytest.raises(NotYetPorted):
-        EngineServer("classifier", {"method": "AROW"}, device="cpu")
+        EngineServer("clustering", {"method": "kmeans"}, device="cpu")
 
 
 def test_server_main_config_test_on_cpu():
@@ -245,6 +250,8 @@ def test_classifier_roundtrip_with_the_port_client():
     ("recommender", "recommender/default.json", "RecommenderClient"),
     ("anomaly", "anomaly/lof_inverted_index_euclid.json", "AnomalyClient"),
     ("classifier", "classifier/nn.json", "ClassifierClient"),
+    ("classifier", "classifier/arow.json", "ClassifierClient"),
+    ("regression", "regression/default.json", "RegressionClient"),
 ])
 def test_server_main_serves_new_engines_on_cpu(engine, path, client):
     """``python -m jubatus_tpu_torch.server <engine> -f <config> --device
@@ -263,16 +270,232 @@ def test_server_main_serves_new_engines_on_cpu(engine, path, client):
             assert st["type"] == engine and st["driver.device"] == "cpu"
             assert c.clear() is True
     finally:
-        proc.terminate()
-        proc.wait(timeout=30)
+        _terminate(proc)
 
 
-def test_server_main_refuses_a_linear_classifier():
+def _terminate(proc, bound=30):
+    """SIGTERM, then require exit within ``bound`` seconds. Past it, SIGABRT
+    makes the server print every thread's stack (faulthandler), and the
+    test fails with its stderr."""
+    proc.terminate()
+    try:
+        return proc.wait(timeout=bound)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGABRT)
+        try:
+            _out, err = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _out, err = proc.communicate()
+        pytest.fail(f"server did not exit within {bound} s of SIGTERM; "
+                    f"stderr:\n{err}")
+
+
+def _start_main(engine, path):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jubatus_tpu_torch.server", engine,
+         "-f", os.path.join(ROOT, "config", path), "-p", "0",
+         "-b", "127.0.0.1", "--device", "cpu"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if "serving on port" not in line:
+        proc.kill()
+        pytest.fail(f"server did not start: {line!r} {proc.stderr.read()}")
+    return proc, int(line.split("serving on port")[1].split()[0])
+
+
+def test_server_exits_on_sigterm_with_a_stalled_client_and_an_idle_one():
+    """SIGTERM with one idle open connection and one client that pipelined
+    requests but reads no replies: a worker is then blocked in sendall on
+    a full socket. The server must still exit within the bound, with 0."""
+    proc, port = _start_main("classifier", "classifier/nn.json")
+    idle = socket.create_connection(("127.0.0.1", port))
+    stalled = socket.create_connection(("127.0.0.1", port))
+    try:
+        with port_client.ClassifierClient("127.0.0.1", port, NAME) as c:
+            c.get_status()  # the server answers
+        req = b"".join(msgpack.packb([0, i, "get_status", [NAME]])
+                       for i in range(20000))
+        stalled.sendall(req)
+        # the replies (~1 KB each) fill both socket buffers and block a
+        # worker in sendall; give the server time to get there
+        time.sleep(2.0)
+        assert _terminate(proc) == 0
+    finally:
+        idle.close()
+        stalled.close()
+        if proc.poll() is None:
+            proc.kill()
+
+
+def test_server_main_refuses_an_unported_engine():
+    """An engine the port has not reached (clustering) exits 1 with "not
+    yet ported", as the linear classifier did before it was ported."""
     proc = subprocess.run(
-        [sys.executable, "-m", "jubatus_tpu_torch.server", "classifier",
-         "--config-test", "-f", os.path.join(ROOT, "config", "classifier",
-                                             "arow.json"),
+        [sys.executable, "-m", "jubatus_tpu_torch.server", "clustering",
+         "--config-test", "-f", os.path.join(ROOT, "config", "clustering",
+                                             "kmeans.json"),
          "--device", "cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1
     assert "not yet ported" in proc.stderr
+
+
+# -- the linear classifier and regression (tests/test_server_e2e.py) -----------
+LINEAR_CONF = {"method": "AROW",
+               "parameter": {"regularization_weight": 1.0},
+               "converter": {"string_rules": [{"key": "*", "type": "str",
+                                               "sample_weight": "bin",
+                                               "global_weight": "bin"}],
+                             "num_rules": [{"key": "*", "type": "num"}]}}
+REGRESSION_CONF = {"method": "PA",
+                   "parameter": {"sensitivity": 0.1,
+                                 "regularization_weight": 3.0},
+                   "converter": {"num_rules": [{"key": "*", "type": "num"}]}}
+
+
+def test_linear_classifier_roundtrip_answers_as_the_driver():
+    """The JAX package's ClassifierClient against the port's server: the
+    e2e round trip, with every answer equal to the port's driver fed the
+    same datums (one train call is one coalesced flush: a lone client)."""
+    from jubatus_tpu.client import ClassifierClient
+    from jubatus_tpu_torch.models.classifier import ClassifierDriver
+
+    srv, port = _serve_engine("classifier", LINEAR_CONF)
+    ref = ClassifierDriver(LINEAR_CONF, device="cpu")
+    data = [("spam", {"subject": "win money now"}),
+            ("ham", {"subject": "meeting at noon"})] * 5
+    try:
+        with ClassifierClient("127.0.0.1", port, NAME) as c:
+            assert c.train([[lab, JDatum(d)] for lab, d in data]) == 10
+            ref.train([(lab, Datum(d)) for lab, d in data])
+            q = [{"subject": "win money"}, {"x": 1.0}]
+            got = c.classify([JDatum(d) for d in q])
+            want = ref.classify([Datum(d) for d in q])
+            assert [[list(r) for r in row] for row in got] == \
+                [[[lab, s] for lab, s in row] for row in want]
+            assert max(got[0], key=lambda ls: ls[1])[0] == "spam"
+            assert c.get_labels() == {"spam": 5, "ham": 5}
+            assert c.set_label("neutral") is True
+            assert c.delete_label("neutral") is True
+            st = next(iter(c.get_status().values()))
+            assert st["driver.method"] == "AROW"
+            assert st["microbatch.train.flush_count"] == 1
+            assert c.clear() is True
+            assert c.get_labels() == {}
+    finally:
+        srv.stop()
+
+
+def test_regression_roundtrip_answers_as_the_driver():
+    from jubatus_tpu.client import RegressionClient
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+
+    srv, port = _serve_engine("regression", REGRESSION_CONF)
+    ref = RegressionDriver(REGRESSION_CONF, device="cpu")
+    data = [(float(2 * x), {"x": float(x)}) for x in range(1, 30)]
+    try:
+        with RegressionClient("127.0.0.1", port, NAME) as r:
+            assert r.train([[y, JDatum(d)] for y, d in data]) == 29
+            ref.train([(y, Datum(d)) for y, d in data])
+            (est,) = r.estimate([JDatum({"x": 10.0})])
+            assert est == pytest.approx(20.0, rel=0.35)
+            assert est == ref.estimate([Datum({"x": 10.0})])[0]
+            st = next(iter(r.get_status().values()))
+            assert st["type"] == "regression"
+            assert st["kernel.online_scan.launches"] == 0  # the CPU: plain
+            assert r.clear() is True
+            assert r.estimate([JDatum({"x": 10.0})]) == [0.0]
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("engine,conf,label", [
+    ("classifier", LINEAR_CONF, lambda i: f"l{i % 3}"),
+    ("regression", REGRESSION_CONF, lambda i: float(i % 5)),
+])
+def test_concurrent_train_calls_are_merged_by_the_coalescer(engine, conf,
+                                                            label):
+    """8 clients train at once while the first flush is held back: later
+    calls queue and merge into fewer flushes; every caller gets its own
+    count back and every example lands once."""
+    from jubatus_tpu_torch.server.args import ServerArgs
+
+    srv = EngineServer(engine, conf, ServerArgs(engine=engine, thread=8),
+                       device="cpu")
+    apply_fn = srv.driver.train_hashed
+    first = threading.Event()
+
+    def slow_first(*args):
+        if not first.is_set():
+            first.set()
+            time.sleep(0.3)
+        return apply_fn(*args)
+
+    srv.driver.train_hashed = slow_first
+    port = srv.start(0)
+    counts, errors = [], []
+
+    def client(k):
+        try:
+            with port_client.RpcClient("127.0.0.1", port) as c:
+                for j in range(3):
+                    batch = [[label(i), Datum({"x": float(i), "k": k})]
+                             for i in range(k + 1 + j)]
+                    counts.append((len(batch),
+                                   c.call("train", NAME, batch)))
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors
+        assert all(sent == got for sent, got in counts) and len(counts) == 24
+        stats = srv.coalescers["train"].stats()
+        assert stats["item_count"] == sum(sent for sent, _ in counts)
+        assert stats["flush_count"] < 24
+        assert srv.driver.update_count == stats["item_count"]
+    finally:
+        srv.stop()
+
+
+def test_microbatch_max_zero_trains_per_rpc():
+    from jubatus_tpu_torch.server.args import ServerArgs, parse_server_args
+
+    srv = EngineServer("classifier", LINEAR_CONF,
+                       ServerArgs(engine="classifier", microbatch_max=0),
+                       device="cpu")
+    port = srv.start(0)
+    try:
+        with port_client.ClassifierClient("127.0.0.1", port, NAME) as c:
+            assert c.train([["a", Datum({"x": 1.0})]]) == 1
+            assert c.get_labels() == {"a": 1}
+        assert srv.coalescers == {}
+    finally:
+        srv.stop()
+    args = parse_server_args(["classifier", "-f", "x.json",
+                              "--microbatch-max", "0"])
+    assert args.microbatch_max == 0
+    assert parse_server_args(["regression", "-f", "x.json"]).microbatch_max \
+        == 8192
+
+
+@pytest.mark.parametrize("engine,name", [
+    ("classifier", n) for n in ("perceptron.json", "pa.json", "pa1.json",
+                                "pa2.json", "cw.json", "arow.json",
+                                "nherd.json", "default.json",
+                                "arow_combinational_feature.json")
+] + [("regression", n) for n in ("default.json", "pa.json",
+                                 "pa_combinational_feature.json")])
+def test_every_linear_config_passes_config_test(engine, name, capsys):
+    from jubatus_tpu_torch.server.__main__ import main
+
+    assert main([engine, "--config-test", "-f",
+                 os.path.join(ROOT, "config", engine, name),
+                 "--device", "cpu"]) == 0
+    assert "config ok" in capsys.readouterr().out
