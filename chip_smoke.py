@@ -18,11 +18,16 @@ each of which fails the run (non-zero exit, no result line) on error:
    B in {1, 256} and C = 1,000,003 rows with kernel, plain and library-call
    times (CUDA events), the variant that ran, the bound, and the same
    operations at the card's int32 issue rate; then regression's scan
-   kernel (``[scan]``): PA, PA1 and PA2 at B = 1024, K = 64, D = 2^18 with
-   padding and duplicate indices, bit-equal to the plain version on the
-   CPU and within SCAN_CARD_TOL of it on the card; its time at B = 8192 (median of CUDA events)
-   against the plain version's, its bound, and the dependence chain's
-   bound from the measured latency of a dependent load and shuffle;
+   kernel (``[scan]``): PA, PA1 and PA2 at B = 1024 on the stress shape
+   (K = 64, D = 2^18, padding and duplicate indices within and across
+   rounds) and on a server-shaped batch (phase 9's rows featurized by
+   ``config/regression/default.json`` on the CPU, K = 16), bit-equal to
+   the plain version on the CPU and within SCAN_CARD_TOL of it on the
+   card; its time at B = 8192 on both shapes (median of CUDA events, the
+   wrapper's index check outside the window) with the variant, the table
+   flushes and the walker's wait share, against the plain version's time,
+   the bytes bound, and two chain bounds from the measured latencies of a
+   dependent device-memory load, shared-memory load and shuffle-add;
 3. backends: an lsh and a minhash NNBackend on the card with 10^6 rows of
    32 hashed features (dim_bits 18), 200 ``neighbors(vec, 10)`` queries
    each; the kernel's launch count must rise by 200, and 5 queries redone
@@ -125,6 +130,10 @@ EDGE_W = (2, 3, 64, 70)
 EDGE_B_EXTRA = ((4100, 4099, 2),)  # hamming past one shared query tile
 #: launch counts a path reads: K1's two modes and regression's scan
 COUNTED = ("hamming", "minhash", "pa_scan")
+#: regression's scan kernel variants (online_scan.VARIANTS), counted apart
+SCAN_VARIANTS = ("direct", "r1", "r2", "r4")
+#: every count a path records: COUNTED and the scan's launches by variant
+RECORDED = COUNTED + tuple(f"pa_scan.{v}" for v in SCAN_VARIANTS)
 KERNELS = {
     # ops_per_word: the least int32 ALU work per (query, row, word):
     # xor + popcount + add for hamming, compare + add for minhash
@@ -633,6 +642,8 @@ def server_launches(st: dict) -> dict:
     out = {mode: int(st[f"kernel.sig_scan.{mode}.launches"])
            for mode in KERNELS}
     out["pa_scan"] = int(st["kernel.online_scan.launches"])
+    for v in SCAN_VARIANTS:
+        out[f"pa_scan.{v}"] = int(st[f"kernel.online_scan.{v}.launches"])
     return out
 
 
@@ -701,9 +712,12 @@ def load_config(*parts) -> dict:
 def launch_counts(sig_scan) -> dict:
     from jubatus_tpu_torch.ops import online_scan
 
-    return {"hamming": sig_scan.hamming.launches,
-            "minhash": sig_scan.minhash.launches,
-            "pa_scan": online_scan.pa_scan.launches}
+    out = {"hamming": sig_scan.hamming.launches,
+           "minhash": sig_scan.minhash.launches,
+           "pa_scan": online_scan.pa_scan.launches}
+    for v in SCAN_VARIANTS:
+        out[f"pa_scan.{v}"] = online_scan.pa_scan.by_variant[v]
+    return out
 
 
 def set_counts(sig_scan, counts: dict) -> None:
@@ -712,6 +726,8 @@ def set_counts(sig_scan, counts: dict) -> None:
     sig_scan.hamming.launches = counts["hamming"]
     sig_scan.minhash.launches = counts["minhash"]
     online_scan.pa_scan.launches = counts["pa_scan"]
+    for v in SCAN_VARIANTS:
+        online_scan.pa_scan.by_variant[v] = counts[f"pa_scan.{v}"]
 
 
 @contextlib.contextmanager
@@ -1467,79 +1483,133 @@ def pa_scan_inputs(rng, b: int):
     return idx, val, y, w
 
 
-def phase_scan(torch, online_scan, seed: int) -> dict:
+def scan_server_batch(rng, Datum, RegressionDriver, rows: int):
+    """``rows`` rows of the regression server's traffic (phase 9's
+    ``server_datum``, target the sum of the numeric values) featurized on
+    the CPU by ``config/regression/default.json``'s driver, and random
+    weights over its feature space: (idx, val, targets, w)."""
+    drv = RegressionDriver(load_config("regression", "default.json"),
+                           device="cpu")
+    data = [linear_example(rng, Datum, "regression", i) for i in range(rows)]
+    targets, idx, val = drv.featurize_train(data)
+    w = (rng.normal(size=drv.converter.dim) * 0.1).astype(np.float32)
+    return idx, val, targets, w
+
+
+def scan_check(torch, online_scan, inputs, method: str, what: str) -> dict:
+    """The kernel bit-equal to the plain version on the CPU, and within
+    SCAN_CARD_TOL of it on the card (deterministic algorithms on)."""
+    dev = torch.device("cuda")
+    idx, val, y, w = inputs
+    d = w.shape[0]
+    cpu = [torch.from_numpy(a) for a in (idx, val, y, w)]
+    card = [a.to(dev) for a in cpu]
+    dw_k = torch.zeros(d, device=dev)
+    online_scan.pa_scan(card[3], dw_k, card[0], card[1], card[2], 0.1, 0.7,
+                        method)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        dw_p = online_scan.pa_scan_plain(card[3], torch.zeros(d, device=dev),
+                                         card[0], card[1], card[2], 0.1, 0.7,
+                                         method)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    dw_c = online_scan.pa_scan_plain(cpu[3], torch.zeros(d), cpu[0], cpu[1],
+                                     cpu[2], 0.1, 0.7, method)
+    torch.cuda.synchronize()
+    err = float((dw_k - dw_p).abs().max())
+    scale = float(dw_p.abs().max())
+    check(scale > 0.0, f"scan {what} {method}: no update")
+    check(torch.equal(dw_k.cpu(), dw_c),
+          f"scan {what} {method}: kernel != plain on the CPU (max "
+          f"{float((dw_k.cpu() - dw_c).abs().max())})")
+    check(err <= SCAN_CARD_TOL * scale,
+          f"scan {what} {method}: kernel off the plain version on the card "
+          f"by {err} (> {SCAN_CARD_TOL} x {scale})")
+    return dict(B=int(idx.shape[0]), K=int(idx.shape[1]), max_abs_err=err,
+                max_abs=scale, bit_equal_cpu=True,
+                bit_equal_card=bool(torch.equal(dw_k, dw_p)),
+                variant=online_scan.choose_variant(idx.shape[1]))
+
+
+def scan_timing(torch, online_scan, inputs, lat: dict) -> dict:
+    """PA (config/regression/default.json's method) at these inputs: the
+    launch's counters from a first run on dw = 0, then the median of
+    SCAN_REPS CUDA-event timings of the launch alone (the wrapper's index
+    check runs once, before them), the bounds and each one's share."""
+    dev = torch.device("cuda")
+    idx, val, y, w = inputs
+    b, k = idx.shape
+    card = [torch.from_numpy(a).to(dev) for a in (idx, val, y, w)]
+    dw = torch.zeros(w.shape[0], device=dev)
+    launch = online_scan.pa_scan.plan(card[3], dw, card[0], card[1],
+                                      card[2], 0.1, 1.0, "PA")
+    launch.run()
+    stats = online_scan.pa_scan.stats()
+    kernel_ms = time_ms(torch, launch.run, SCAN_REPS)
+    uniq = int(np.unique(idx).size)
+    t_bytes = (b * k * 8 + b * 4 + uniq * 12) / HBM_BYTES_PER_S * 1e3
+    t_ops = SCAN_FLOPS_PER_FEATURE * b * k / ALU_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    # PR 4's chain: 2 dependent device-memory loads + 5 shuffle-adds an
+    # example; the table's: 1 dependent shared-memory load + 5 shuffle-adds
+    chain_ms = b * (2 * lat["load_ns"] + 5 * lat["shuffle_ns"]) / 1e6
+    smem_chain_ms = b * (lat["smem_load_ns"] + 5 * lat["shuffle_ns"]) / 1e6
+    return dict(B=int(b), K=int(k), variant=launch.variant,
+                tile=online_scan.tile_for(k), distinct_indices=uniq,
+                working_set_bytes=uniq * 8,
+                table_capacity=(online_scan.table_capacity(k)
+                                if launch.variant != "direct" else None),
+                flushes=stats["flushes"],
+                walker_wait_share=(stats["walker_wait_cycles"]
+                                   / max(1, stats["walker_cycles"])),
+                launch_counters=stats,
+                kernel_ms=kernel_ms, per_example_us=kernel_ms * 1e3 / b,
+                bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_share=bound_ms / kernel_ms,
+                chain_bound_ms=chain_ms, chain_share=chain_ms / kernel_ms,
+                smem_chain_bound_ms=smem_chain_ms,
+                smem_chain_share=smem_chain_ms / kernel_ms)
+
+
+def phase_scan(torch, online_scan, Datum, RegressionDriver,
+               seed: int) -> dict:
     """Each method's kernel bit-equal to the plain version on the CPU,
     whose serial ``index_put_`` adds an example's duplicate indices in k
-    order as the kernel does; and within SCAN_CARD_TOL of the plain
-    version on the card (deterministic algorithms on), whose ``index_put_``
-    sums each run of duplicates in its own order first. Then the kernel's
-    time at B = SCAN_TIME_B against the plain version's, its bound, and
-    the dependence chain."""
+    order as the kernel does, and within SCAN_CARD_TOL of the plain version
+    on the card, whose ``index_put_`` sums each run of duplicates in its
+    own order first: on the stress shape (``pa_scan_inputs``) and on a
+    server-shaped batch (``scan_server_batch``). Then the kernel's time at
+    B = SCAN_TIME_B on both shapes against its bounds, and the plain
+    version's on the stress shape."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 31)
-    d = 1 << SCAN_DIM_BITS
     checks = {}
     for method in online_scan.METHODS:
-        idx, val, y, w = pa_scan_inputs(rng, SCAN_CHECK_B)
-        cpu = [torch.from_numpy(a) for a in (idx, val, y, w)]
-        card = [a.to(dev) for a in cpu]
-        dw_k = torch.zeros(d, device=dev)
-        online_scan.pa_scan(card[3], dw_k, card[0], card[1], card[2], 0.1,
-                            0.7, method)
-        was = torch.are_deterministic_algorithms_enabled()
-        torch.use_deterministic_algorithms(True)
-        try:
-            dw_p = online_scan.pa_scan_plain(card[3], torch.zeros(d, device=dev),
-                                             card[0], card[1], card[2], 0.1,
-                                             0.7, method)
-        finally:
-            torch.use_deterministic_algorithms(was)
-        dw_c = online_scan.pa_scan_plain(cpu[3], torch.zeros(d), cpu[0],
-                                         cpu[1], cpu[2], 0.1, 0.7, method)
-        torch.cuda.synchronize()
-        err = float((dw_k - dw_p).abs().max())
-        scale = float(dw_p.abs().max())
-        check(scale > 0.0, f"scan {method}: no update")
-        check(torch.equal(dw_k.cpu(), dw_c),
-              f"scan {method}: kernel != plain on the CPU (max "
-              f"{float((dw_k.cpu() - dw_c).abs().max())})")
-        check(err <= SCAN_CARD_TOL * scale,
-              f"scan {method}: kernel off the plain version on the card by "
-              f"{err} (> {SCAN_CARD_TOL} x {scale})")
-        checks[method] = dict(B=SCAN_CHECK_B, max_abs_err=err,
-                              max_abs=scale, bit_equal_cpu=True,
-                              bit_equal_card=bool(torch.equal(dw_k, dw_p)))
-    # timing, PA (config/regression/default.json's method)
-    idx, val, y, w = pa_scan_inputs(rng, SCAN_TIME_B)
-    card = [torch.from_numpy(a).to(dev) for a in (idx, val, y, w)]
-    dw = torch.zeros(d, device=dev)
-
-    def kernel():
-        online_scan.pa_scan(card[3], dw, card[0], card[1], card[2], 0.1,
-                            1.0, "PA")
-
-    kernel_ms = time_ms(torch, kernel, SCAN_REPS)
+        checks[method] = scan_check(torch, online_scan,
+                                    pa_scan_inputs(rng, SCAN_CHECK_B),
+                                    method, "stress")
+        checks[f"server_{method}"] = scan_check(
+            torch, online_scan,
+            scan_server_batch(rng, Datum, RegressionDriver, SCAN_CHECK_B),
+            method, "server")
+    lat = online_scan.latency_probe(dev)
+    stress_in = pa_scan_inputs(rng, SCAN_TIME_B)
+    stress = scan_timing(torch, online_scan, stress_in, lat)
+    server = scan_timing(
+        torch, online_scan,
+        scan_server_batch(rng, Datum, RegressionDriver, SCAN_TIME_B), lat)
+    idx, val, y, w = (torch.from_numpy(a).to(dev) for a in stress_in)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    online_scan.pa_scan_plain(card[3], torch.zeros(d, device=dev), card[0],
-                              card[1], card[2], 0.1, 1.0, "PA")
+    online_scan.pa_scan_plain(w, torch.zeros_like(w), idx, val, y, 0.1, 1.0,
+                              "PA")
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    uniq = int(np.unique(idx).size)
-    t_bytes = (SCAN_TIME_B * SCAN_K * 8 + SCAN_TIME_B * 4
-               + uniq * 12) / HBM_BYTES_PER_S * 1e3
-    t_ops = (SCAN_FLOPS_PER_FEATURE * SCAN_TIME_B * SCAN_K
-             / ALU_OPS_PER_S * 1e3)
-    lat = online_scan.latency_probe(dev)
-    chain_ms = SCAN_TIME_B * (2 * lat["load_ns"]
-                              + 5 * lat["shuffle_ns"]) / 1e6
-    return dict(checks=checks, B=SCAN_TIME_B, K=SCAN_K,
-                dim_bits=SCAN_DIM_BITS, distinct_indices=uniq,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                chain=dict(lat, chain_bound_ms=chain_ms,
-                           per_example_us=kernel_ms * 1e3 / SCAN_TIME_B),
+    return dict(checks=checks, latency=lat, stress=stress, server=server,
+                dim_bits=SCAN_DIM_BITS, plain_ms=plain_ms,
                 max_abs_err=max(c["max_abs_err"] for c in checks.values()))
 
 
@@ -1704,7 +1774,8 @@ def main(argv=None) -> int:
         log(f"[edges] {json.dumps(edges)}")
         scans = phase_kernels(torch, sig_scan, args.seed)
         with uncounted(sig_scan):
-            pa = phase_scan(torch, online_scan, args.seed)
+            pa = phase_scan(torch, online_scan, Datum, RegressionDriver,
+                            args.seed)
         log(f"[scan] {json.dumps(pa)} | {kind} | {smi}")
         # -- phases 3-7: the main path; each path's launch counts are set
         # to 0 just before it and read just after (the servers' own counts
@@ -1712,13 +1783,13 @@ def main(argv=None) -> int:
         paths, path_s = {}, {}
 
         def run_path(name, fn, *fn_args):
-            set_counts(sig_scan, {m: 0 for m in COUNTED})
+            set_counts(sig_scan, {m: 0 for m in RECORDED})
             t0 = time.perf_counter()
             res = fn(*fn_args)
             path_s[name] = time.perf_counter() - t0
             counts = launch_counts(sig_scan)
             paths[name] = {m: counts[m] + res.get("server_launches", {})
-                           .get(m, 0) for m in COUNTED}
+                           .get(m, 0) for m in RECORDED}
             return res
 
         def nn_path():
@@ -1780,14 +1851,14 @@ def main(argv=None) -> int:
             return {}
 
         def linear_servers_path():
-            total = {m: 0 for m in COUNTED}
+            total = {m: 0 for m in RECORDED}
             for engine, driver, config in (
                     ("classifier", ClassifierDriver, "arow.json"),
                     ("regression", RegressionDriver, "default.json")):
                 res = phase_linear_server(Datum, driver, engine, config,
                                           args.seed)
                 log(f"[{engine}_server] {json.dumps(res)} | {kind} | {smi}")
-                for m in COUNTED:
+                for m in RECORDED:
                     total[m] += res["launches"][m]
             return {"server_launches": total}
 
@@ -1829,6 +1900,7 @@ def main(argv=None) -> int:
             "library_ms": first["library_ms"],
             "shapes": scans[mode], "lof_shape": lof_shapes[mode],
         })
+    st = pa["stress"]
     kernels.append({
         "name": "online_scan.pa", "route": "cuda",
         "source": "jubatus_tpu_torch/csrc/online_scan.cu",
@@ -1836,11 +1908,19 @@ def main(argv=None) -> int:
         "replaces_kind": "jax.lax.scan (no Pallas kernel)",
         "launches": launches["pa_scan"],
         "launches_by_path": {p: c["pa_scan"] for p, c in paths.items()},
-        "max_abs_err": pa["max_abs_err"], "ms": pa["kernel_ms"],
-        "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
-        "bound_by": pa["bound_by"], "library_ms": None,
-        "chain_bound_ms": pa["chain"]["chain_bound_ms"],
-        "shape": dict(B=pa["B"], K=pa["K"], dim_bits=pa["dim_bits"]),
+        "launches_by_variant": {v: sum(c[f"pa_scan.{v}"]
+                                       for c in paths.values())
+                                for v in SCAN_VARIANTS},
+        "max_abs_err": pa["max_abs_err"], "ms": st["kernel_ms"],
+        "plain_ms": pa["plain_ms"], "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"], "library_ms": None,
+        "variant": st["variant"],
+        "chain_bound_ms": st["chain_bound_ms"],
+        "smem_chain_bound_ms": st["smem_chain_bound_ms"],
+        "shape": dict(B=st["B"], K=st["K"], dim_bits=pa["dim_bits"]),
+        "server_shape": {key: pa["server"][key] for key in (
+            "B", "K", "variant", "kernel_ms", "distinct_indices",
+            "flushes")},
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -72,23 +72,17 @@ class RegressionDriver(DriverBase):
     @locked
     def train_hashed(self, targets: np.ndarray, idx: np.ndarray,
                      val: np.ndarray) -> int:
-        """Train on pre-hashed features. Rows are bucketed to a power of
-        two; a padded row predicts 0 for target 0, so its loss is negative
-        and it updates nothing."""
+        """Train on pre-hashed features: the scan walks the ``len(targets)``
+        live rows only (rows past them, if given, are padding and would
+        update nothing)."""
         n = len(targets)
         if n == 0:
             return 0
-        b = idx.shape[0]
-        bsz = _bucket(b, 16)
-        if bsz != b:
-            idx = np.pad(idx, ((0, bsz - b), (0, 0)))
-            val = np.pad(val, ((0, bsz - b), (0, 0)))
-        tgt = np.zeros(bsz, dtype=np.float32)
-        tgt[:n] = targets
         dev = self.device
         self.state = ops.train_batch(
-            self.state, to_device(idx, dev), to_device(val, dev),
-            to_device(tgt, dev), self.sensitivity, self.c, method=self.method)
+            self.state, to_device(idx[:n], dev), to_device(val[:n], dev),
+            to_device(np.asarray(targets, dtype=np.float32), dev),
+            self.sensitivity, self.c, method=self.method)
         self.event_model_updated(n)
         return n
 

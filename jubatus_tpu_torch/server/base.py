@@ -67,6 +67,8 @@ class EngineServer:
         for kern in (sig_scan.hamming, sig_scan.minhash):
             st[f"kernel.sig_scan.{kern.mode}.launches"] = kern.launches
         st["kernel.online_scan.launches"] = online_scan.pa_scan.launches
+        for variant, n in online_scan.pa_scan.by_variant.items():
+            st[f"kernel.online_scan.{variant}.launches"] = n
         host = self.args.listen_addr or "127.0.0.1"
         return {f"{host}_{self.rpc.port or self.args.rpc_port}": st}
 

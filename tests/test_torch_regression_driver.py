@@ -86,6 +86,37 @@ def test_hashed_entry_points_match_the_jax_driver():
     assert t.estimate_hashed(idx[:0], val[:0]) == []
 
 
+def test_train_hashed_walks_only_the_live_rows(monkeypatch):
+    """17 rows reach the scan as 17 rows (no power-of-two padding), and
+    train as the 32-row padded batch does: a padded row updates nothing."""
+    from jubatus_tpu_torch.models import regression as models_regression
+    from jubatus_tpu_torch.ops import regression as R
+
+    rng = np.random.default_rng(7)
+    idx = rng.integers(1, 1 << 12, size=(17, 8)).astype(np.int32)
+    val = rng.normal(size=(17, 8)).astype(np.float32)
+    tgt = (rng.normal(size=17) * 3).astype(np.float32)
+    seen = []
+    real = R.train_batch
+
+    def spy(state, i, v, t, *args, **kw):
+        seen.append((tuple(i.shape), tuple(v.shape), tuple(t.shape)))
+        return real(state, i, v, t, *args, **kw)
+
+    monkeypatch.setattr(models_regression.ops, "train_batch", spy)
+    t = _drv()
+    assert t.train_hashed(tgt, idx, val) == 17
+    assert seen == [((17, 8), (17, 8), (17,))]
+    pad = ((0, 15), (0, 0))
+    padded = real(R.init_state(1 << 12, device="cpu"),
+                  torch.from_numpy(np.pad(idx, pad)),
+                  torch.from_numpy(np.pad(val, pad)),
+                  torch.from_numpy(np.pad(tgt, (0, 15))), t.sensitivity,
+                  t.c, method=t.method)
+    assert float(padded.dw.abs().max()) > 0.0
+    assert torch.equal(t.state.dw, padded.dw)
+
+
 def test_empty_calls_and_clear():
     t = _drv()
     assert t.train([]) == 0 and t.estimate([]) == []

@@ -237,11 +237,48 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 def test_tile_fits_shared_memory():
-    for k in (1, 8, 64, 100, 1024, 6000):
+    for k in (1, 8, 64, 100, 128, 129, 1024, 6000, online_scan.MAX_K):
         t = online_scan.tile_for(k)
         assert 1 <= t <= online_scan.MAX_TILE
-        assert t * k * 8 + t * 4 + 128 <= max(online_scan.TILE_BYTES,
-                                              k * 8 + 132)
+        assert online_scan.smem_bytes(k) <= online_scan.MAX_SMEM
+        if online_scan.choose_variant(k) == "direct":
+            assert t * k * 8 + t * 4 + 128 <= max(online_scan.TILE_BYTES,
+                                                  k * 8 + 132)
+        else:
+            assert t * k <= online_scan.TILE_ELEMS
+
+
+@pytest.mark.parametrize("k,variant", [
+    (1, "r1"), (16, "r1"), (32, "r1"), (33, "r2"), (64, "r2"), (65, "r4"),
+    (128, "r4"), (129, "direct"), (4096, "direct"),
+    (online_scan.MAX_K, "direct")])
+def test_variant_chosen_by_width(k, variant):
+    assert online_scan.choose_variant(k) == variant
+
+
+def test_shared_memory_budget_of_every_width():
+    """Every width the wrapper takes fits the H100's 227 KB a block, and a
+    table variant keeps room for a full tile above its flush threshold."""
+    for k in range(1, online_scan.MAX_K + 1):
+        assert online_scan.smem_bytes(k) <= online_scan.MAX_SMEM, k
+        if online_scan.choose_variant(k) != "direct":
+            cap = online_scan.table_capacity(k)
+            assert cap > 0
+            assert cap + online_scan.tile_for(k) * k \
+                <= online_scan.TABLE_SLOTS * 3 // 4
+
+
+@pytest.mark.parametrize("k", [0, -3, online_scan.MAX_K + 1, 1 << 16])
+def test_no_variant_takes_refused_widths(k):
+    with pytest.raises(ValueError, match="no kernel variant"):
+        online_scan.choose_variant(k)
+
+
+def test_plan_refuses_a_cpu_tensor():
+    idx, val, y = (T(a) for a in _batches(13, n_batches=1, b=4)[0])
+    with pytest.raises(ValueError, match="no kernel"):
+        online_scan.pa_scan.plan(torch.zeros(DIM), torch.zeros(DIM), idx,
+                                 val, y, 0.1, 1.0, "PA")
 
 
 @pytest.fixture
@@ -251,19 +288,172 @@ def cuda():
     return torch.device("cuda")
 
 
+def _on_card_and_cpu(cuda, w, idx, val, y, method, sens=0.1, c=0.7,
+                     dim=None):
+    """The kernel on the card and the plain version on the CPU from the
+    same inputs: (card dw on the CPU, CPU dw, the launch's counters)."""
+    dim = dim or w.shape[0]
+    dw_cpu = online_scan.pa_scan_plain(T(w), torch.zeros(dim), T(idx),
+                                       T(val), T(y), sens, c, method)
+    before = online_scan.pa_scan.launches
+    variant = online_scan.choose_variant(idx.shape[1])
+    by_before = online_scan.pa_scan.by_variant[variant]
+    dw_card = torch.zeros(dim, device=cuda)
+    online_scan.pa_scan(T(w).to(cuda), dw_card, T(idx).to(cuda),
+                        T(val).to(cuda), T(y).to(cuda), sens, c, method)
+    torch.cuda.synchronize()
+    assert online_scan.pa_scan.launches == before + 1
+    assert online_scan.pa_scan.by_variant[variant] == by_before + 1
+    return dw_card.cpu(), dw_cpu, online_scan.pa_scan.stats()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 31, 64, 70])
+@pytest.mark.parametrize("k", [1, 16, 31, 33, 64, 70, 128, 200, 4096])
 @pytest.mark.parametrize("method", R.METHODS)
 def test_kernel_is_bit_equal_to_the_plain_version(cuda, method, k):
+    """Duplicates within a round, across rounds and across tiles; padding."""
     idx, val, y = _batches(11, n_batches=1, b=300, k=max(k, 40))[0]
     idx, val = np.ascontiguousarray(idx[:, :k]), np.ascontiguousarray(val[:, :k])
     w = (np.random.default_rng(12).normal(size=DIM) * 0.1).astype(np.float32)
-    dw_cpu = online_scan.pa_scan_plain(T(w), torch.zeros(DIM), T(idx), T(val),
-                                       T(y), 0.1, 0.7, method)
-    before = online_scan.pa_scan.launches
-    dw_card = torch.zeros(DIM, device=cuda)
-    online_scan.pa_scan(T(w).to(cuda), dw_card, T(idx).to(cuda),
-                        T(val).to(cuda), T(y).to(cuda), 0.1, 0.7, method)
-    torch.cuda.synchronize()
-    assert online_scan.pa_scan.launches == before + 1
-    assert torch.equal(dw_card.cpu(), dw_cpu)
+    got, want, _ = _on_card_and_cpu(cuda, w, idx, val, y, method)
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("edge", [None, -1, 0, 1])
+@pytest.mark.parametrize("method", R.METHODS)
+def test_kernel_at_one_tile_and_one_example(cuda, method, edge, k):
+    """B = 1, and B at one tile less one, one tile, one tile and one."""
+    b = 1 if edge is None else online_scan.tile_for(k) + edge
+    idx, val, y = _batches(14 + b, n_batches=1, b=b, k=max(k, 40))[0]
+    idx, val = np.ascontiguousarray(idx[:, :k]), np.ascontiguousarray(val[:, :k])
+    w = (np.random.default_rng(15).normal(size=DIM) * 0.1).astype(np.float32)
+    got, want, _ = _on_card_and_cpu(cuda, w, idx, val, y, method)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("method", ["PA", "PA2"])
+def test_kernel_with_an_infinite_step(cuda, method, k):
+    """A step that overflows (a huge target over tiny values) makes the
+    padding columns' updates 0 * inf = NaN, as in the plain version: the
+    NaNs land where the plain version puts them, and every other weight is
+    bit-equal."""
+    idx, val, y = _batches(18, n_batches=1, b=40, k=max(k, 40))[0]
+    idx, val = np.ascontiguousarray(idx[:, :k]), np.ascontiguousarray(val[:, :k])
+    val[5] *= np.float32(1e-25)
+    y[5] = np.float32(3e38)
+    w = (np.random.default_rng(19).normal(size=DIM) * 0.1).astype(np.float32)
+    got, want, _ = _on_card_and_cpu(cuda, w, idx, val, y, method)
+    assert bool(want.isnan().any())
+    assert torch.equal(got.isnan(), want.isnan())
+    keep = ~want.isnan()
+    assert torch.equal(got[keep], want[keep])
+
+
+def _distinct_rows(k, b, dim, seed, repeat_first):
+    """b rows of k keys, no key repeated anywhere, except (repeat_first)
+    that the last row repeats the first row's first key and the row
+    before's first key."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(np.arange(1, dim))[:b * k].reshape(b, k)
+    idx = idx.astype(np.int32)
+    if repeat_first:
+        idx[-1, 0] = idx[0, 0]
+        idx[-1, 1] = idx[-2, 0]
+    val = rng.normal(size=(b, k)).astype(np.float32)
+    y = (rng.normal(size=b) * 3).astype(np.float32)
+    w = (rng.normal(size=dim) * 0.1).astype(np.float32)
+    return w, idx, val, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [0, 1])
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("method", R.METHODS)
+def test_kernel_at_and_over_the_table_capacity(cuda, method, k, over):
+    """Tiles of distinct keys fill the table to exactly 3/4 of its slots (no
+    flush); one example more flushes once, and two of its keys, written
+    before the flush (one by the first tile, one by the tile walked while
+    the flush began), are read back after it."""
+    tile = online_scan.tile_for(k)
+    full_tiles = online_scan.TABLE_SLOTS * 3 // 4 // (tile * k)
+    assert full_tiles * tile * k - tile * k == online_scan.table_capacity(k)
+    b = full_tiles * tile + over
+    dim = 1 << 16
+    w, idx, val, y = _distinct_rows(k, b, dim, 16 + k + over,
+                                    repeat_first=bool(over))
+    got, want, stats = _on_card_and_cpu(cuda, w, idx, val, y, method,
+                                        dim=dim)
+    assert stats["flushes"] == over
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", R.METHODS)
+def test_kernel_across_several_flushes(cuda, method):
+    """Rows over 2^16 features with padding and duplicates: ~2.3·10^4
+    distinct keys, two flushes or more, keys coming back after each."""
+    rng = np.random.default_rng(20)
+    dim = 1 << 16
+    idx = rng.integers(1, dim, size=(600, 64)).astype(np.int32)
+    val = rng.normal(size=(600, 64)).astype(np.float32)
+    idx[:, 48:] = 0
+    val[:, 48:] = 0.0
+    idx[::3, 5] = idx[::3, 2]
+    idx[::5, 37] = idx[::5, 2]
+    y = (rng.normal(size=600) * 3).astype(np.float32)
+    w = (rng.normal(size=dim) * 0.1).astype(np.float32)
+    got, want, stats = _on_card_and_cpu(cuda, w, idx, val, y, method)
+    assert stats["flushes"] >= 2
+    assert torch.equal(got, want)
+
+
+def _server_batch(rows, seed):
+    """Rows as a regression server's traffic looks (8 of 64 numeric keys, 1
+    of 40 cities, 1 of 7 kinds), featurized by the CPU driver of
+    config/regression/default.json."""
+    import json
+    import os
+
+    from jubatus_tpu_torch.core.datum import Datum
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+
+    path = os.path.join(os.path.dirname(__file__), "..", "config",
+                        "regression", "default.json")
+    with open(path) as f:
+        driver = RegressionDriver(json.load(f), device="cpu")
+    rng = np.random.default_rng(seed)
+    data = []
+    for i in range(rows):
+        d = Datum()
+        for j in rng.choice(64, 8, replace=False):
+            d.add(f"f{j}", float(np.round(rng.standard_normal(), 3)))
+        d.add("city", f"c{int(rng.integers(40))}")
+        d.add("kind", f"k{i % 7}")
+        data.append((float(rng.normal() * 3), d))
+    targets, idx, val = driver.featurize_train(data)
+    w = (rng.normal(size=driver.converter.dim) * 0.1).astype(np.float32)
+    return w, idx, val, targets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", R.METHODS)
+def test_kernel_on_a_server_shaped_batch(cuda, method):
+    w, idx, val, y = _server_batch(1024, seed=17)
+    assert idx.shape[1] == 16
+    got, want, stats = _on_card_and_cpu(cuda, w, idx, val, y, method)
+    assert stats["flushes"] == 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_launch_layout_matches_the_wrapper(cuda):
+    lib = online_scan.library()
+    for k in (1, 16, 31, 33, 64, 70, 128, 129, 4096, online_scan.MAX_K):
+        variant = online_scan.VARIANTS.index(online_scan.choose_variant(k))
+        assert lib.jt_pa_scan_smem_bytes(k, online_scan.tile_for(k),
+                                         variant) == online_scan.smem_bytes(k)
