@@ -73,9 +73,26 @@ each of which fails the run (non-zero exit, no result line) on error:
    them), then again from one client after ``clear`` beside a CPU driver
    fed the same calls; 50 ``classify`` / ``estimate`` calls (p50/p99,
    ``first_ms`` apart) against the CPU driver within LINEAR_TOL; the
-   regression server's scan-kernel launches must move.
+   regression server's scan-kernel launches must move;
+10. clustering and graph (no hand-written kernel: plain PyTorch on the
+   card): ``config/clustering/kmeans.json`` and ``gmm.json`` as shipped
+   (k = 3, bucket_size 1000) take 16,384 of phase 9's rows in pushes of
+   1,024 (one recluster each), ``dbscan.json`` (eps 0.2, min_core_point 2)
+   8,192 rows in 512 groups of near-duplicates; the last recluster split
+   into compact / upload / fit / readback / members, the fit timed with
+   CUDA events and under torch.profiler (busy against wall); centres and
+   assignments held against the port's driver on the CPU fed the same
+   pushes (CLUSTER_TOL, a stated tie rule), DBSCAN's labels against a
+   plain host reference (scipy's connected components); graph
+   (``config/graph/default.json``) with 65,536 nodes and 524,288 edges in
+   process, ``update_index`` split into filter / upload / loop / readback,
+   ranks within PAGERANK_RTOL of the CPU driver's; then the clustering,
+   graph, stat, bandit, burst and weight servers on the card (each on its
+   shipped ``default.json``, all six started at once), each call's answer
+   equal to a CPU twin's (the port's server in this process on the CPU),
+   p50/p99 per method.
 
-Phases 3-7, 8 and 9 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8, 9 and 10 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -584,22 +601,39 @@ def server_datum(rng, Datum, i: int):
     return d
 
 
-@contextlib.contextmanager
-def serving(engine: str, config_path: str):
-    """``python -m jubatus_tpu_torch.server <engine> -f <config>`` on the
-    card; yields an RpcClient once the server answers. On an error the
-    server log's tail goes to stderr; the server is stopped either way."""
+def start_server(engine: str, config_path: str, tag: str = ""):
+    """Start ``python -m jubatus_tpu_torch.server <engine> -f <config>`` on
+    the card; returns (process, port, log path) without waiting for it."""
     port = free_port()
     os.makedirs(OUT_DIR, exist_ok=True)
-    log_path = os.path.join(OUT_DIR, f"chip_smoke_server_{engine}.log")
+    log_path = os.path.join(OUT_DIR, f"chip_smoke_server_{engine}{tag}.log")
     cmd = [sys.executable, "-m", "jubatus_tpu_torch.server", engine,
            "-f", config_path, "-p", str(port), "-b", "127.0.0.1", "-c", "4",
            "--device", "cuda"]
-    from jubatus_tpu_torch.rpc.client import RpcClient
-
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=logf,
                                 stderr=subprocess.STDOUT)
+    return proc, port, log_path
+
+
+def stop_server(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=20)
+
+
+@contextlib.contextmanager
+def serving(engine: str, config_path: str, started=None):
+    """The server of ``engine`` on the card (``started``: one already
+    started by ``start_server``); yields an RpcClient once it answers. On
+    an error the server log's tail goes to stderr; the server is stopped
+    either way."""
+    proc, port, log_path = started or start_server(engine, config_path)
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
     cli = RpcClient("127.0.0.1", port, timeout=120.0)
     try:
         deadline = time.time() + 180
@@ -623,12 +657,7 @@ def serving(engine: str, config_path: str):
         raise
     finally:
         cli.close()
-        proc.terminate()
-        try:
-            proc.wait(timeout=20)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=20)
+        stop_server(proc)
 
 
 def server_status(cli) -> dict:
@@ -1614,7 +1643,7 @@ def phase_scan(torch, online_scan, Datum, RegressionDriver,
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the linear classifier and regression servers over RPC
+# phase 9: the linear classifier and regression servers over RPC
 # ---------------------------------------------------------------------------
 LINEAR_BATCH = 256            # rows per train call
 LINEAR_THREADS = 4            # concurrent train clients (coalesced)
@@ -1724,6 +1753,419 @@ def phase_linear_server(Datum, Driver, engine: str, config_name: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: clustering and graph on the card, and the six servers over RPC
+# ---------------------------------------------------------------------------
+CLUSTER_ROWS = 16_384         # server_datum rows per k-means / GMM run
+CLUSTER_PUSH = 1_024          # rows per push: bucket_size 1000, one recluster
+DBSCAN_ROWS = 8_192
+DBSCAN_GROUPS = 512           # near-duplicate groups of the DBSCAN rows
+DBSCAN_JITTER = 0.02          # |offset| on two numeric features of a row
+DBSCAN_NOISE_EVERY = 20       # every 20th DBSCAN row is a lone row (noise)
+# the card against the CPU port driver fed the same pushes: centres within
+# CLUSTER_TOL (absolute; cuBLAS and the CPU's BLAS round differently, and
+# 25 Lloyd / EM iterations carry it); assignments equal, except at a point
+# whose two nearest centres (k-means) or two largest log-responsibilities
+# (GMM) lie within TIE_RTOL (relative) of each other on the CPU
+CLUSTER_TOL = 1e-3
+TIE_RTOL = 1e-4
+# DBSCAN's rows keep every pair's squared distance further than this
+# (relative) from eps², which the run checks
+DBSCAN_MARGIN = 1e-3
+GRAPH_NODES = 65_536
+GRAPH_EDGES = 524_288
+GRAPH_QUERIES = 200
+# PageRank on the card against the CPU port driver: CUDA's index_add_ adds
+# duplicates in no fixed order
+PAGERANK_RTOL = 1e-5
+NEW_ENGINES = ("clustering", "graph", "stat", "bandit", "burst", "weight")
+
+
+def fit_profile(torch, fit) -> dict:
+    """One fit's device time: CUDA events (median of 3 after a warm-up),
+    its wall time to the device's completion (median of 3), and one call
+    under torch.profiler: device busy against that wall time."""
+    event_ms = time_ms(torch, fit, reps=3)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    prof = profile_calls(torch, [fit], wall_ms, [])
+    return dict(event_ms=event_ms, wall_ms=wall_ms,
+                busy_ms=prof["device_busy_ms_per_query"],
+                idle_share=prof["device_idle_share"],
+                device_items=prof["device_items_per_query"],
+                top_device_us=prof["top_device_us"][:3])
+
+
+def split_ms(last: dict) -> dict:
+    return {k[:-2] + "_ms": v * 1e3 for k, v in last.items()
+            if k.endswith("_s")}
+
+
+def tie_points(x, cpu, method: str, torch, ops) -> np.ndarray:
+    """Points whose assignment is a near-tie on the CPU driver: the two
+    nearest centres (k-means) or the two largest log-responsibilities
+    (GMM, refitted on the CPU) within TIE_RTOL of each other."""
+    if method == "kmeans":
+        score = ((x[:, None, :].astype(np.float64)
+                  - cpu._centers[None].astype(np.float64)) ** 2).sum(-1)
+    else:
+        state, _ = ops.gmm_fit(torch.from_numpy(x),
+                               torch.from_numpy(np.asarray(cpu._weights,
+                                                           np.float32)),
+                               k=len(cpu._centers), seed=cpu.seed)
+        score = -ops._log_resp(torch.from_numpy(x), state).double().numpy()
+    s = np.sort(score, axis=1)
+    return (s[:, 1] - s[:, 0]) <= TIE_RTOL * np.maximum(np.abs(s[:, 0]), 1.0)
+
+
+def phase_clustering(torch, ClusteringDriver, ops, Datum, config_name: str,
+                     seed: int) -> dict:
+    """config/clustering/<config_name> (kmeans.json / gmm.json as shipped:
+    k = 3, bucket_size 1000) on the card: CLUSTER_ROWS of phase 9's rows in
+    pushes of CLUSTER_PUSH, each push reclustering once; the last
+    recluster split into compact, upload, fit, readback and members, the
+    fit timed apart (``fit_profile``); the final centres and assignments
+    held against the CPU port driver fed the same pushes."""
+    config = load_config("clustering", config_name)
+    card = ClusteringDriver(config, device="cuda")
+    cpu = ClusteringDriver(config, device="cpu")
+    rng = np.random.default_rng(seed + 61)
+    rows = [server_datum(rng, Datum, i) for i in range(CLUSTER_ROWS)]
+    lat = []
+    for lo in range(0, CLUSTER_ROWS, CLUSTER_PUSH):
+        pts = [(f"c{i}", rows[i]) for i in range(lo, lo + CLUSTER_PUSH)]
+        _, ms = timed(card.push, pts)
+        lat.append(ms)
+        cpu.push(pts)
+    pushes = CLUSTER_ROWS // CLUSTER_PUSH
+    check(card.revision == cpu.revision == pushes,
+          f"{config_name}: {card.revision} reclusters, want {pushes}")
+    last = split_ms(card.last_recluster)
+    x, _ = card._compact()
+    xt = torch.from_numpy(x).cuda()
+    wt = torch.from_numpy(np.asarray(card._weights, np.float32)).cuda()
+    k = len(card._centers)
+    fit = (lambda: ops.kmeans_fit(xt, wt, k=k, seed=card.seed)) \
+        if card.method == "kmeans" else \
+        (lambda: ops.gmm_fit(xt, wt, k=k, seed=card.seed))
+    check(np.array_equal(fit()[1].cpu().numpy(), card._assign),
+          f"{config_name}: a refit on the card assigns otherwise")
+    prof = fit_profile(torch, fit)
+    err = float(np.abs(card._centers - cpu._centers).max())
+    check(np.isfinite(card._centers).all(), f"{config_name}: centres not "
+                                            "finite")
+    check(err <= CLUSTER_TOL, f"{config_name}: centres off the CPU driver's "
+                              f"by {err} (> {CLUSTER_TOL})")
+    differ = card._assign != cpu._assign
+    ties = tie_points(x, cpu, card.method, torch, ops)
+    check(not (differ & ~ties).any(),
+          f"{config_name}: {int((differ & ~ties).sum())} assignments differ "
+          "from the CPU driver's away from a tie")
+    sizes = np.bincount(card._assign, minlength=k).tolist()
+    return dict(config=f"config/clustering/{config_name}", rows=CLUSTER_ROWS,
+                dims=int(x.shape[1]), pushes=pushes, push=pcts(lat),
+                last_recluster=last, fit=prof, cluster_sizes=sizes,
+                parity=dict(centre_tol=CLUSTER_TOL, centre_err=err,
+                            assign_differ=int(differ.sum()),
+                            ties=int(ties.sum())))
+
+
+def dbscan_rows(rng, Datum, n: int):
+    """Rows of phase 9's shape in DBSCAN_GROUPS groups of near-duplicates
+    (two numeric features moved by up to DBSCAN_JITTER), every
+    DBSCAN_NOISE_EVERY-th row a lone row."""
+    groups = [server_datum(rng, Datum, i) for i in range(DBSCAN_GROUPS)]
+    rows = []
+    for i in range(n):
+        if i % DBSCAN_NOISE_EVERY == 0:
+            rows.append(server_datum(rng, Datum, DBSCAN_GROUPS + i))
+            continue
+        g = groups[int(rng.integers(DBSCAN_GROUPS))]
+        d = Datum(string_values=g.string_values)
+        for j, (key, v) in enumerate(g.num_values):
+            if j < 2:
+                v = float(np.round(v + rng.uniform(-DBSCAN_JITTER,
+                                                   DBSCAN_JITTER), 4))
+            d.add(key, v)
+        rows.append(d)
+    return rows
+
+
+def dbscan_reference(x, w, eps: float, min_core: int):
+    """DBSCAN's labels, renumbered as the driver renumbers them, by a plain
+    host computation: float64 distances, core points, connected components
+    of the core graph (scipy), a component's least core index, borders to
+    the least adjacent cluster. Also the least relative gap of a squared
+    distance to eps²."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = len(x)
+    x64 = x.astype(np.float64)
+    sq = (x64 * x64).sum(1)
+    d2 = np.maximum(sq[:, None] - 2.0 * (x64 @ x64.T) + sq[None, :], 0.0)
+    eps2 = float(np.float32(np.float32(eps) * np.float32(eps)))
+    margin = float(np.abs(d2 - eps2).min() / eps2)
+    adj = d2 <= eps2
+    del d2
+    core = adj.astype(np.float64) @ w.astype(np.float64) >= min_core
+    _, comp = connected_components(
+        csr_matrix(adj & core[:, None] & core[None, :]), directed=False)
+    first = np.full(comp.max() + 1, n)
+    np.minimum.at(first, comp[core], np.flatnonzero(core))
+    label = np.where(core, first[comp], n)
+    border = np.where(adj & core[None, :], label[None, :], n).min(axis=1)
+    raw = np.where(core, label, border)
+    reps = sorted({int(r) for r in raw if r < n})
+    renum = {rep: c for c, rep in enumerate(reps)}
+    return np.asarray([renum.get(int(r), -1) for r in raw]), margin
+
+
+def phase_dbscan(torch, ClusteringDriver, ops, Datum, seed: int) -> dict:
+    """config/clustering/dbscan.json as shipped (eps 0.2, min_core_point
+    2) on the card: DBSCAN_ROWS rows in pushes of CLUSTER_PUSH; the last
+    recluster (N = DBSCAN_ROWS, ⌈log2 N⌉ = 13 closure products) split and
+    its fit timed; the labels held against ``dbscan_reference``."""
+    config = load_config("clustering", "dbscan.json")
+    card = ClusteringDriver(config, device="cuda")
+    rng = np.random.default_rng(seed + 67)
+    rows = dbscan_rows(rng, Datum, DBSCAN_ROWS)
+    lat = []
+    for lo in range(0, DBSCAN_ROWS, CLUSTER_PUSH):
+        _, ms = timed(card.push, [(f"d{i}", rows[i])
+                                  for i in range(lo, lo + CLUSTER_PUSH)])
+        lat.append(ms)
+    last = split_ms(card.last_recluster)
+    x, _ = card._compact()
+    w = np.asarray(card._weights, np.float32)
+    want, margin = dbscan_reference(x, w, card.eps, card.min_core_point)
+    check(margin > DBSCAN_MARGIN, f"dbscan rows: a pair lies within "
+                                  f"{margin} of eps² (data, not the port)")
+    check(np.array_equal(card._assign, want),
+          f"dbscan: {int((card._assign != want).sum())} labels differ from "
+          "the plain reference")
+    xt, wt = torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+    prof = fit_profile(torch, lambda: ops.dbscan_fit(
+        xt, wt, card.eps, min_core_point=card.min_core_point))
+    n = DBSCAN_ROWS
+    flops = ops.closure_steps(n) * 2.0 * n ** 3
+    return dict(config="config/clustering/dbscan.json", rows=n,
+                dims=int(x.shape[1]), pushes=len(lat), push=pcts(lat),
+                last_recluster=last, fit=prof,
+                closure=dict(steps=ops.closure_steps(n), flops=flops,
+                             tflops_per_s=flops / prof["event_ms"] / 1e9),
+                clusters=int(want.max()) + 1,
+                noise=int((want < 0).sum()),
+                parity=dict(labels_equal=True, eps2_margin=margin))
+
+
+def phase_graph(torch, GraphDriver, seed: int) -> dict:
+    """config/graph/default.json (damping 0.9) on the card, in-process:
+    GRAPH_NODES nodes and GRAPH_EDGES edges (sources uniform, targets
+    skewed: the square of a uniform draw), one centrality query with an
+    empty filter; ``update_index`` split into the filter and the edge
+    arrays (host), the upload, the PageRank loop (device, to its
+    completion) and the readback; the
+    ranks held against the CPU port driver loaded from the card driver's
+    pack; GRAPH_QUERIES get_centrality calls timed."""
+    config = load_config("graph", "default.json")
+    card = GraphDriver(config, device="cuda")
+    rng = np.random.default_rng(seed + 71)
+    src = rng.integers(GRAPH_NODES, size=GRAPH_EDGES)
+    dst = (GRAPH_NODES * rng.random(GRAPH_EDGES) ** 2).astype(np.int64)
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_NODES):
+        card.create_node()
+    for s_, d_ in zip(src.tolist(), dst.tolist()):
+        card.create_edge(str(s_), str(s_), str(d_))
+    build_s = time.perf_counter() - t0
+    cpu = GraphDriver(config, device="cpu")
+    cpu.unpack(card.pack())
+    q = ([], [])
+    for g in (card, cpu):
+        g.add_centrality_query(q)
+    _, index_ms = timed(card.update_index)
+    split = split_ms(card.last_pagerank)
+    cpu.update_index()
+    got = card._pagerank_cache[cpu_key(q)]
+    want = cpu._pagerank_cache[cpu_key(q)]
+    check(got.keys() == want.keys() and len(got) == GRAPH_NODES,
+          "graph: ranked node sets differ")
+    g = np.asarray([got[n] for n in want], np.float64)
+    w = np.asarray([want[n] for n in want], np.float64)
+    check(np.isfinite(g).all(), "graph: ranks not finite")
+    rel = float((np.abs(g - w) / np.abs(w)).max())
+    check(rel <= PAGERANK_RTOL, f"graph: ranks off the CPU driver's by {rel} "
+                                f"(relative, > {PAGERANK_RTOL})")
+    nodes = [str(int(i)) for i in rng.integers(GRAPH_NODES,
+                                               size=GRAPH_QUERIES)]
+    lat = []
+    for n in nodes:
+        r, ms = timed(card.get_centrality, n, 0, q)
+        lat.append(ms)
+        check(r == got[n], "get_centrality differs from the index")
+    # one more refresh under the profiler: the device's busy time against
+    # the unprofiled refresh (filter, upload, loop, readback)
+    prof = profile_calls(torch, [lambda: card._pagerank(cpu_key(q))],
+                         sum(split.values()), [])
+    prof = dict(busy_ms=prof["device_busy_ms_per_query"],
+                idle_share=prof["device_idle_share"],
+                device_items=prof["device_items_per_query"],
+                top_device_us=prof["top_device_us"][:3])
+    return dict(config="config/graph/default.json", nodes=GRAPH_NODES,
+                edges=GRAPH_EDGES, build_s=build_s, update_index_ms=index_ms,
+                split=split, pagerank=prof, get_centrality=pcts(lat),
+                parity=dict(rtol=PAGERANK_RTOL, max_rel_err=rel))
+
+
+def cpu_key(q):
+    """A preset query's key in the drivers' caches."""
+    from jubatus_tpu_torch.models.graph import _canon_query
+
+    return _canon_query(q)
+
+
+def rpc_session(engine: str, rng, Datum) -> list:
+    """(method, args) calls of ``engine``'s IDL groups, updates first."""
+    if engine == "clustering":
+        rows = [server_datum(rng, Datum, i) for i in range(4 * CLUSTER_PUSH)]
+        calls = [("push", ([[f"c{i}", rows[i]] for i in
+                            range(lo, lo + CLUSTER_PUSH)],))
+                 for lo in range(0, len(rows), CLUSTER_PUSH)]
+        calls += [("get_revision", ()), ("get_k_center", ())] * 5
+        calls += [("get_nearest_center", (server_datum(rng, Datum, i),))
+                  for i in range(20)]
+        calls += [("get_nearest_members_light", (server_datum(rng, Datum, i),))
+                  for i in range(5)]
+        return calls + [("get_core_members_light", ())] * 2
+    if engine == "graph":
+        n, q, qf = 500, [[], []], [[], [["kind", "a"]]]
+        calls = [("create_node", ())] * n
+        calls += [("update_node", (str(i), {"kind": "ab"[i % 2]}))
+                  for i in range(n)]
+        ends = rng.integers(n, size=(4000, 2))
+        calls += [("create_edge", (str(s_), [{}, str(s_), str(d_)]))
+                  for s_, d_ in ends.tolist()]
+        calls += [("add_centrality_query", (q,)),
+                  ("add_centrality_query", (qf,)),
+                  ("add_shortest_path_query", (q,)), ("update_index", ())]
+        calls += [("get_centrality", (str(int(i)), 0, q))
+                  for i in rng.integers(n, size=50)]
+        calls += [("get_centrality", (str(2 * int(i)), 0, qf))
+                  for i in rng.integers(n // 2, size=20)]
+        calls += [("get_shortest_path", ([str(int(a)), str(int(b)), 4, q],))
+                  for a, b in rng.integers(n, size=(20, 2))]
+        calls += [("get_node", (str(i),)) for i in range(10)]
+        calls += [("get_edge", ("0", i)) for i in range(10)]
+        return calls + [("remove_edge", ("0", 3)), ("remove_node", ("7",)),
+                        ("update_index", ()), ("get_centrality", ("0", 0, q))]
+    if engine == "stat":
+        calls = [("push", (f"k{i % 10}", float(np.round(rng.normal(), 3))))
+                 for i in range(2000)]
+        for i in range(10):
+            calls += [(m, (f"k{i}",)) for m in ("sum", "stddev", "max", "min")]
+            calls += [("moment", (f"k{i}", 3, 0.25)), ("entropy", (f"k{i}",))]
+        return calls
+    if engine == "bandit":
+        arms = [f"arm{i}" for i in range(5)]
+        calls = [("register_arm", (a,)) for a in arms]
+        for i in range(200):
+            calls += [("select_arm", (f"p{i % 4}",)),
+                      ("register_reward", (f"p{i % 4}", arms[i % 5],
+                                           float(rng.random() < 0.2 +
+                                                 0.1 * (i % 5))))]
+        return calls + [("get_arm_info", (f"p{i}",)) for i in range(4)]
+    if engine == "burst":
+        calls = [("add_keyword", ([kw, 2.0, 1.0],))
+                 for kw in ("storm", "fire", "calm")]
+        for b in range(20):
+            calls.append(("add_documents", ([
+                [b * 10.0 + i * 0.1, "storm warning" if 8 <= b < 11 and
+                 i % 2 else f"{('fire', 'calm', 'day')[i % 3]} {i}"]
+                for i in range(100)],)))
+        calls += [("get_result", (kw,)) for kw in ("storm", "fire")] * 5
+        calls += [("get_result_at", ("storm", float(p_)))
+                  for p_ in range(20, 200, 20)]
+        return calls + [("get_all_bursted_results", ()),
+                        ("get_all_bursted_results_at", (105.0,)),
+                        ("get_all_keywords", ())]
+    words = [f"w{i}" for i in range(50)]
+    calls = [("update", (Datum({"text": " ".join(
+        rng.choice(words, 6)), "n": float(i % 9)}),)) for i in range(200)]
+    return calls + [("calc_weight", (Datum({"text": " ".join(
+        rng.choice(words, 4))}),)) for _ in range(50)]
+
+
+def same_answer(got, want, rtol: float) -> bool:
+    """Equal, floats within ``rtol`` (relative, with 1e-6 absolute) where
+    ``rtol`` > 0."""
+    if isinstance(want, float) and rtol:
+        return abs(got - want) <= rtol * abs(want) + 1e-6
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(
+            same_answer(g, w, rtol) for g, w in zip(got, want))
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            same_answer(got[k], want[k], rtol) for k in want)
+    return got == want
+
+
+def phase_new_servers(Datum, EngineServer, seed: int) -> dict:
+    """``python -m jubatus_tpu_torch.server <engine> -f
+    config/<engine>/default.json --device cuda`` for the six engines of
+    this path, all started at once; each driven with ``rpc_session`` beside
+    a CPU twin (the port's EngineServer in this process, device "cpu")
+    that takes the same calls: every answer equal (clustering and graph
+    within CLUSTER_TOL / PAGERANK_RTOL relative); p50/p99 per method."""
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    started = {e: start_server(e, os.path.join(ROOT, "config", e,
+                                               "default.json"))
+               for e in NEW_ENGINES}
+    out = {}
+    try:
+        for engine in NEW_ENGINES:
+            rng = np.random.default_rng(seed + 81)
+            calls = rpc_session(engine, rng, Datum)
+            twin = EngineServer(engine, load_config(engine, "default.json"),
+                                device="cpu")
+            tport = twin.start(0)
+            rtol = {"clustering": CLUSTER_TOL, "graph": PAGERANK_RTOL}.get(
+                engine, 0.0)
+            lat: dict = {}
+            try:
+                with serving(engine, "", started.pop(engine)) as cli, \
+                        RpcClient("127.0.0.1", tport, timeout=120.0) as ref:
+                    st0 = server_status(cli)
+                    t0 = time.perf_counter()
+                    for method, args in calls:
+                        got, ms = timed(cli.call, method, "smoke", *args)
+                        lat.setdefault(method, []).append(ms)
+                        want = ref.call(method, "smoke", *args)
+                        check(same_answer(got, want, rtol),
+                              f"{engine} server {method}: {str(got)[:200]} "
+                              f"!= the CPU twin's {str(want)[:200]}")
+                    session_s = time.perf_counter() - t0
+                    st = server_status(cli)
+            finally:
+                twin.stop()
+            out[engine] = dict(
+                config=f"config/{engine}/default.json", calls=len(calls),
+                session_s=session_s, rtol=rtol,
+                update_count=st["update_count"] - st0["update_count"],
+                methods={m: pcts(v) for m, v in lat.items()},
+                launches=server_launches(st))
+    finally:
+        for proc, _, _ in started.values():
+            stop_server(proc)
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1747,6 +2189,10 @@ def main(argv=None) -> int:
         from jubatus_tpu_torch.models.regression import RegressionDriver
         from jubatus_tpu_torch.ops import classifier as clf_ops
         from jubatus_tpu_torch.ops import knn, online_scan, sig_scan
+        from jubatus_tpu_torch.models.clustering import ClusteringDriver
+        from jubatus_tpu_torch.models.graph import GraphDriver
+        from jubatus_tpu_torch.ops import clustering as cl_ops
+        from jubatus_tpu_torch.server import EngineServer
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1862,6 +2308,25 @@ def main(argv=None) -> int:
                     total[m] += res["launches"][m]
             return {"server_launches": total}
 
+        def clustering_graph_path():
+            assert_matmul_full_precision(torch)
+            for name in ("kmeans.json", "gmm.json"):
+                res = phase_clustering(torch, ClusteringDriver, cl_ops, Datum,
+                                       name, args.seed)
+                log(f"[clustering] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_dbscan(torch, ClusteringDriver, cl_ops, Datum,
+                               args.seed)
+            log(f"[dbscan] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_graph(torch, GraphDriver, args.seed)
+            log(f"[graph] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_new_servers(Datum, EngineServer, args.seed)
+            total = {m: 0 for m in RECORDED}
+            for engine, r in res.items():
+                log(f"[{engine}_server] {json.dumps(r)} | {kind} | {smi}")
+                for m in RECORDED:
+                    total[m] += r["launches"][m]
+            return {"server_launches": total}
+
         lof_shapes = {}
         run_path("nearest_neighbor", nn_path)
         run_path("nearest_neighbor_server", nn_server_path)
@@ -1870,6 +2335,7 @@ def main(argv=None) -> int:
         run_path("servers", servers_path)
         run_path("classifier", classifier_path)
         run_path("linear_servers", linear_servers_path)
+        run_path("clustering_graph", clustering_graph_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         launches = {m: sum(p[m] for p in paths.values()) for m in COUNTED}
         for mode, n in launches.items():

@@ -7,12 +7,17 @@ PyTorch and the TPU kernels rewritten by hand for NVIDIA Hopper
 JAX or of ``jubatus_tpu``: host layers it needs are copied, module by module,
 under the same names.
 
-Ported so far: the engines on the nearest-neighbor backend — nearest_neighbor,
-recommender, anomaly (LOF) and the NN classifier — with the exact methods
-(inverted_index, euclid) and the LSH family, whose signature scan is a CUDA
-kernel (``ops/sig_scan.py``, ``csrc/sig_scan.cu``); and the linear
-classifier and regression engines, whose per-example scan is a CUDA kernel
-(``ops/online_scan.py``, ``csrc/online_scan.cu``).
+All eleven engines are ported: the engines on the nearest-neighbor
+backend — nearest_neighbor, recommender, anomaly (LOF) and the NN
+classifier — with the exact methods (inverted_index, euclid) and the LSH
+family, whose signature scan is a CUDA kernel (``ops/sig_scan.py``,
+``csrc/sig_scan.cu``); the linear classifier and regression engines, whose
+per-example scan is a CUDA kernel (``ops/online_scan.py``,
+``csrc/online_scan.cu``); clustering (k-means, GMM, DBSCAN) and graph
+(PageRank) on the device in PyTorch (``ops/clustering.py``,
+``models/graph.py``); and stat, bandit, burst and weight, which hold host
+state only. Features within an engine that are not ported yet (sharded
+layouts, the IVF tier, converter plugins) raise ``NotYetPorted``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.
@@ -27,6 +32,10 @@ import torch
 __version__ = "0.1.0"
 
 
+class NotYetPorted(NotImplementedError):
+    """A feature of the JAX package that the port has not reached yet."""
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` by default, the CPU only
     when asked for. Never slides to the CPU."""
@@ -38,3 +47,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU), so that a host timer around it reads the device's time too."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

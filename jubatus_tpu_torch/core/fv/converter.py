@@ -2,8 +2,9 @@
 
 Copy of ``jubatus_tpu/core/fv/converter.py``, trimmed to what the ported
 engines use: the per-datum path (``convert``), the batch path
-(``convert_batch``, which the NN classifier trains and classifies through)
-and ``revert_feature`` (the recommender's ``complete_row_*``). No string
+(``convert_batch``, which the NN classifier trains and classifies through),
+``convert_named`` (the weight engine) and ``revert_feature`` (the
+recommender's ``complete_row_*``, clustering's centres). No string
 or token memo caches, no tracing counter, no quality hook, no plugins (a
 ``dynamic`` type raises "not yet ported"). The feature names, hashing and
 weights are the JAX package's, so both packages turn a datum into the same
@@ -24,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv.hashing import FeatureHasher
 from jubatus_tpu_torch.core.fv.weight_manager import WeightManager
@@ -34,8 +36,13 @@ class ConverterError(ValueError):
     pass
 
 
+class PluginNotPorted(ConverterError, NotYetPorted):
+    """A converter plugin (``dynamic`` type): a config error that is also
+    a feature not yet ported."""
+
+
 def _not_ported(what: str) -> ConverterError:
-    return ConverterError(f"{what}: plugins are not yet ported")
+    return PluginNotPorted(f"{what}: plugins are not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +648,29 @@ class DatumToFVConverter:
         off = np.zeros(b + 1, dtype=np.int64)
         np.cumsum(mcounts, out=off[1:])
         return CSRBatch(midx, mval.astype(np.float32), off)
+
+    def convert_named(self, datum: Datum,
+                      update_weights: bool = False) -> Dict[str, float]:
+        """Named (unhashed) features with global weights applied, for the
+        weight engine's ``update`` / ``calc_weight``. update_weights=True
+        records the document frequencies first."""
+        named = self._named_features(datum)
+        entries = [(name, self.hasher.index(name), value)
+                   for name, value in named.items()]
+        if update_weights:
+            idf_idx = {i for name, i, _ in entries
+                       if _global_weight_kind(name) == "idf"}
+            if idf_idx:
+                self.weights.observe(idf_idx)
+        out = {}
+        for name, idx, value in entries:
+            gw_kind = _global_weight_kind(name)
+            if gw_kind == "idf":
+                value *= self.weights.idf(idx)
+            elif gw_kind == "weight":
+                value *= self.weights.user_weight(idx)
+            out[name] = value
+        return out
 
     def revert_feature(self, index: int) -> Optional[Tuple[str, str]]:
         """Best-effort hash→(key, value) decode through the hasher's

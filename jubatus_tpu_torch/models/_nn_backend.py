@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from jubatus_tpu_torch import resolve_device
+from jubatus_tpu_torch import NotYetPorted, resolve_device
 from jubatus_tpu_torch.core.row_store import RowStore
 from jubatus_tpu_torch.core.sparse import SparseBatch, SparseVector
 from jubatus_tpu_torch.ops import knn
@@ -137,11 +137,11 @@ class NNBackend:
     # -- unported layouts --------------------------------------------------------
     def attach_mesh(self, mesh, axis: str = "shard") -> None:
         if mesh is not None:
-            raise NotImplementedError("mesh-sharded serving is not yet ported")
+            raise NotYetPorted("mesh-sharded serving is not yet ported")
 
     def configure_ann(self, mode: str, **_: Any) -> None:
         if mode != "off":
-            raise NotImplementedError(f"ann mode {mode!r} is not yet ported")
+            raise NotYetPorted(f"ann mode {mode!r} is not yet ported")
 
     # -- queries ---------------------------------------------------------------
     def _query_sig(self, vec: SparseVector) -> torch.Tensor:

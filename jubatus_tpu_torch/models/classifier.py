@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from jubatus_tpu_torch import resolve_device
+from jubatus_tpu_torch import NotYetPorted, resolve_device
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.core.sparse import _bucket, to_device
@@ -46,7 +46,7 @@ class ClassifierConfigError(ValueError):
 
 def _not_ported_sharding(mesh, shard_features) -> None:
     if mesh is not None or shard_features:
-        raise NotImplementedError(
+        raise NotYetPorted(
             "feature sharding (mesh=, shard_features=) is not yet ported")
 
 

@@ -6,8 +6,9 @@ counter-based threefry2x32 generator: ``fold_in(PRNGKey(seed), tag)``, then
 lanes. Signatures are stored in rows and compared across replicas and across
 the two packages, so this module reproduces those draws:
 
-- ``threefry2x32``, ``PRNGKey``, ``fold_in`` and the 32-bit ``random_bits``
-  are bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``
+- ``threefry2x32``, ``PRNGKey``, ``fold_in``, ``split`` and the 32-bit
+  ``random_bits`` are bit-exact with ``jax.random`` under
+  ``jax_threefry_partitionable=True``
   (the JAX 0.9 default: lane ``h`` of a ``(H,)`` draw hashes the counter pair
   ``(0, h)`` and xors the two output words);
 - ``uniform`` is bit-exact (mantissa fill, scale, shift, clamp at ``minval``);
@@ -22,7 +23,13 @@ the two packages, so this module reproduces those draws:
   correctly rounded steps by construction (``_sqrt``), not by trust in the
   library: on the CPU torch takes it from MKL's vector math, which is not
   correctly rounded, and once returned results good to about 12 bits in one
-  worker thread of a process, which moved draws by thousands of ULP.
+  worker thread of a process, which moved draws by thousands of ULP;
+- ``gumbel`` is ``-log(-log(u))`` over a bit-exact uniform on
+  ``[tiny, 1)``, each float32 log taken in float64 and rounded once (XLA's
+  float32 log is its own approximation, so a Gumbel value may differ from
+  JAX's in its last bits; tests state the bound), and ``categorical`` is
+  ``argmax(gumbel + logits)``, as ``jax.random.categorical`` draws it: the
+  picks agree unless two candidates lie within those last bits.
 
 The 32-bit words are held in ``int64`` tensors masked with ``0xFFFFFFFF``:
 ``torch.uint32`` lacks shifts and adds on some backends. Keys are plain
@@ -80,6 +87,15 @@ def fold_in(key: Key, data) -> Key:
     k1, k2 = key
     data = torch.as_tensor(data, dtype=torch.int64, device=k1.device) & MASK
     return threefry2x32(k1, k2, torch.zeros_like(data), data)
+
+
+def split(key: Key, num: int = 2) -> Key:
+    """``jax.random.split(key, num)`` for one key: key ``i`` hashes the
+    counter pair ``(0, i)``. Returns ``(k1, k2)`` of shape [num]; row ``i``
+    is ``(k1[i], k2[i])``."""
+    k1, k2 = key
+    lanes = torch.arange(num, dtype=torch.int64, device=k1.device)
+    return threefry2x32(k1, k2, torch.zeros_like(lanes), lanes)
 
 
 def random_bits(key: Key, n: int) -> torch.Tensor:
@@ -164,3 +180,27 @@ def normal(key: Key, n: int) -> torch.Tensor:
     [*S, n] float32."""
     u = uniform(key, n, _NORMAL_LO, 1.0)
     return erfinv(u) * _SQRT2
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _log32(v: torch.Tensor) -> torch.Tensor:
+    """float32 natural log, taken in float64 and rounded once."""
+    return torch.log(v.double()).float()
+
+
+def gumbel(key: Key, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,), float32)`` (mode "low") for a batch of
+    keys: ``-log(-log(u))``, u uniform on [tiny, 1). [*S, n] float32."""
+    u = uniform(key, n, _TINY, 1.0)
+    return -_log32(-_log32(u))
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis of a
+    float32 [n] or [*S, n] tensor (one key per row): the index of the
+    largest ``gumbel + logits``, as a 0-d (or [*S]) int64 tensor on the
+    logits' device."""
+    g = gumbel(key, logits.shape[-1])
+    return torch.argmax(g + logits, dim=-1)

@@ -2,11 +2,12 @@
 
 One connection, one call at a time under a lock, responses matched by msgid
 (a stale response to a timed-out call is dropped). No retries, trace
-context, deadlines or principals. ``NearestNeighborClient``,
-``RecommenderClient``, ``AnomalyClient``, ``ClassifierClient`` and
-``RegressionClient`` wrap
-their engine's methods with the cluster name every jubatus call carries
-first.
+context, deadlines or principals. One client class per engine
+(``NearestNeighborClient``, ``RecommenderClient``, ``AnomalyClient``,
+``ClassifierClient``, ``RegressionClient``, ``ClusteringClient``,
+``GraphClient``, ``StatClient``, ``BanditClient``, ``BurstClient``,
+``WeightClient``) wraps its engine's methods with the cluster name every
+jubatus call carries first.
 """
 
 from __future__ import annotations
@@ -150,3 +151,41 @@ class ClassifierClient(_ServiceClient):
 
 class RegressionClient(_ServiceClient):
     METHODS = ("train", "estimate", "clear")
+
+
+class ClusteringClient(_ServiceClient):
+    METHODS = ("push", "get_revision", "get_core_members",
+               "get_core_members_light", "get_k_center",
+               "get_nearest_center", "get_nearest_members",
+               "get_nearest_members_light", "clear")
+
+
+class GraphClient(_ServiceClient):
+    METHODS = ("create_node", "remove_node", "update_node", "create_edge",
+               "update_edge", "remove_edge", "get_centrality",
+               "add_centrality_query", "add_shortest_path_query",
+               "remove_centrality_query", "remove_shortest_path_query",
+               "get_shortest_path", "update_index", "clear", "get_node",
+               "get_edge", "create_node_here", "remove_global_node",
+               "create_edge_here")
+
+
+class StatClient(_ServiceClient):
+    METHODS = ("push", "sum", "stddev", "max", "min", "entropy", "moment",
+               "clear")
+
+
+class BanditClient(_ServiceClient):
+    METHODS = ("register_arm", "delete_arm", "select_arm",
+               "register_reward", "get_arm_info", "reset", "clear")
+
+
+class BurstClient(_ServiceClient):
+    METHODS = ("add_documents", "get_result", "get_result_at",
+               "get_all_bursted_results", "get_all_bursted_results_at",
+               "get_all_keywords", "add_keyword", "remove_keyword",
+               "remove_all_keywords", "clear")
+
+
+class WeightClient(_ServiceClient):
+    METHODS = ("update", "calc_weight", "clear")

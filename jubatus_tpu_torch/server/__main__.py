@@ -2,7 +2,10 @@
 
     python -m jubatus_tpu_torch.server nearest_neighbor \\
         -f config/nearest_neighbor/lsh.json -p 9199 [--device cpu]
-    python -m jubatus_tpu_torch.server {recommender,anomaly,classifier,regression} -f <config>
+    python -m jubatus_tpu_torch.server <engine> -f config/<engine>/<name>.json
+        (any of the eleven engines: anomaly, bandit, burst, classifier,
+        clustering, graph, nearest_neighbor, recommender, regression, stat,
+        weight)
     python -m jubatus_tpu_torch.server nearest_neighbor --config-test -f conf.json
 
 SIGTERM and SIGINT stop the server: it stops accepting, shuts its open

@@ -35,8 +35,10 @@ class ServerArgs:
 def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=prog, description="jubatus_tpu_torch engine server")
-    p.add_argument("engine", help="engine type (nearest_neighbor, recommender, "
-                                  "anomaly, classifier, regression)")
+    p.add_argument("engine", help="engine type (anomaly, bandit, burst, "
+                                  "classifier, clustering, graph, "
+                                  "nearest_neighbor, recommender, "
+                                  "regression, stat, weight)")
     p.add_argument("-p", "--rpc-port", type=int, default=9199)
     p.add_argument("-b", "--listen-addr", default="")
     p.add_argument("-c", "--thread", type=int, default=2)

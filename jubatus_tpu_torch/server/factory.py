@@ -1,10 +1,10 @@
 """Engine → driver factory (counterpart of ``jubatus_tpu/server/factory.py``).
 
-Config is the reference's JSON config verbatim. Only the engines this port
-has reached map to a driver; every other engine is "not yet ported". The
-classifier splits by method family: NN / cosine / euclidean go to the
-instance-based driver, the linear methods (perceptron, PA, PA1, PA2, CW,
-AROW, NHERD) to the linear one.
+Config is the reference's JSON config verbatim. All eleven engines map to a
+driver. The classifier splits by method family: NN / cosine / euclidean go
+to the instance-based driver, the linear methods (perceptron, PA, PA1, PA2,
+CW, AROW, NHERD) to the linear one. Features within an engine that the
+port has not reached raise ``NotYetPorted`` from the driver.
 """
 
 from __future__ import annotations
@@ -12,40 +12,44 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, Type
 
+from jubatus_tpu_torch import NotYetPorted  # noqa: F401
 from jubatus_tpu_torch.models.anomaly import AnomalyDriver
+from jubatus_tpu_torch.models.bandit import BanditDriver
+from jubatus_tpu_torch.models.burst import BurstDriver
 from jubatus_tpu_torch.models.classifier import ClassifierDriver
 from jubatus_tpu_torch.models.classifier_nn import NN_METHODS, ClassifierNNDriver
+from jubatus_tpu_torch.models.clustering import ClusteringDriver
+from jubatus_tpu_torch.models.graph import GraphDriver
 from jubatus_tpu_torch.models.nearest_neighbor import NearestNeighborDriver
 from jubatus_tpu_torch.models.recommender import RecommenderDriver
 from jubatus_tpu_torch.models.regression import RegressionDriver
+from jubatus_tpu_torch.models.stat import StatDriver
+from jubatus_tpu_torch.models.weight import WeightDriver
 
 DRIVER_CLASSES: Dict[str, Type] = {
     "anomaly": AnomalyDriver,
+    "bandit": BanditDriver,
+    "burst": BurstDriver,
+    "classifier": ClassifierDriver,
+    "clustering": ClusteringDriver,
+    "graph": GraphDriver,
     "nearest_neighbor": NearestNeighborDriver,
     "recommender": RecommenderDriver,
     "regression": RegressionDriver,
+    "stat": StatDriver,
+    "weight": WeightDriver,
 }
 
-#: the JAX package's engines, for the error message
-KNOWN_ENGINES = ("anomaly", "bandit", "burst", "classifier", "clustering",
-                 "graph", "nearest_neighbor", "recommender", "regression",
-                 "stat", "weight")
-
-
-class NotYetPorted(NotImplementedError):
-    pass
+#: the engines, as the JAX package names them
+KNOWN_ENGINES = tuple(sorted(DRIVER_CLASSES))
 
 
 def driver_class(engine: str, config: dict) -> Type:
     """The driver class serving ``engine`` under ``config``."""
-    if engine == "classifier":
-        if config.get("method") in NN_METHODS:
-            return ClassifierNNDriver
-        return ClassifierDriver
+    if engine == "classifier" and config.get("method") in NN_METHODS:
+        return ClassifierNNDriver
     cls = DRIVER_CLASSES.get(engine)
     if cls is None:
-        if engine in KNOWN_ENGINES:
-            raise NotYetPorted(f"engine {engine!r} is not yet ported")
         raise KeyError(f"unknown engine {engine!r}; known: "
                        f"{', '.join(KNOWN_ENGINES)}")
     return cls

@@ -2,12 +2,17 @@
 ``jubatus_tpu/server/service.py``).
 
 Registers the built-ins get_config and get_status and the engine's IDL
-methods, each under its wire name with the leading cluster-name parameter
-every jubatus call carries. Update methods run under the driver lock and
-bump the driver's update counter when the driver did not. The classifier's
-and regression's ``train`` go through the microbatch coalescer
-(``server/microbatch.py``). Not carried over: the raw-wire train path
-(``_register_train_raw``), which needs the raw fast path of the RPC server.
+methods, each under its wire name, arity and wire shape, with the leading
+cluster-name parameter every jubatus call carries. Update methods run under
+the driver lock and bump the driver's update counter when the driver did
+not. The classifier's and regression's ``train`` go through the microbatch
+coalescer (``server/microbatch.py``). There is no coordinator yet, so the
+writes the JAX server replicates over its ring (anomaly's ``add``, graph's
+``create_node``) apply locally, as the JAX server does standalone; graph's
+internal RPCs (``create_node_here``, ``remove_global_node``,
+``create_edge_here``) are registered all the same. Not carried over: the
+raw-wire train path (``_register_train_raw``), which needs the raw fast
+path of the RPC server.
 """
 
 from __future__ import annotations
@@ -190,4 +195,192 @@ def _bind_regression(rpc: RpcServer, server: Any) -> None:
     rpc.register("estimate",
                  lambda name, data: [float(x) for x in d.estimate(_datums(data))],
                  arity=2)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+
+
+@_binder("graph")
+def _bind_graph(rpc: RpcServer, server: Any) -> None:
+    """The standalone graph service: ``create_node`` is the driver's local
+    create (no coordinator, so no replicated write)."""
+    d = server.driver
+
+    def edge_parts(e):
+        """wire edge [property_map, source, target] → driver arg order
+        (source, target, properties)."""
+        return e[1], e[2], dict(e[0])
+
+    rpc.register("create_node", lambda name: _updating(server, d.create_node)(), arity=1)
+    rpc.register("remove_node", _updating(server, lambda name, nid: d.remove_node(nid)), arity=2)
+    rpc.register("update_node", _updating(server, lambda name, nid, prop: d.update_node(nid, dict(prop))),
+                 arity=3)
+    rpc.register(
+        "create_edge",
+        _updating(server, lambda name, nid, e: d.create_edge(nid, *edge_parts(e))),
+        arity=3,
+    )
+    rpc.register(
+        "update_edge",
+        _updating(server, lambda name, nid, eid, e: d.update_edge(nid, int(eid), *edge_parts(e))),
+        arity=4,
+    )
+    rpc.register("remove_edge", _updating(server, lambda name, nid, eid: d.remove_edge(nid, int(eid))),
+                 arity=3)
+    rpc.register("get_centrality", lambda name, nid, ct, q: float(d.get_centrality(nid, int(ct), q)), arity=4)
+    rpc.register("add_centrality_query", _updating(server, lambda name, q: d.add_centrality_query(q)),
+                 arity=2)
+    rpc.register("add_shortest_path_query", _updating(server, lambda name, q: d.add_shortest_path_query(q)),
+                 arity=2)
+    rpc.register("remove_centrality_query", _updating(server, lambda name, q: d.remove_centrality_query(q)),
+                 arity=2)
+    rpc.register("remove_shortest_path_query", _updating(server,
+                 lambda name, q: d.remove_shortest_path_query(q)), arity=2)
+    rpc.register(
+        "get_shortest_path",
+        lambda name, q: d.get_shortest_path(q[0], q[1], int(q[2]), q[3] if len(q) > 3 else None),
+        arity=2,
+    )
+    rpc.register("update_index", _updating(server, lambda name: d.update_index()), arity=1)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+    rpc.register(
+        "get_node",
+        lambda name, nid: (lambda n: [n["property"], n["in_edges"], n["out_edges"]])(d.get_node(nid)),
+        arity=2,
+    )
+    rpc.register(
+        "get_edge",
+        lambda name, nid, eid: (lambda e: [e["property"], e["source"],
+                                           e["target"]])(d.get_edge(nid, int(eid))),
+        arity=3,
+    )
+    rpc.register("create_node_here", _updating(server, lambda name, nid: d.create_node_here(nid)), arity=2)
+    rpc.register("remove_global_node", _updating(server, lambda name, nid: d.remove_global_node(nid)),
+                 arity=2)
+    rpc.register(
+        "create_edge_here",
+        _updating(server, lambda name, eid, e: d.create_edge_here(int(eid), *edge_parts(e))),
+        arity=3,
+    )
+
+
+@_binder("burst")
+def _bind_burst(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+
+    def wire_window(w):
+        """driver window dict → wire [start_pos, [[all, rel, weight]...]]."""
+        return [w["start_pos"],
+                [[b["all_data_count"], b["relevant_data_count"],
+                  b["burst_weight"]] for b in w["batches"]]]
+
+    rpc.register(
+        "add_documents",
+        lambda name, docs: _updating(
+            server,
+            lambda: d.add_documents([(float(p), t) for p, t in docs]),
+            count=lambda r: r,
+        )(),
+        arity=2,
+    )
+    rpc.register("get_result", lambda name, kw: wire_window(d.get_result(kw)), arity=2)
+    rpc.register("get_result_at", lambda name, kw, pos: wire_window(d.get_result_at(kw, float(pos))), arity=3)
+    rpc.register(
+        "get_all_bursted_results",
+        lambda name: {k: wire_window(w) for k, w in d.get_all_bursted_results().items()},
+        arity=1,
+    )
+    rpc.register(
+        "get_all_bursted_results_at",
+        lambda name, pos: {k: wire_window(w) for k, w in d.get_all_bursted_results_at(float(pos)).items()},
+        arity=2,
+    )
+    rpc.register(
+        "get_all_keywords",
+        lambda name: [[k["keyword"], k["scaling_param"], k["gamma"]] for k in d.get_all_keywords()],
+        arity=1,
+    )
+    rpc.register(
+        "add_keyword",
+        _updating(server, lambda name, kw: d.add_keyword(kw[0], float(kw[1]), float(kw[2]))),
+        arity=2,
+    )
+    rpc.register("remove_keyword", _updating(server, lambda name, kw: d.remove_keyword(kw)), arity=2)
+    rpc.register("remove_all_keywords", _updating(server, lambda name: d.remove_all_keywords()), arity=1)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+
+
+@_binder("clustering")
+def _bind_clustering(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+
+    def wd(pair):  # (weight, Datum) → wire weighted_datum
+        return [float(pair[0]), _wire_datum(pair[1])]
+
+    def wi(pair):  # (weight, id) → wire weighted_index
+        return [float(pair[0]), pair[1]]
+
+    rpc.register(
+        "push",
+        _updating(server, lambda name, points: d.push([(p[0], _datum(p[1])) for p in points])),
+        arity=2,
+    )
+    rpc.register("get_revision", lambda name: int(d.get_revision()), arity=1)
+    rpc.register("get_core_members", lambda name: [[wd(p) for p in c] for c in d.get_core_members()], arity=1)
+    rpc.register("get_core_members_light",
+                 lambda name: [[wi(p) for p in c] for c in d.get_core_members_light()], arity=1)
+    rpc.register("get_k_center", lambda name: [_wire_datum(c) for c in d.get_k_center()], arity=1)
+    rpc.register("get_nearest_center", lambda name, p: _wire_datum(d.get_nearest_center(_datum(p))), arity=2)
+    rpc.register("get_nearest_members", lambda name, p: [wd(x) for x in d.get_nearest_members(_datum(p))],
+                 arity=2)
+    rpc.register("get_nearest_members_light",
+                 lambda name, p: [wi(x) for x in d.get_nearest_members_light(_datum(p))], arity=2)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+
+
+@_binder("stat")
+def _bind_stat(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+    rpc.register("push", _updating(server, lambda name, key, val: d.push(key, float(val))), arity=3)
+    rpc.register("sum", lambda name, key: float(d.sum(key)), arity=2)
+    rpc.register("stddev", lambda name, key: float(d.stddev(key)), arity=2)
+    rpc.register("max", lambda name, key: float(d.max(key)), arity=2)
+    rpc.register("min", lambda name, key: float(d.min(key)), arity=2)
+    rpc.register("entropy", lambda name, key: float(d.entropy(key)), arity=2)
+    rpc.register("moment", lambda name, key, deg, center: float(d.moment(key, int(deg), float(center))),
+                 arity=4)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+
+
+@_binder("bandit")
+def _bind_bandit(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+    rpc.register("register_arm", _updating(server, lambda name, a: d.register_arm(a)), arity=2)
+    rpc.register("delete_arm", _updating(server, lambda name, a: d.delete_arm(a)), arity=2)
+    rpc.register("select_arm", _updating(server, lambda name, p: d.select_arm(p)), arity=2)
+    rpc.register("register_reward", _updating(server,
+                 lambda name, p, a, r: d.register_reward(p, a, float(r))), arity=4)
+    rpc.register(
+        "get_arm_info",
+        lambda name, p: {
+            arm: [int(info["trial_count"]), float(info["weight"])]
+            for arm, info in d.get_arm_info(p).items()
+        },
+        arity=2,
+    )
+    rpc.register("reset", _updating(server, lambda name, p: d.reset(p)), arity=2)
+    rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)
+
+
+@_binder("weight")
+def _bind_weight(rpc: RpcServer, server: Any) -> None:
+    d = server.driver
+    rpc.register(
+        "update",
+        lambda name, dat: [[k, float(v)] for k, v in _updating(server, lambda: d.update(_datum(dat)))()],
+        arity=2,
+    )
+    rpc.register(
+        "calc_weight",
+        lambda name, dat: [[k, float(v)] for k, v in d.calc_weight(_datum(dat))],
+        arity=2,
+    )
     rpc.register("clear", _updating(server, lambda name: (d.clear(), True)[1]), arity=1)

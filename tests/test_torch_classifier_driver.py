@@ -20,8 +20,6 @@ themselves move bit for bit.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import pytest
 import torch
@@ -32,6 +30,7 @@ from jubatus_tpu.parallel import LocalMixGroup
 from jubatus_tpu_torch import convert
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.models.classifier import ClassifierDriver
+from torch_parity import port_mix
 
 CFG = {
     "method": "AROW",
@@ -68,19 +67,6 @@ def trained_driver(dim_bits=12):
 
 def top_label(result):
     return max(result, key=lambda kv: kv[1])[0]
-
-
-def port_mix(drivers):
-    """One mix round as the JAX package's LocalMixGroup runs it: schema
-    union, then every mixable's diffs folded and put back."""
-    union = sorted(set().union(*(d.get_schema() for d in drivers)))
-    for d in drivers:
-        d.sync_schema(union)
-    for name in drivers[0].get_mixables():
-        ms = [d.get_mixables()[name] for d in drivers]
-        total = functools.reduce(type(ms[0]).mix, [m.get_diff() for m in ms])
-        for m in ms:
-            m.put_diff(total)
 
 
 def assert_scores_close(got, want):

@@ -86,8 +86,17 @@ def test_factory_routes_nn_methods():
                            device="cpu")
     assert not isinstance(linear, ClassifierNNDriver)
     assert linear.method == "AROW"
+    # every engine maps to a driver now; a feature not yet ported inside
+    # one (a converter plugin) raises NotYetPorted
+    assert create_driver("clustering", {"method": "kmeans", "converter": CONV},
+                         device="cpu").TYPE == "clustering"
+    plugin = {"string_types": {"p": {"method": "dynamic", "path": "libp.so",
+                                     "function": "create"}},
+              "string_rules": [{"key": "*", "type": "p",
+                                "sample_weight": "bin",
+                                "global_weight": "bin"}]}
     with pytest.raises(NotYetPorted):
-        create_driver("clustering", {"method": "kmeans", "converter": CONV},
+        create_driver("classifier", _conf("cosine") | {"converter": plugin},
                       device="cpu")
 
 

@@ -49,6 +49,13 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.models.classifier",
     "jubatus_tpu_torch.models.regression",
     "jubatus_tpu_torch.server.microbatch",
+    "jubatus_tpu_torch.ops.clustering",
+    "jubatus_tpu_torch.models.clustering",
+    "jubatus_tpu_torch.models.graph",
+    "jubatus_tpu_torch.models.stat",
+    "jubatus_tpu_torch.models.bandit",
+    "jubatus_tpu_torch.models.burst",
+    "jubatus_tpu_torch.models.weight",
 )
 
 
@@ -115,6 +122,12 @@ def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
     ("classifier", {"method": "cosine"}),
     ("classifier", {"method": "AROW"}),
     ("regression", {"method": "PA1"}),
+    ("clustering", {"method": "kmeans"}),
+    ("graph", {"method": "graph_wo_index"}),
+    ("stat", {"window_size": 8}),
+    ("bandit", {"method": "ucb1"}),
+    ("burst", {"parameter": {}}),
+    ("weight", {}),
 ])
 def test_new_engines_without_device_raise_without_cuda(no_cuda, engine, conf):
     from jubatus_tpu_torch.server import EngineServer

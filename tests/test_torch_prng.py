@@ -1,13 +1,19 @@
 """The port's threefry draws (jubatus_tpu_torch/ops/prng.py) against jax.random.
 
-Tolerances: threefry keys and bits, and uniforms, are bit-exact. Normals
-(sqrt(2)·erfinv(u), XLA's float32 erfinv polynomial with the log taken in
-float64) are within NORMAL_ULP units in the last place of JAX's.
+Tolerances: threefry keys, split keys and bits, and uniforms, are
+bit-exact. Normals (sqrt(2)·erfinv(u), XLA's float32 erfinv polynomial with
+the log taken in float64) are within NORMAL_ULP units in the last place of
+JAX's. Gumbel draws (-log(-log(u)), each log taken in float64 and rounded
+once, where XLA's float32 log is its own approximation) are within
+GUMBEL_ULP units in the last place of max(|g|, 1): a value near 0 inherits
+the inner log's absolute error. categorical (argmax of gumbel + logits)
+picks the same index as jax.random.categorical.
 """
 
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +21,8 @@ import torch
 from jubatus_tpu_torch.ops import prng
 
 NORMAL_ULP = 4
+GUMBEL_ULP = 4
+CATEGORICAL_SEEDS = 600
 CASES = [(0, 0x1A5B), (7, 0x3C7D), (12345, 0x5E9F), (-1, 3), (2**31 - 1, 0)]
 
 
@@ -143,3 +151,75 @@ def test_erfinv_within_ulp_bound(rng):
 def test_prng_key_rejects_seed_outside_int32():
     with pytest.raises(OverflowError):
         prng.PRNGKey(1 << 31)
+
+
+def _sub_keys(seed):
+    """``key, sub = jax.random.split(PRNGKey(seed))`` in both packages."""
+    jkey, jsub = jax.random.split(jax.random.PRNGKey(seed))
+    k1, k2 = prng.split(prng.PRNGKey(seed))
+    return jsub, (k1[1], k2[1]), (k1[0], k2[0]), jkey
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 12345, -1, 2**31 - 1])
+@pytest.mark.parametrize("num", [2, 3, 8])
+def test_split_bit_exact(seed, num):
+    want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    k1, k2 = prng.split(prng.PRNGKey(seed), num)
+    np.testing.assert_array_equal(np.stack([k1.numpy(), k2.numpy()], -1),
+                                  want.astype(np.int64))
+    # a chain of splits, as k-means++ seeding takes it
+    jkey, tkey = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    for _ in range(5):
+        jkey, _ = jax.random.split(jkey)
+        a, b = prng.split(tkey)
+        tkey = (a[0], b[0])
+    assert [int(tkey[0]), int(tkey[1])] == np.asarray(jkey).tolist()
+
+
+def test_uniform_on_tiny_to_one_bit_exact():
+    """The Gumbel draw's uniform, on [finfo(float32).tiny, 1)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    for seed in range(50):
+        jsub, tsub, _, _ = _sub_keys(seed)
+        want = np.asarray(jax.random.uniform(jsub, (257,), minval=tiny,
+                                             maxval=1.0))
+        got = prng.uniform(tsub, 257, tiny, 1.0).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def _gumbel_gap(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| in units of the spacing of float32 at max(|want|, 1)."""
+    scale = np.spacing(np.maximum(np.abs(want), 1.0).astype(np.float32))
+    return np.abs(got.astype(np.float64) - want) / scale.astype(np.float64)
+
+
+@pytest.mark.parametrize("n", [1, 257, 4096])
+def test_gumbel_within_ulp_bound(n):
+    worst = 0.0
+    for seed in range(40):
+        jsub, tsub, _, _ = _sub_keys(seed)
+        want = np.asarray(jax.random.gumbel(jsub, (n,)))
+        got = prng.gumbel(tsub, n).numpy()
+        assert np.isfinite(got).all()
+        worst = max(worst, float(_gumbel_gap(got, want).max()))
+    assert worst <= GUMBEL_ULP
+
+
+@pytest.mark.parametrize("n,spread", [(2, 1.0), (37, 3.0), (1000, 10.0)])
+def test_categorical_picks_equal(n, spread):
+    """CATEGORICAL_SEEDS seeds, each with its own logits; and logits as
+    k-means++ seeding makes them (log of distance-weighted probabilities,
+    some at the 1e-30 floor)."""
+    rng = np.random.default_rng(n)
+    for seed in range(CATEGORICAL_SEEDS):
+        jsub, tsub, _, _ = _sub_keys(seed)
+        logits = (rng.normal(size=n) * spread).astype(np.float32)
+        if seed % 3 == 0:
+            probs = rng.exponential(size=n).astype(np.float32)
+            probs[rng.random(n) < 0.2] = 0.0
+            logits = np.log(np.maximum(probs, 1e-30)).astype(np.float32)
+        want = int(jax.random.categorical(jsub, jnp.asarray(logits)))
+        got = prng.categorical(tsub, torch.from_numpy(logits))
+        assert got.dtype == torch.int64 and got.dim() == 0
+        assert int(got) == want, seed
