@@ -90,9 +90,28 @@ each of which fails the run (non-zero exit, no result line) on error:
    graph, stat, bandit, burst and weight servers on the card (each on its
    shipped ``default.json``, all six started at once), each call's answer
    equal to a CPU twin's (the port's server in this process on the CPU),
-   p50/p99 per method.
+   p50/p99 per method;
+11. save/load and the RPC linear mix: twelve servers (the eleven engines
+   on a shipped config, the classifier as arow.json and nn.json) with
+   ``-d``, all started at once, take a session of updates over RPC and
+   ``save``; a second server of each, started with ``-m`` on the file,
+   answers every query as the saver did (exactly, or within the
+   tolerance of tests/test_torch_save_load.py); ``save_model`` /
+   ``load_model`` of the AROW driver at phase 8's shape (D = 2^20 and
+   2^24), split into readback, msgpack, CRC, write and fsync, then read,
+   CRC check, unpack and upload, the loaded tables equal to the saved;
+   one mix round of two AROW drivers at the same shapes through the
+   mixer's wire path in this process (the round's phases, each member's
+   snapshot stall, pack, unpack and apply stall), both replicas equal to
+   the CPU fold of their diffs; then fleets of two server processes on
+   ``-z file://<dir> --mixer linear_mixer`` (arow.json, regression's
+   default.json, nearest_neighbor lsh.json), each member trained on half
+   the rows and ``do_mix``: both replicas' saved models equal, and equal
+   to two CPU port servers mixing the same halves (within LINEAR_TOL;
+   lsh rows exactly), with the round's split from the master's flight
+   recorder and the members' gauges and spans.
 
-Phases 3-7, 8, 9 and 10 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8, 9, 10 and 11 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -601,15 +620,17 @@ def server_datum(rng, Datum, i: int):
     return d
 
 
-def start_server(engine: str, config_path: str, tag: str = ""):
-    """Start ``python -m jubatus_tpu_torch.server <engine> -f <config>`` on
-    the card; returns (process, port, log path) without waiting for it."""
+def start_server(engine: str, config_path: str, tag: str = "",
+                 extra=()):
+    """Start ``python -m jubatus_tpu_torch.server <engine> -f <config>``
+    (and the flags in ``extra``) on the card; returns (process, port, log
+    path) without waiting for it."""
     port = free_port()
     os.makedirs(OUT_DIR, exist_ok=True)
     log_path = os.path.join(OUT_DIR, f"chip_smoke_server_{engine}{tag}.log")
     cmd = [sys.executable, "-m", "jubatus_tpu_torch.server", engine,
            "-f", config_path, "-p", str(port), "-b", "127.0.0.1", "-c", "4",
-           "--device", "cuda"]
+           "--device", "cuda", *extra]
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=logf,
                                 stderr=subprocess.STDOUT)
@@ -2166,6 +2187,560 @@ def phase_new_servers(Datum, EngineServer, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: save/load through the servers, and the RPC linear mix round
+# ---------------------------------------------------------------------------
+#: the servers saved and reloaded: each engine on a shipped config, with the
+#: tolerance its CPU test (tests/test_torch_save_load.py) states for a
+#: loaded server's answers against the saver's (relative, 1e-6 absolute;
+#: 0 = equal). Stat's windows are saved oldest-first: a loaded window sums
+#: in another order than the saver's ring
+SL_SERVERS = (
+    ("nearest_neighbor", "lsh.json", 0.0),
+    ("recommender", "default.json", 1e-5),
+    ("anomaly", "lof.json", 1e-4),
+    ("classifier", "arow.json", 1e-5),
+    ("classifier", "nn.json", 1e-5),
+    ("regression", "default.json", 1e-5),
+    ("clustering", "default.json", 1e-5),
+    ("graph", "default.json", 1e-5),
+    ("stat", "default.json", 1e-12),
+    ("bandit", "default.json", 0.0),
+    ("burst", "default.json", 0.0),
+    ("weight", "default.json", 0.0),
+)
+SL_ROWS = 2_000               # rows written to each row / linear server
+SL_LOF_ROWS = 200             # anomaly adds (each rebuilds the support)
+SL_QUERIES = 20
+#: methods that change a model; every other call of a session is a query
+UPDATES = frozenset((
+    "set_row", "update_row", "clear_row", "add", "update", "overwrite",
+    "train", "push", "create_node", "remove_node", "update_node",
+    "create_edge", "update_edge", "remove_edge", "add_centrality_query",
+    "add_shortest_path_query", "remove_centrality_query",
+    "remove_shortest_path_query", "update_index", "create_node_here",
+    "remove_global_node", "create_edge_here", "register_arm", "delete_arm",
+    "select_arm", "register_reward", "reset", "add_documents",
+    "add_keyword", "remove_keyword", "remove_all_keywords", "clear"))
+#: the fleets of two servers: (engine, config), FLEET_ROWS rows split
+#: between the two members
+FLEET_CONFIGS = (("classifier", "arow.json"),
+                 ("regression", "default.json"),
+                 ("nearest_neighbor", "lsh.json"))
+FLEET_ROWS = 4_000
+
+
+def sl_session(engine: str, config_name: str, rng, Datum):
+    """(updates, queries) of one saved server: (method, args) lists."""
+    if engine in NEW_ENGINES:
+        calls = rpc_session(engine, rng, Datum)
+    elif engine in ("nearest_neighbor", "recommender"):
+        write = "set_row" if engine == "nearest_neighbor" else "update_row"
+        near = ("neighbor_row_from_datum" if engine == "nearest_neighbor"
+                else "similar_row_from_datum")
+        calls = [(write, (f"r{i}", server_datum(rng, Datum, i)))
+                 for i in range(SL_ROWS)]
+        calls += [(near, (server_datum(rng, Datum, SL_ROWS + i), 10))
+                  for i in range(SL_QUERIES)]
+        calls += [("similar_row_from_id", (f"r{i}", 10)) for i in range(5)]
+    elif engine == "anomaly":
+        calls = [("add", (server_datum(rng, Datum, i),))
+                 for i in range(SL_LOF_ROWS)]
+        calls += [("calc_score", (server_datum(rng, Datum, SL_ROWS + i),))
+                  for i in range(SL_QUERIES)]
+    else:
+        n = SL_ROWS // 4 if config_name == "nn.json" else SL_ROWS
+        rows = [linear_example(rng, Datum, engine, i) for i in range(n)]
+        calls = [("train", (rows[lo:lo + LINEAR_BATCH],))
+                 for lo in range(0, n, LINEAR_BATCH)]
+        query = "classify" if engine == "classifier" else "estimate"
+        calls += [(query, ([server_datum(rng, Datum, n + i)],))
+                  for i in range(SL_QUERIES)]
+        if engine == "classifier":
+            calls.append(("get_labels", ()))
+    return ([c for c in calls if c[0] in UPDATES],
+            [c for c in calls if c[0] not in UPDATES])
+
+
+def answer(cli, method: str, args):
+    """("ok", result), or ("error", message) where the call fails (graph's
+    session reads a node it removed)."""
+    try:
+        return "ok", cli.call(method, "smoke", *args)
+    except Exception as e:  # broad-ok — the failure is the answer
+        return "error", str(e)
+
+
+def model_answer_same(got, want, rtol: float) -> bool:
+    """Equal, floats within ``rtol`` (relative, 1e-6 absolute). A list of
+    [id, score] pairs whose ids come in another order is compared by its
+    scores, and by the ids whose score is clear of the last one (a loaded
+    row store may break a tie at the boundary otherwise)."""
+    def tol(w):
+        return rtol * abs(w) + (1e-6 if rtol else 0.0)
+
+    def scored(x):
+        return isinstance(x, (list, tuple)) and len(x) == 2 and \
+            isinstance(x[1], float) and isinstance(x[0], str)
+
+    if isinstance(want, float):
+        return isinstance(got, (int, float)) and abs(got - want) <= tol(want)
+    if isinstance(want, dict):
+        return isinstance(got, dict) and got.keys() == want.keys() and all(
+            model_answer_same(got[k], want[k], rtol) for k in want)
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return False
+        if want and all(map(scored, want)) and all(map(scored, got)) and \
+                [g[0] for g in got] != [w[0] for w in want]:
+            gs, ws = sorted(g[1] for g in got), sorted(w[1] for w in want)
+            if not all(abs(g - w) <= tol(w) for g, w in zip(gs, ws)):
+                return False
+            edge = want[-1][1]
+            return {g[0] for g in got if abs(g[1] - edge) > tol(edge)} == \
+                {w[0] for w in want if abs(w[1] - edge) > tol(edge)}
+        return all(model_answer_same(g, w, rtol) for g, w in zip(got, want))
+    return got == want
+
+
+def add_launches(total: dict, st: dict) -> None:
+    for m, n in server_launches(st).items():
+        total[m] += n
+
+
+def phase_save_load_servers(Datum, seed: int) -> dict:
+    """Each server of SL_SERVERS on the card with ``-d``, all started at
+    once: its session's updates over RPC, then ``save``; the answers to
+    its queries. Then a second server of each, all at once, started with
+    ``-m`` on the saved file: every answer equal to the saver's (within
+    the engine's tolerance)."""
+    import shutil
+
+    datadir = os.path.join(OUT_DIR, "models")
+    shutil.rmtree(datadir, ignore_errors=True)
+    os.makedirs(datadir)
+    cfg = {f"{e}/{n}": os.path.join(ROOT, "config", e, n)
+           for e, n, _ in SL_SERVERS}
+    launches = {m: 0 for m in RECORDED}
+    saved, out = {}, {}
+    started = {key: start_server(key.split("/")[0], path,
+                                 tag=f"_save_{key.replace('/', '_')}",
+                                 extra=("-d", datadir))
+               for key, path in cfg.items()}
+    try:
+        for engine, name, rtol in SL_SERVERS:
+            key = f"{engine}/{name}"
+            updates, queries = sl_session(engine, name,
+                                          np.random.default_rng(seed + 111),
+                                          Datum)
+            with serving(engine, "", started.pop(key)) as cli:
+                t0 = time.perf_counter()
+                for method, args in updates:
+                    cli.call(method, "smoke", *args)
+                update_s = time.perf_counter() - t0
+                reply, save_ms = timed(cli.call, "save", "smoke", "smoke")
+                (path,) = reply.values()
+                want = [answer(cli, m, a) for m, a in queries]
+                st = server_status(cli)
+            check(st["last_saved"] > 0, f"{key}: last_saved not set")
+            add_launches(launches, st)
+            saved[key] = dict(path=path, want=want, queries=queries,
+                              rtol=rtol, updates=len(updates),
+                              update_s=update_s, save_ms=save_ms)
+    finally:
+        for proc, _, _ in started.values():
+            stop_server(proc)
+    started = {key: start_server(key.split("/")[0], cfg[key],
+                                 tag=f"_load_{key.replace('/', '_')}",
+                                 extra=("-m", s["path"]))
+               for key, s in saved.items()}
+    try:
+        for engine, name, rtol in SL_SERVERS:
+            key, s = f"{engine}/{name}", saved[f"{engine}/{name}"]
+            with serving(engine, "", started.pop(key)) as cli:
+                st = server_status(cli)
+                check(st["last_loaded"] > 0, f"{key}: -m loaded nothing")
+                for (method, args), want in zip(s["queries"], s["want"]):
+                    got = answer(cli, method, args)
+                    check(model_answer_same(got, want, rtol),
+                          f"{key} loaded with -m, {method}: {str(got)[:200]}"
+                          f" != the saver's {str(want)[:200]}")
+                st = server_status(cli)
+            add_launches(launches, st)
+            out[key] = dict(updates=s["updates"], update_s=s["update_s"],
+                            queries=len(s["queries"]), rtol=rtol,
+                            file_bytes=os.path.getsize(s["path"]),
+                            save_ms=s["save_ms"])
+    finally:
+        for proc, _, _ in started.values():
+            stop_server(proc)
+    return dict(servers=out, server_launches=launches)
+
+
+def phase_save_load_width(torch, ClassifierDriver, dim_bits: int,
+                          seed: int) -> dict:
+    """save_model / load_model of the AROW driver at phase 8's shape (two
+    train_hashed steps of B = CLF_B), split into its steps: readback
+    (``pack()``), pack (msgpack), CRC (the envelope), write, fsync; then
+    read, CRC check, unpack, upload. The loaded tables equal the saved
+    model's; then the two whole calls timed."""
+    from jubatus_tpu_torch.framework import save_load as SL
+    from jubatus_tpu_torch.utils.serialization import pack_obj, unpack_obj
+
+    drv = ClassifierDriver(CLF_CONFIG, dim_bits=dim_bits, device="cuda")
+    rng = np.random.default_rng(seed + 200 + dim_bits)
+    names = np.array(["neg", "pos"])
+    for _ in range(2):
+        idx, val, lab = bench_batch(rng, dim_bits)
+        drv.train_hashed(list(names[lab]), idx, val)
+    torch.cuda.synchronize()
+    config = json.dumps(CLF_CONFIG)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"arow_{dim_bits}.jubatus")
+    split = {}
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        split[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    packed = step("readback_ms", drv.pack)
+    system = {"version": SL.FORMAT_VERSION, "timestamp": int(time.time()),
+              "type": drv.TYPE, "id": "smoke", "config": config}
+    sys_b, user_b = step("pack_ms", lambda: (
+        pack_obj(system), pack_obj([drv.USER_DATA_VERSION, packed])))
+    blob = step("crc_ms", SL.pack_envelope, sys_b, user_b)
+    del packed, sys_b, user_b
+    f = open(path + ".tmp", "wb")
+    step("write_ms", lambda: (f.write(blob), f.flush()))
+    step("fsync_ms", os.fsync, f.fileno())
+    f.close()
+    os.replace(path + ".tmp", path)
+    file_bytes = os.path.getsize(path)
+    check(file_bytes == len(blob), "file size != envelope size")
+    del blob
+    fresh = ClassifierDriver(CLF_CONFIG, dim_bits=dim_bits, device="cuda")
+    raw = step("read_ms", lambda: open(path, "rb").read())
+    sys_b, user_b = step("crc_check_ms", SL.read_envelope, raw, path)
+    del raw
+    _, user = step("unpack_ms", unpack_obj, user_b)
+    del user_b
+    step("upload_ms", lambda: (fresh.unpack(user), torch.cuda.synchronize()))
+    del user
+    want_w = drv.state.w + drv.state.dw
+    want_prec = drv.state.prec + drv.state.dprec
+    check(torch.equal(fresh.state.w, want_w)
+          and torch.equal(fresh.state.prec, want_prec),
+          f"D=2^{dim_bits}: the loaded tables differ from the saved model")
+    del fresh
+    _, save_ms = timed(lambda: SL.save_model(path, drv, model_id="smoke",
+                                             config=config))
+    again = ClassifierDriver(CLF_CONFIG, dim_bits=dim_bits, device="cuda")
+    _, load_ms = timed(lambda: (SL.load_model(path, again,
+                                              expected_config=config),
+                                torch.cuda.synchronize()))
+    check(torch.equal(again.state.w, want_w), "load_model's tables differ")
+    os.remove(path)
+    return dict(dim_bits=dim_bits, capacity=drv.capacity,
+                file_bytes=file_bytes, split=split,
+                save=sum(split[k] for k in ("readback_ms", "pack_ms",
+                                            "crc_ms", "write_ms",
+                                            "fsync_ms")),
+                load=sum(split[k] for k in ("read_ms", "crc_check_ms",
+                                            "unpack_ms", "upload_ms")),
+                save_model_ms=save_ms, load_model_ms=load_ms)
+
+
+def local_mixers(drivers):
+    """An RpcLinearMixer per driver (each with its own registry) whose
+    fan-outs call the members' mix_* handlers in this process, payloads
+    packed as on the wire; a round is ``mixers[0].mix_now()``."""
+    from jubatus_tpu_torch.coord.base import NodeInfo
+    from jubatus_tpu_torch.framework.linear_mixer import (
+        LinearCommunication, RpcLinearMixer)
+    from jubatus_tpu_torch.utils.tracing import Registry
+
+    group = {}
+
+    class LocalComm(LinearCommunication):
+        def update_members(self):
+            return [NodeInfo.from_name(n) for n in group]
+
+        def try_lock(self):
+            return True
+
+        def unlock(self):
+            pass
+
+        def get_schemas(self):
+            return [m.local_get_schema() for m in group.values()]
+
+        def sync_schema(self, union):
+            for m in group.values():
+                m.local_sync_schema(union)
+
+        def get_diff(self):
+            return [(NodeInfo.from_name(n), m.local_get_diff())
+                    for n, m in group.items()]
+
+        def put_diff(self, packed):
+            return {n: m.local_put_diff(packed) for n, m in group.items()}
+
+    comm = LocalComm()
+    mixers = []
+    for i, d in enumerate(drivers):
+        node = NodeInfo("local", i)
+        m = RpcLinearMixer(d, comm, self_node=node)
+        m.set_trace_registry(Registry())
+        group[node.name] = m
+        mixers.append(m)
+    return mixers
+
+
+def member_split(registry) -> dict:
+    """A member's side of its last round: the lock-held snapshot (device
+    readback included), the diff's pack, the total's unpack and the
+    lock-held apply."""
+    g, h = registry.gauges(), registry.snapshot()["hists"]
+    return dict(snapshot_stall_ms=g.get("mix.snapshot_stall_ms"),
+                pack_ms=h["mix.diff.pack"]["last_s"] * 1e3,
+                total_unpack_ms=h["mix.total.unpack"]["last_s"] * 1e3,
+                apply_stall_ms=g.get("mix.apply_stall_ms"))
+
+
+def phase_mix_width(torch, ClassifierDriver, dim_bits: int, seed: int) -> dict:
+    """One mix round of two AROW drivers on the card at phase 8's shape
+    (one train_hashed step of B = CLF_B each), through the mixer's own
+    wire path in this process: the round's phases, each member's split,
+    the payload bytes. Both replicas must hold the same tables, equal to
+    the fold of their diffs on the CPU: w = (dw0 + dw1) / 2, prec = 1 +
+    dprec0 + dprec1."""
+    drivers = [ClassifierDriver(CLF_CONFIG, dim_bits=dim_bits, device="cuda")
+               for _ in range(2)]
+    rng = np.random.default_rng(seed + 300 + dim_bits)
+    names = np.array(["neg", "pos"])
+    for d in drivers:
+        idx, val, lab = bench_batch(rng, dim_bits)
+        d.train_hashed(list(names[lab]), idx, val)
+    # the round's schema phase aligns the label slots to the sorted union
+    # first; align them here so the fold below reads the same rows
+    for d in drivers:
+        d.sync_schema(["neg", "pos"])
+    torch.cuda.synchronize()
+    n = len(drivers[0].label_slots)
+    dw = [d.state.dw[:n].cpu() for d in drivers]
+    dprec = [d.state.dprec[:n].cpu() for d in drivers]
+    want_w = torch.from_numpy(dw[0].numpy() + dw[1].numpy()) / 2.0
+    want_prec = 1.0 + torch.from_numpy(dprec[0].numpy() + dprec[1].numpy())
+    del dw, dprec
+    mixers = local_mixers(drivers)
+    t0 = time.perf_counter()
+    result = mixers[0].mix_now()
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    check(result is not None and result["acked"] == 2, "the round failed")
+    for d in drivers:
+        check(torch.equal(d.state.w[:n].cpu(), want_w)
+              and torch.equal(d.state.prec[:n].cpu(), want_prec),
+              f"D=2^{dim_bits}: a replica differs from the CPU fold")
+    master = mixers[0].trace.snapshot()["hists"]
+    return dict(dim_bits=dim_bits, round_ms=round_ms,
+                phases=result["phases"], bytes_put=result["bytes"],
+                diff_unpack_ms=master["mix.diff.unpack"]["last_s"] * 1e3,
+                members=[member_split(m.trace) for m in mixers])
+
+
+def fleet_rows(rng, Datum, engine: str):
+    if engine == "nearest_neighbor":
+        return [("set_row", (f"r{i}", server_datum(rng, Datum, i)))
+                for i in range(FLEET_ROWS)]
+    rows = [linear_example(rng, Datum, engine, i) for i in range(FLEET_ROWS)]
+    return [("train", (rows[lo:lo + LINEAR_BATCH],))
+            for lo in range(0, FLEET_ROWS, LINEAR_BATCH)]
+
+
+def fleet_queries(rng, Datum, engine: str):
+    qs = [server_datum(rng, Datum, FLEET_ROWS + i) for i in range(SL_QUERIES)]
+    if engine == "nearest_neighbor":
+        return [("neighbor_row_from_datum", (q, 10)) for q in qs]
+    return [("classify" if engine == "classifier" else "estimate", ([q],))
+            for q in qs]
+
+
+def unpadded(pack: dict) -> dict:
+    """A classifier pack with its label list cut to the live labels (a
+    replica whose slots needed no realignment keeps its list unpadded)."""
+    if "labels" in pack:
+        pack = dict(pack, labels=[x for x in pack["labels"] if x])
+    return pack
+
+
+def saved_model(path: str):
+    """The user data of a model file (the driver's pack)."""
+    from jubatus_tpu_torch.framework.save_load import read_envelope
+    from jubatus_tpu_torch.utils.serialization import unpack_obj
+
+    with open(path, "rb") as f:
+        _, user = read_envelope(f.read(), path)
+    return unpadded(unpack_obj(user)[1])
+
+
+def model_close(got, want, tol: float, what: str) -> float:
+    """Every table of a pack within tol * max|want| + 1e-4 |want| of the
+    other's (equal where tol is 0); other leaves equal. Returns the
+    largest error over its limit."""
+    if isinstance(want, np.ndarray) and want.dtype.kind == "f":
+        g, w = np.asarray(got, np.float64), want.astype(np.float64)
+        check(g.shape == w.shape, f"{what}: shape {g.shape} != {w.shape}")
+        if not tol:
+            check(np.array_equal(g, w), f"{what}: differs")
+            return 0.0
+        limit = tol * float(np.abs(w).max(initial=0.0)) + 1e-4 * np.abs(w) \
+            + 1e-30
+        err = float((np.abs(g - w) / limit).max(initial=0.0))
+        check(err <= 1.0, f"{what}: off by {err} of its limit")
+        return err
+    if isinstance(want, dict):
+        check(got.keys() == want.keys(), f"{what}: keys differ")
+        return max([model_close(got[k], want[k], tol, f"{what}.{k}")
+                    for k in want] + [0.0])
+    if isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{what}: length differs")
+        return max([model_close(g, w, tol, f"{what}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))] + [0.0])
+    if isinstance(want, float) and tol:
+        check(abs(got - want) <= tol * abs(want) + 1e-6, f"{what}: differs")
+        return 0.0
+    check(got == want, f"{what}: {str(got)[:80]} != {str(want)[:80]}")
+    return 0.0
+
+
+def cpu_fleet(EngineServer, engine: str, name: str, halves) -> dict:
+    """Two port servers on the CPU in this process (one MemoryCoordinator)
+    fed the same halves and mixed: the reference pack."""
+    from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
+    from jubatus_tpu_torch.rpc.client import RpcClient
+    from jubatus_tpu_torch.server.args import ServerArgs
+
+    store = _Store()
+    servers = []
+    try:
+        for _ in range(2):
+            srv = EngineServer(engine, load_config(engine, name), ServerArgs(
+                engine=engine, coordinator="(memory)", name="fleet",
+                listen_addr="127.0.0.1", interval_sec=1e9,
+                interval_count=1 << 30), device="cpu",
+                coord=MemoryCoordinator(store))
+            srv.start(0)
+            servers.append(srv)
+        for srv, calls in zip(servers, halves):
+            with RpcClient("127.0.0.1", srv.rpc.port, timeout=120.0) as c:
+                for method, args in calls:
+                    c.call(method, "smoke", *args)
+        check(servers[0].do_mix() is True, "the CPU fleet did not mix")
+        return unpadded(servers[0].driver.pack())
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
+def phase_fleets(Datum, EngineServer, seed: int) -> dict:
+    """Two port servers on the card per FLEET_CONFIGS entry, each its own
+    process, sharing ``-z file://<dir>`` with ``--mixer linear_mixer``
+    (all six started at once): each trains half the rows, then ``do_mix``
+    on the first. Both replicas' saved models must be equal to each other
+    and to the same halves mixed by two CPU port servers (LINEAR_TOL for
+    the linear tables, rows equal for nearest_neighbor); the round's
+    split comes from the master's flight recorder and each member's
+    gauges and spans; queries after the round on both replicas agree."""
+    import shutil
+
+    from jubatus_tpu_torch.coord import membership
+    from jubatus_tpu_torch.coord.file import FileCoordinator
+
+    launches = {m: 0 for m in RECORDED}
+    out, started = {}, {}
+    for engine, name in FLEET_CONFIGS:
+        d = os.path.join(OUT_DIR, f"fleet_{engine}")
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        extra = ("-z", f"file://{d}", "-n", "fleet", "-x", "linear_mixer",
+                 "-s", "1e9", "-i", str(1 << 30), "-d", d)
+        started[engine] = (d, [start_server(
+            engine, os.path.join(ROOT, "config", engine, name),
+            tag=f"_fleet{i}", extra=extra) for i in range(2)])
+    try:
+        for engine, name in FLEET_CONFIGS:
+            d, procs = started.pop(engine)
+            rng = np.random.default_rng(seed + 131)
+            calls = fleet_rows(rng, Datum, engine)
+            halves = [calls[0::2], calls[1::2]]
+            queries = fleet_queries(rng, Datum, engine)
+            with contextlib.ExitStack() as stack:
+                clis = [stack.enter_context(serving(engine, "", p))
+                        for p in procs]
+                view = FileCoordinator(d)
+                deadline = time.time() + 60
+                while len(membership.get_all_actives(
+                        view, engine, "fleet")) < 2:
+                    check(time.time() < deadline, "fleet never formed")
+                    time.sleep(0.2)
+                view.close()
+                t0 = time.perf_counter()
+                for cli, half in zip(clis, halves):
+                    for method, args in half:
+                        cli.call(method, "smoke", *args)
+                train_s = time.perf_counter() - t0
+                ok, round_ms = timed(clis[0].call, "do_mix", "smoke")
+                check(ok is True, f"{engine} fleet: do_mix returned {ok}")
+                rec = clis[0].call("get_mix_history", "smoke")[-1]
+                check(rec["ok"] and rec["members"] == 2
+                      and rec["acked"] == 2, f"{engine} round: {rec}")
+                answers = [[answer(c, m, a) for m, a in queries]
+                           for c in clis]
+                for a, b, (m, _) in zip(*answers, queries):
+                    check(model_answer_same(a, b, 1e-6),
+                          f"{engine} replicas answer {m} differently")
+                sts = [server_status(c) for c in clis]
+                paths = [next(iter(c.call("save", "smoke", "mixed")
+                                   .values())) for c in clis]
+            for st in sts:
+                add_launches(launches, st)
+                check(st["mixer.model_version"] == 1,
+                      f"{engine}: a member at model version "
+                      f"{st['mixer.model_version']}")
+            models = [saved_model(p) for p in paths]
+            model_close(models[1], models[0], 0.0, f"{engine} replicas")
+            tol = 0.0 if engine == "nearest_neighbor" else LINEAR_TOL
+            err = model_close(models[0], cpu_fleet(EngineServer, engine,
+                                                   name, halves),
+                              tol, f"{engine} card vs CPU fleet")
+            phases = rec["phases"]
+            members = [dict(snapshot_stall_ms=st.get("mix.snapshot_stall_ms"),
+                            pack_ms=st.get("trace.mix.diff.pack.last_ms"),
+                            apply_stall_ms=st.get("mix.apply_stall_ms"),
+                            total_unpack_ms=st.get(
+                                "trace.mix.total.unpack.last_ms"))
+                       for st in sts]
+            member_ms = max(m["snapshot_stall_ms"] + m["pack_ms"]
+                            for m in members)
+            out[engine] = dict(
+                config=f"config/{engine}/{name}", rows=FLEET_ROWS,
+                train_s=train_s, do_mix_ms=round_ms, phases=phases,
+                diff_unpack_ms=sts[0].get("trace.mix.diff.unpack.last_ms"),
+                rpc_ms=phases["get_diff_ms"] - member_ms
+                - sts[0].get("trace.mix.diff.unpack.last_ms", 0.0),
+                bytes_put=rec["bytes"], members=members,
+                cpu_fleet=dict(tol=tol, err_over_limit=err),
+                launches=[server_launches(st) for st in sts])
+    finally:
+        for _, procs in started.values():
+            for proc, _, _ in procs:
+                stop_server(proc)
+    return dict(fleets=out, server_launches=launches)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2327,6 +2902,25 @@ def main(argv=None) -> int:
                     total[m] += r["launches"][m]
             return {"server_launches": total}
 
+        def save_load_mix_path():
+            res = phase_save_load_servers(Datum, args.seed)
+            for key, r in res["servers"].items():
+                log(f"[save_load] {key} {json.dumps(r)} | {kind} | {smi}")
+            total = dict(res["server_launches"])
+            for dim_bits in CLF_DIM_BITS:
+                r = phase_save_load_width(torch, ClassifierDriver, dim_bits,
+                                          args.seed)
+                log(f"[save_load_width] {json.dumps(r)} | {kind} | {smi}")
+                r = phase_mix_width(torch, ClassifierDriver, dim_bits,
+                                    args.seed)
+                log(f"[mix_width] {json.dumps(r)} | {kind} | {smi}")
+            res = phase_fleets(Datum, EngineServer, args.seed)
+            for engine, r in res["fleets"].items():
+                log(f"[fleet] {engine} {json.dumps(r)} | {kind} | {smi}")
+            for m in RECORDED:
+                total[m] += res["server_launches"][m]
+            return {"server_launches": total}
+
         lof_shapes = {}
         run_path("nearest_neighbor", nn_path)
         run_path("nearest_neighbor_server", nn_server_path)
@@ -2336,6 +2930,7 @@ def main(argv=None) -> int:
         run_path("classifier", classifier_path)
         run_path("linear_servers", linear_servers_path)
         run_path("clustering_graph", clustering_graph_path)
+        run_path("save_load_mix", save_load_mix_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         launches = {m: sum(p[m] for p in paths.values()) for m in COUNTED}
         for mode, n in launches.items():
@@ -2346,6 +2941,9 @@ def main(argv=None) -> int:
                       f"sig_scan.{mode} never launched on the {path} path")
         check(paths["linear_servers"]["pa_scan"] > 0,
               "online_scan.pa never launched on the linear servers path")
+        for mode in ("hamming", "pa_scan"):
+            check(paths["save_load_mix"][mode] > 0,
+                  f"{mode} never launched on the save/load and mix path")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

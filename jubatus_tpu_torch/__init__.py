@@ -25,6 +25,7 @@ raise when CUDA is absent and the CPU was not asked for.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -54,3 +55,13 @@ def synchronize(device: torch.device) -> None:
     CPU), so that a host timer around it reads the device's time too."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` the current CUDA device for the block (a no-op on
+    the CPU). Threads that call into a driver from outside the thread that
+    built it (RPC workers, the mixer) enter it, so kernels launch on the
+    driver's card whatever the thread's current device is."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -40,6 +40,9 @@ def locked(fn):
 class DriverBase:
     #: engine type name, e.g. "nearest_neighbor"
     TYPE: str = "base"
+    #: version of ``pack()``'s layout, checked on load
+    #: (framework/save_load.py); the JAX package's drivers write 1 too
+    USER_DATA_VERSION: int = 1
 
     def __init__(self) -> None:
         self.update_count = 0

@@ -2,23 +2,36 @@
 
 One connection, one call at a time under a lock, responses matched by msgid
 (a stale response to a timed-out call is dropped). No retries, trace
-context, deadlines or principals. One client class per engine
+context, deadlines or principals. ``RpcMClient`` fans one call out to N
+hosts in parallel, as the mix plane's master does. One client class per
+engine
 (``NearestNeighborClient``, ``RecommenderClient``, ``AnomalyClient``,
 ``ClassifierClient``, ``RegressionClient``, ``ClusteringClient``,
 ``GraphClient``, ``StatClient``, ``BanditClient``, ``BurstClient``,
-``WeightClient``) wraps its engine's methods with the cluster name every
-jubatus call carries first.
+``WeightClient``) wraps its engine's methods, and the built-ins get_config,
+get_status, save, load and do_mix, with the cluster name every jubatus
+call carries first.
 """
 
 from __future__ import annotations
 
 import socket
 import threading
-from typing import Any, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, List, Optional, Sequence, Tuple
 
 import msgpack
 
-from jubatus_tpu_torch.rpc.errors import RpcIoError, RpcTimeoutError, wire_to_error
+from jubatus_tpu_torch.rpc.breaker import BreakerBoard
+from jubatus_tpu_torch.rpc.errors import (
+    BreakerOpen,
+    HostError,
+    RpcIoError,
+    RpcNoClient,
+    RpcTimeoutError,
+    is_retryable,
+    wire_to_error,
+)
 from jubatus_tpu_torch.rpc.server import REQUEST, RESPONSE, _to_wire
 
 
@@ -99,12 +112,100 @@ class RpcClient:
             unpacker.feed(data)
 
 
+class RpcMClient:
+    """Parallel fan-out (copy of the JAX package's ``RpcMClient``, without
+    the reducer fold, trace context, deadlines and principals;
+    ≙ rpc_mclient).
+
+    Keeps one persistent connection per host across calls (the reference's
+    session_pool) — call ``close()`` when done, or use as a context manager.
+    ``set_hosts`` reshapes the pool on membership change without dropping
+    still-valid sessions. An optional ``breakers`` board short-circuits
+    hosts whose circuit is open (their slot in the fan-out becomes an
+    instant ``BreakerOpen`` host error) and re-admits them via half-open
+    probes.
+    """
+
+    def __init__(
+        self, hosts: Sequence[Tuple[str, int]], timeout: float = 10.0,
+        breakers: Optional[BreakerBoard] = None,
+    ) -> None:
+        self.timeout = timeout
+        self.breakers = breakers
+        self._pool: dict = {}
+        self.hosts: List[Tuple[str, int]] = []
+        self._executor = ThreadPoolExecutor(
+            max_workers=64, thread_name_prefix="rpc-fanout"
+        )
+        self.set_hosts(hosts)
+
+    def set_hosts(self, hosts: Sequence[Tuple[str, int]]) -> None:
+        if not hosts:
+            raise RpcNoClient("empty host list")
+        hosts = [tuple(h) for h in hosts]
+        for hp in list(self._pool):
+            if hp not in hosts:
+                self._pool.pop(hp).close()
+        self.hosts = list(hosts)
+
+    def close(self) -> None:
+        for c in self._pool.values():
+            c.close()
+        self._pool.clear()
+        self._executor.shutdown(wait=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _client(self, hp: Tuple[str, int]) -> RpcClient:
+        c = self._pool.get(hp)
+        if c is None:
+            c = self._pool[hp] = RpcClient(hp[0], hp[1], self.timeout)
+        return c
+
+    def _fan_out(self, method: str, args: Sequence[Any]):
+        results: List[Tuple[Tuple[str, int], Any]] = []
+        errors: List[HostError] = []
+        futs = {}
+        for hp in self.hosts:
+            if self.breakers is not None and not self.breakers.allow(hp):
+                # open circuit: instant failure, no timeout burned — the
+                # caller's skip/abort semantics see it like a dead host
+                errors.append(HostError(
+                    hp[0], hp[1], BreakerOpen(f"{hp[0]}:{hp[1]}")))
+                continue
+            futs[self._executor.submit(self._client(hp).call, method,
+                                       *args)] = hp
+        for fut, hp in futs.items():
+            try:
+                results.append((hp, fut.result()))
+                if self.breakers is not None:
+                    self.breakers.record(hp, True)
+            except Exception as e:  # broad-ok — per-host failure is data
+                errors.append(HostError(hp[0], hp[1], e))
+                if self.breakers is not None:
+                    # only transport failures count against the breaker:
+                    # an application error proves the backend is alive
+                    self.breakers.record(hp, not is_retryable(e))
+        return results, errors
+
+    def call_collect(self, method: str, *args: Any):
+        """Raw per-host results + errors (≙ rpc_result_object)."""
+        return self._fan_out(method, args)
+
+
 class _ServiceClient:
-    """One engine's service methods (``METHODS``) plus the get_config /
-    get_status built-ins, each call prefixed with the cluster ``name``."""
+    """One engine's service methods (``METHODS``) plus the built-ins, each
+    call prefixed with the cluster ``name``: ``get_config()``,
+    ``get_status()`` (one map per node), ``save(model_id)`` (node → path),
+    ``load(model_id)`` (True) and ``do_mix()`` (True when a round ran),
+    with the JAX client's wire shapes."""
 
     METHODS: tuple = ()
-    BUILTINS = ("get_config", "get_status")
+    BUILTINS = ("get_config", "get_status", "save", "load", "do_mix")
 
     def __init__(self, host: str, port: int, name: str,
                  timeout: float = 10.0) -> None:

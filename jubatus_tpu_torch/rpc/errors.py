@@ -2,7 +2,10 @@
 
 The on-wire integer codes of the msgpack-rpc C++ implementation for
 method-not-found (1) and argument errors (2), so reference clients see the
-errors they expect; any other failure travels as its message string.
+errors they expect; any other failure travels as its message string. The
+fan-out client (``RpcMClient``) reports each host's failure as a
+``HostError``; ``is_retryable`` tells transport failures, which count
+against a host's circuit breaker, from application errors.
 """
 
 from __future__ import annotations
@@ -15,7 +18,11 @@ ARGUMENT_ERROR = 2
 
 
 class RpcError(RuntimeError):
-    """Base of all RPC failures."""
+    """Base of all RPC failures. ``retryable``: True when the failure is
+    a transport-level loss where the server may never have seen (or
+    finished) the request."""
+
+    retryable = False
 
 
 class RpcMethodNotFound(RpcError):
@@ -35,9 +42,48 @@ class RpcCallError(RpcError):
 class RpcIoError(RpcError):
     """Connection failed / reset mid-call."""
 
+    retryable = True
+
 
 class RpcTimeoutError(RpcError):
     """Call exceeded the client timeout."""
+
+    retryable = True
+
+
+class BreakerOpen(RpcError):
+    """A circuit breaker refused the call without touching the backend
+    (rpc/breaker.py)."""
+
+    retryable = True
+
+    def __init__(self, target: str = "") -> None:
+        super().__init__(f"circuit breaker open for {target}")
+        self.target = target
+
+
+class RpcNoClient(RpcError):
+    """No host reachable for a fan-out call (≙ rpc_no_client)."""
+
+
+class HostError(RpcError):
+    """One host's failure inside a fan-out (≙ rpc_error{host, port, exc})."""
+
+    def __init__(self, host: str, port: int, cause: BaseException) -> None:
+        super().__init__(f"{host}:{port}: {cause}")
+        self.host = host
+        self.port = port
+        self.cause = cause
+
+
+def is_retryable(exc: BaseException) -> bool:
+    """Transport-level failure where a retry can succeed. Injected faults
+    (utils/faults.py) count: they stand in for the IO errors they model."""
+    if isinstance(exc, RpcError):
+        return exc.retryable
+    from jubatus_tpu_torch.utils import faults
+
+    return isinstance(exc, (faults.FaultInjected, OSError))
 
 
 def error_to_wire(exc: BaseException) -> Any:

@@ -1,15 +1,17 @@
 """Wire adapters: bind a driver onto the RpcServer (counterpart of
 ``jubatus_tpu/server/service.py``).
 
-Registers the built-ins get_config and get_status and the engine's IDL
-methods, each under its wire name, arity and wire shape, with the leading
-cluster-name parameter every jubatus call carries. Update methods run under
-the driver lock and bump the driver's update counter when the driver did
-not. The classifier's and regression's ``train`` go through the microbatch
-coalescer (``server/microbatch.py``). There is no coordinator yet, so the
-writes the JAX server replicates over its ring (anomaly's ``add``, graph's
-``create_node``) apply locally, as the JAX server does standalone; graph's
-internal RPCs (``create_node_here``, ``remove_global_node``,
+Registers the built-ins get_config, get_status, save, load and do_mix and
+the engine's IDL methods, each under its wire name, arity and wire shape,
+with the leading cluster-name parameter every jubatus call carries (the
+mixer registers its own ``mix_*`` RPCs). Update methods run under the
+driver lock and bump the driver's update counter when the driver did not.
+The classifier's and regression's ``train`` go through the microbatch
+coalescer (``server/microbatch.py``). The CHT replication of writes is not
+ported, so the writes the JAX server replicates over its ring in a fleet
+(anomaly's ``add``, graph's ``create_node``) apply locally, as the JAX
+server does standalone, and reach the other members through the mix;
+graph's internal RPCs (``create_node_here``, ``remove_global_node``,
 ``create_edge_here``) are registered all the same. Not carried over: the
 raw-wire train path (``_register_train_raw``), which needs the raw fast
 path of the RPC server.
@@ -55,7 +57,10 @@ def _binder(engine: str):
 def bind_engine(rpc: RpcServer, server: Any) -> None:
     """Register built-ins + the engine's IDL surface on the RPC server."""
     rpc.register("get_config", server.get_config, arity=1)
+    rpc.register("save", server.save, arity=2)
+    rpc.register("load", server.load, arity=2)
     rpc.register("get_status", server.get_status, arity=1)
+    rpc.register("do_mix", server.do_mix, arity=1)
     _BINDERS[server.engine](rpc, server)
 
 
@@ -158,8 +163,8 @@ def _bind_recommender(rpc: RpcServer, server: Any) -> None:
 
 @_binder("anomaly")
 def _bind_anomaly(rpc: RpcServer, server: Any) -> None:
-    """The standalone anomaly service: ``add`` is the driver's local add
-    (no coordinator, so no replicated write)."""
+    """The anomaly service: ``add`` is the driver's local add (the CHT
+    replication of the JAX server's fleet is not ported)."""
     d = server.driver
     rpc.register("clear_row", _updating(server, lambda name, rid: d.clear_row(rid)), arity=2)
     rpc.register("add", _updating(server, lambda name, row: list(d.add(_datum(row)))), arity=2)
@@ -200,8 +205,8 @@ def _bind_regression(rpc: RpcServer, server: Any) -> None:
 
 @_binder("graph")
 def _bind_graph(rpc: RpcServer, server: Any) -> None:
-    """The standalone graph service: ``create_node`` is the driver's local
-    create (no coordinator, so no replicated write)."""
+    """The graph service: ``create_node`` is the driver's local create
+    (the CHT replication of the JAX server's fleet is not ported)."""
     d = server.driver
 
     def edge_parts(e):

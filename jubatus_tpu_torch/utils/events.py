@@ -1,0 +1,144 @@
+"""Cluster event plane (copy of ``jubatus_tpu/utils/events.py``, without
+trace-id capture and the cross-node merge, which wait for the tracing
+plane).
+
+Subsystems that own a state transition — membership epoch bumps, mix
+rounds, breaker open/half-open/close, fault arms/fires — emit one typed
+event into a bounded per-process **EventJournal**. Events are stamped with
+a **hybrid logical clock** timestamp: one sortable int, ``wall_ms << 20 |
+counter``, strictly monotonic per process. The mix plane's put_diff
+payload carries the master's HLC and receivers ``observe()`` it, so a
+member's later events sort after the round that caused them.
+
+Each tracing ``Registry`` owns one journal (``registry.events``); a
+module-level default journal catches emissions from code with no registry
+in reach (membership epoch bumps, fault arms/fires).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Optional
+
+#: default journal depth
+DEFAULT_CAPACITY = 2048
+
+#: logical-counter bits in the packed HLC int
+_CTR_BITS = 20
+
+SEVERITIES = ("debug", "info", "warning", "error")
+
+
+class HLCClock:
+    """Hybrid logical clock: strictly monotonic per process, merges
+    remote timestamps so message receipt establishes happens-before
+    even when the wall clocks are skewed."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._last = 0
+
+    def now(self) -> int:
+        phys = int(time.time() * 1000) << _CTR_BITS  # wall-clock
+        with self._lock:
+            self._last = phys if phys > self._last else self._last + 1
+            return self._last
+
+    def observe(self, remote: int) -> int:
+        """Merge a remote HLC: every subsequent local ``now()`` sorts
+        after it. Returns the clock's current value."""
+        try:
+            remote = int(remote)
+        except (TypeError, ValueError):
+            remote = 0
+        with self._lock:
+            if remote > self._last:
+                self._last = remote
+            return self._last
+
+
+def hlc_wall_s(hlc: int) -> float:
+    """Wall-clock seconds encoded in an HLC timestamp."""
+    return (int(hlc) >> _CTR_BITS) / 1000.0
+
+
+_clock = HLCClock()
+
+
+def hlc_now() -> int:
+    """Next process-wide HLC tick (strictly monotonic)."""
+    return _clock.now()
+
+
+def observe(remote: int) -> int:
+    """Merge a remote node's HLC into the process clock."""
+    return _clock.observe(remote)
+
+
+class EventJournal:
+    """Bounded per-process ring of typed, HLC-stamped events."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY,
+                 counter: Optional[Any] = None) -> None:
+        self._lock = threading.Lock()
+        self.capacity = int(capacity)
+        self._ring: deque = deque(maxlen=max(1, self.capacity))
+        self._emitted = 0
+        #: owner's node name (set by the server once the port is known)
+        self.node = ""
+        #: optional ``count(name)`` callback (the owning Registry's)
+        self._counter = counter
+
+    def emit(self, subsystem: str, etype: str, severity: str = "info",
+             **fields: Any) -> Optional[Dict[str, Any]]:
+        """Record one event; returns the record (its ``hlc`` is the event
+        id the flight recorder cross-links) or None when disabled."""
+        if self.capacity <= 0:
+            return None
+        h = _clock.now()
+        rec: Dict[str, Any] = {
+            "hlc": h,
+            "ts": round(hlc_wall_s(h), 3),
+            "node": self.node,
+            "subsystem": str(subsystem),
+            "type": str(etype),
+            "severity": severity if severity in SEVERITIES else "info",
+        }
+        for k, v in fields.items():
+            if v is not None:
+                rec[k] = v
+        dropped = False
+        with self._lock:
+            self._emitted += 1
+            if len(self._ring) == self._ring.maxlen:
+                dropped = True
+            self._ring.append(rec)
+        if self._counter is not None:
+            self._counter("event.emitted")
+            if dropped:
+                self._counter("event.dropped")
+        return rec
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"emitted": self._emitted,
+                    "retained": len(self._ring),
+                    "capacity": self.capacity}
+
+
+
+_default = EventJournal()
+
+
+def default_journal() -> EventJournal:
+    """The process-scoped journal for emitters with no Registry in reach
+    (membership, faults)."""
+    return _default
+
+
+def emit(subsystem: str, etype: str, severity: str = "info",
+         **fields: Any) -> Optional[Dict[str, Any]]:
+    """Emit into the process default journal."""
+    return _default.emit(subsystem, etype, severity=severity, **fields)

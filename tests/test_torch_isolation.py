@@ -56,6 +56,25 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.models.bandit",
     "jubatus_tpu_torch.models.burst",
     "jubatus_tpu_torch.models.weight",
+    "jubatus_tpu_torch.utils.serialization",
+    "jubatus_tpu_torch.utils.events",
+    "jubatus_tpu_torch.utils.faults",
+    "jubatus_tpu_torch.utils.tracing",
+    "jubatus_tpu_torch.utils.tree",
+    "jubatus_tpu_torch.version",
+    "jubatus_tpu_torch.framework.save_load",
+    "jubatus_tpu_torch.framework.model_guard",
+    "jubatus_tpu_torch.framework.mixer",
+    "jubatus_tpu_torch.framework.linear_mixer",
+    "jubatus_tpu_torch.coord",
+    "jubatus_tpu_torch.coord.base",
+    "jubatus_tpu_torch.coord.memory",
+    "jubatus_tpu_torch.coord.file",
+    "jubatus_tpu_torch.coord.membership",
+    "jubatus_tpu_torch.coord.idgen",
+    "jubatus_tpu_torch.coord.cht",
+    "jubatus_tpu_torch.rpc.breaker",
+    "jubatus_tpu_torch.parallel.mix",
 )
 
 

@@ -545,7 +545,7 @@ def test_new_engines_bind_the_jax_wire_names_and_arities(engine):
     rpc = RpcServer()
     bind_engine(rpc, EngineServer(engine, _engine_conf(engine), device="cpu"))
     want = {m.name: 1 + len(m.args) for m in SERVICES[engine]}
-    want.update(get_config=1, get_status=1)
+    want.update(get_config=1, get_status=1, save=2, load=2, do_mix=1)
     assert dict(rpc._arity) == want
 
 
