@@ -109,9 +109,29 @@ each of which fails the run (non-zero exit, no result line) on error:
    the rows and ``do_mix``: both replicas' saved models equal, and equal
    to two CPU port servers mixing the same halves (within LINEAR_TOL;
    lsh rows exactly), with the round's split from the master's flight
-   recorder and the members' gauges and spans.
+   recorder and the members' gauges and spans;
+12. push and async mix, migration, the store and the snapshot ring, every
+   server its own process on ``-z file://<dir>``: three ``arow.json``
+   servers per push strategy (broadcast, random, skip; all nine started
+   at once) trained on thirds and one ``do_mix`` (each exchange's peer
+   get_diff and applies from the initiator's spans, every member's
+   stalls; broadcast and skip against three CPU port servers repeating
+   the round member by member); two with ``--mix-async``: a staleness-0
+   fold of both members' diffs against two CPU port servers driven the
+   same way, then streaming turns (submits, folds, staleness, drops,
+   stalls) until the replicas hold one model; an ``lsh.json`` server
+   filled with 10^6 rows through ``put_rows``, a second server's
+   ``rebalance`` pull, its first query (signing every pulled row, K1),
+   then the first server's drain and handoff, the new owner's answers
+   equal to the source's each time; the AROW driver at phase 8's shape
+   in a model store at D = 2^20 and 2^24 (full and diff records off and
+   int8, compaction, materialize, the snapshot's lock hold, rollback); a
+   regression server stopped and restarted warm from ``--store-dir``
+   (answers equal, its flushes launch S1); two ``arow.json`` servers
+   under ``--mix-guard quarantine``, one armed with ``--fault
+   mix.diff.poison*:nan``, rolling back on the refused total.
 
-Phases 3-7, 8, 9, 10 and 11 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8, 9, 10, 11 and 12 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -2741,6 +2761,611 @@ def phase_fleets(Datum, EngineServer, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: push and async mix, elastic migration, the model store, the
+# snapshot ring and rollback
+# ---------------------------------------------------------------------------
+PUSH_STRATEGIES = ("broadcast_mixer", "random_mixer", "skip_mixer")
+#: push strategies whose exchanges are a function of the member ring (the
+#: CPU fleet repeats them); random_mixer draws its peer
+PUSH_REPEATABLE = ("broadcast_mixer", "skip_mixer")
+PUSH_ROWS = 3_000             # arow.json rows, a third per member
+ASYNC_ROWS = 2_000            # arow.json rows, half per member
+ASYNC_STREAM_STEPS = 4        # train + do_mix on each member, in turns
+ELASTIC_ROWS = 1_000_000      # phase 3's row count
+ELASTIC_FILL = 20_000         # rows per put_rows call of the fill
+ELASTIC_QUERIES = 5
+STORE_ROWS = 2_000            # regression rows before the warm boot
+QUARANTINE_ROWS = 1_000
+P12_WAIT_S = 300              # longest wait for a fleet, a pull or a drain
+
+
+def fleet_dir(name: str) -> str:
+    import shutil
+
+    d = os.path.join(OUT_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def wait_for(pred, what: str, timeout: float = P12_WAIT_S) -> None:
+    deadline = time.time() + timeout
+    while not pred():
+        check(time.time() < deadline, f"{what} within {timeout} s")
+        time.sleep(0.1)
+
+
+def wait_fleet(d: str, engine: str, name: str, n: int) -> None:
+    from jubatus_tpu_torch.coord import membership
+    from jubatus_tpu_torch.coord.file import FileCoordinator
+
+    view = FileCoordinator(d)
+    try:
+        wait_for(lambda: len(membership.get_all_actives(view, engine, name))
+                 >= n, f"{n} {engine} members never joined")
+    finally:
+        view.close()
+
+
+def node_of(cli) -> str:
+    return next(iter(cli.call("get_status", "smoke")))
+
+
+def saved_pack(cli, tag: str):
+    (path,) = [p for k, p in cli.call("save", "smoke", tag).items()
+               if not k.startswith("store:")]
+    return saved_model(path)
+
+
+def p12_args(d: str, name: str, *extra) -> tuple:
+    return ("-z", f"file://{d}", "-n", name, "-s", "1e9",
+            "-i", str(1 << 30), "-d", d, *extra)
+
+
+def cpu_members(EngineServer, engine: str, config_name: str, n: int,
+                **args) -> list:
+    """``n`` port servers on the CPU in this process on one
+    MemoryCoordinator: the reference fleet."""
+    from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
+    from jubatus_tpu_torch.server.args import ServerArgs
+
+    store = _Store()
+    out = []
+    for _ in range(n):
+        srv = EngineServer(engine, load_config(engine, config_name),
+                           ServerArgs(engine=engine, coordinator="(memory)",
+                                      name="smoke", listen_addr="127.0.0.1",
+                                      interval_sec=1e9,
+                                      interval_count=1 << 30, **args),
+                           device="cpu", coord=MemoryCoordinator(store))
+        srv.start(0)
+        out.append(srv)
+    return out
+
+
+def feed(cli, calls) -> float:
+    t0 = time.perf_counter()
+    for method, args in calls:
+        cli.call(method, "smoke", *args)
+    return time.perf_counter() - t0
+
+
+def phase_push(Datum, EngineServer, seed: int) -> dict:
+    """Three arow.json servers per push strategy, each its own process on
+    ``-z file://<dir> -x <strategy>`` (all nine started at once), trained
+    on disjoint thirds; one ``do_mix`` on the first. Each exchange's
+    get/put times come from the initiator's spans, the stalls from every
+    member's gauges. For broadcast_mixer and skip_mixer three CPU port
+    servers repeat the round (same member ranks, same thirds, same
+    initiator): every card member's model must be the CPU member's of its
+    rank within LINEAR_TOL."""
+    rng = np.random.default_rng(seed + 1201)
+    rows = [linear_example(rng, Datum, "classifier", i)
+            for i in range(PUSH_ROWS)]
+    calls = [("train", (rows[lo:lo + LINEAR_BATCH],))
+             for lo in range(0, PUSH_ROWS, LINEAR_BATCH)]
+    thirds = [calls[i::3] for i in range(3)]
+    config = os.path.join(ROOT, "config", "classifier", "arow.json")
+    started = {}
+    for strategy in PUSH_STRATEGIES:
+        d = fleet_dir(f"push_{strategy}")
+        started[strategy] = (d, [start_server(
+            "classifier", config, tag=f"_push_{strategy}{i}",
+            extra=p12_args(d, "push", "-x", strategy)) for i in range(3)])
+    out = {}
+    try:
+        for strategy in PUSH_STRATEGIES:
+            d, procs = started.pop(strategy)
+            with contextlib.ExitStack() as stack:
+                clis = [stack.enter_context(serving("classifier", "", p))
+                        for p in procs]
+                wait_fleet(d, "classifier", "push", 3)
+                names = [node_of(c) for c in clis]
+                train_s = sum(feed(c, t) for c, t in zip(clis, thirds))
+                ok, mix_ms = timed(clis[0].call, "do_mix", "smoke")
+                check(ok is True, f"{strategy}: do_mix returned {ok}")
+                rec = clis[0].call("get_mix_history", "smoke")[-1]
+                check(rec["ok"] and rec["members"] >= 1,
+                      f"{strategy} round: {rec}")
+                sts = [server_status(c) for c in clis]
+                packs = [saved_pack(c, "push") for c in clis]
+            st0 = sts[0]
+            res = dict(rows=PUSH_ROWS, train_s=train_s, do_mix_ms=mix_ms,
+                       exchanged=rec["members"],
+                       candidates=rec.get("candidates"),
+                       bytes=rec["bytes"], round_ms=rec.get("duration_ms"))
+            for span in ("get_diff", "put_local", "put_peer"):
+                res[f"{span}_ms"] = [st0.get(f"trace.mix.push.{span}.{q}")
+                                     for q in ("mean_ms", "max_ms")]
+                res[f"{span}_count"] = st0.get(
+                    f"trace.mix.push.{span}.count", 0)
+            res["members"] = [dict(
+                snapshot_stall_ms=st.get("mix.snapshot_stall_ms"),
+                apply_stall_ms=st.get("mix.apply_stall_ms"),
+                model_version=st["mixer.model_version"]) for st in sts]
+            if strategy in PUSH_REPEATABLE:
+                res["cpu_err_over_limit"] = push_cpu_check(
+                    EngineServer, strategy, names, thirds, packs)
+            out[strategy] = res
+    finally:
+        for _, procs in started.values():
+            for proc, _, _ in procs:
+                stop_server(proc)
+    return out
+
+
+def push_cpu_check(EngineServer, strategy: str, names, thirds,
+                   packs) -> float:
+    """The same push round on three CPU port servers: the member of rank r
+    (by node name) takes the third of the card's member of rank r, the
+    initiator is the CPU member of the card initiator's rank."""
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    cpu = cpu_members(EngineServer, "classifier", "arow.json", 3,
+                      mixer=strategy)
+    try:
+        by_rank = sorted(cpu, key=lambda s: s.self_nodeinfo().name)
+        card_rank = {n: r for r, n in enumerate(sorted(names))}
+        for i, third in enumerate(thirds):
+            srv = by_rank[card_rank[names[i]]]
+            with RpcClient("127.0.0.1", srv.rpc.port, timeout=120.0) as c:
+                feed(c, third)
+        check(by_rank[card_rank[names[0]]].do_mix() is True,
+              f"the CPU {strategy} fleet did not mix")
+        err = 0.0
+        for i, pack in enumerate(packs):
+            want = unpadded(by_rank[card_rank[names[i]]].driver.pack())
+            err = max(err, model_close(pack, want, LINEAR_TOL,
+                                       f"{strategy} member {i} vs CPU"))
+        return err
+    finally:
+        for srv in cpu:
+            srv.stop()
+
+
+def async_steps(do_mix, get_diff, submit, a_name: str, b_name: str):
+    """The async drive both fleets repeat: B's diff into A's inbox (the
+    payload B's submit tick sends), then A's fold of both at staleness 0."""
+    packed = get_diff("b")
+    ack = submit("a", b_name, packed)
+    check(ack.get("accepted") is True, f"submit refused: {ack}")
+    return do_mix("a")
+
+
+def phase_async(Datum, EngineServer, seed: int) -> dict:
+    """Two arow.json servers with ``--mix-async`` (each its own process on
+    ``-z file://<dir>``): A's first fold elects it master; both train a
+    half; B's diff enters A's inbox and A folds both at staleness 0 — both
+    replicas must equal two CPU port servers driven the same way (within
+    LINEAR_TOL). Then ASYNC_STREAM_STEPS turns of train + ``do_mix`` on B
+    and on A (submit ticks and folds as masterhood moves), and flush turns
+    until the replicas hold one model; the submits, folds, staleness,
+    stale drops and the snapshot and apply stalls are reported."""
+    rng = np.random.default_rng(seed + 1202)
+    rows = [linear_example(rng, Datum, "classifier", i)
+            for i in range(ASYNC_ROWS)]
+    calls = [("train", (rows[lo:lo + LINEAR_BATCH],))
+             for lo in range(0, ASYNC_ROWS, LINEAR_BATCH)]
+    halves = [calls[0::2], calls[1::2]]
+    d = fleet_dir("async")
+    config = os.path.join(ROOT, "config", "classifier", "arow.json")
+    procs = [start_server("classifier", config, tag=f"_async{i}",
+                          extra=p12_args(d, "async", "--mix-async"))
+             for i in range(2)]
+    with contextlib.ExitStack() as stack:
+        clis = [stack.enter_context(serving("classifier", "", p))
+                for p in procs]
+        wait_fleet(d, "classifier", "async", 2)
+        names = [node_of(c) for c in clis]
+        check(clis[0].call("do_mix", "smoke") is True, "the priming fold")
+        for c, half in zip(clis, halves):
+            feed(c, half)
+        ab = dict(zip("ab", clis))
+        t0 = time.perf_counter()
+        ok = async_steps(
+            lambda who: ab[who].call("do_mix", "smoke"),
+            lambda who: ab[who].call("mix_get_diff", "smoke"),
+            lambda who, m, p: ab[who].call("mix_submit_diff", "smoke", m, p),
+            names[0], names[1])
+        fold_ms = (time.perf_counter() - t0) * 1e3
+        check(ok is True, "the staleness-0 fold did not run")
+        rec = clis[0].call("get_mix_history", "smoke")[-1]
+        check(rec["contributors"] == 2 and set(rec["weights"].values())
+              == {1.0}, f"the staleness-0 fold: {rec}")
+        packs = [saved_pack(c, "async0") for c in clis]
+        model_close(packs[1], packs[0], 0.0, "async replicas")
+        err = async_cpu_check(EngineServer, halves, packs[0])
+        stream_rng = np.random.default_rng(seed + 1203)
+        for step in range(ASYNC_STREAM_STEPS):
+            for k, c in ((1, clis[1]), (0, clis[0])):
+                batch = [linear_example(stream_rng, Datum, "classifier", i)
+                         for i in range(LINEAR_BATCH)]
+                c.call("train", "smoke", batch)
+                c.call("do_mix", "smoke")
+        # flush: fold turns until no inbox holds a payload and both
+        # replicas hold one model
+        flush_turns = 0
+        while True:
+            depth = sum(server_status(c)["mixer.async_inbox_depth"]
+                        for c in clis)
+            packs = [saved_pack(c, f"async{flush_turns}") for c in clis]
+            if not depth and model_close_ok(packs[1], packs[0]):
+                break
+            check(flush_turns < 8, "the async replicas never converged")
+            clis[flush_turns % 2].call("do_mix", "smoke")
+            flush_turns += 1
+        sts = [server_status(c) for c in clis]
+    return dict(
+        rows=ASYNC_ROWS, staleness0_fold_ms=fold_ms,
+        staleness0_round=dict(contributors=rec["contributors"],
+                              weights=rec["weights"], bytes=rec["bytes"],
+                              phases=rec.get("phases")),
+        cpu_err_over_limit=err, stream_steps=ASYNC_STREAM_STEPS,
+        flush_turns=flush_turns,
+        members=[dict(
+            submits_received=st["mixer.async_inbox_submits"],
+            folds=st["mixer.async_rounds"],
+            submit_errors=st["mixer.async_submit_errors"],
+            lag_rounds=st["mixer.async_lag_rounds"],
+            staleness_max=st.get("mix.staleness_max"),
+            dropped_stale=st.get("trace.counter.mix.async_dropped_stale", 0),
+            captures=st.get("trace.counter.mix.async_captures", 0),
+            snapshot_stall_ms=st.get("mix.snapshot_stall_ms"),
+            snapshot_stall_max_ms=st.get("trace.mix.stall.snapshot.max_ms"),
+            apply_stall_ms=st.get("mix.apply_stall_ms"),
+            apply_stall_max_ms=st.get("trace.mix.stall.apply.max_ms"),
+            model_version=st["mixer.model_version"]) for st in sts])
+
+
+def model_close_ok(got, want) -> bool:
+    try:
+        model_close(got, want, 0.0, "")
+        return True
+    except SmokeError:
+        return False
+
+
+def async_cpu_check(EngineServer, halves, card_pack) -> float:
+    """Two CPU port servers with the async plane, driven through the same
+    steps in process: the card's staleness-0 fold must equal theirs."""
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    cpu = cpu_members(EngineServer, "classifier", "arow.json", 2,
+                      mix_async=True)
+    try:
+        check(cpu[0].do_mix() is True, "the CPU priming fold")
+        for srv, half in zip(cpu, halves):
+            with RpcClient("127.0.0.1", srv.rpc.port, timeout=120.0) as c:
+                feed(c, half)
+        ab = dict(zip("ab", cpu))
+        check(async_steps(
+            lambda who: ab[who].do_mix(),
+            lambda who: ab[who].mixer.local_get_diff(),
+            lambda who, m, p: ab[who].mixer.local_submit_diff(m, p),
+            cpu[0].self_nodeinfo().name,
+            cpu[1].self_nodeinfo().name) is True, "the CPU fold")
+        return model_close(card_pack, unpadded(cpu[0].driver.pack()),
+                           LINEAR_TOL, "async card vs CPU fold")
+    finally:
+        for srv in cpu:
+            srv.stop()
+
+
+def elastic_fill_calls(seed: int):
+    """ELASTIC_ROWS rows of phase 3's shape (32 hashed features over
+    2^18) as put_rows chunks of ELASTIC_FILL rows."""
+    rng = np.random.default_rng(seed + 1204)
+    for lo in range(0, ELASTIC_ROWS, ELASTIC_FILL):
+        n = min(ELASTIC_FILL, ELASTIC_ROWS - lo)
+        idx, val = random_rows(rng, n, 32, 18)
+        yield [[f"r{lo + i}", ii, vv, None]
+               for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist()))]
+
+
+def phase_elastic(seed: int) -> dict:
+    """An lsh.json nearest_neighbor server (its own process, ``-z
+    file://<dir>``) takes ELASTIC_ROWS rows through ``put_rows``; a second
+    server joins (``--no-auto-rebalance``) and pulls the rows it owns with
+    ``rebalance`` (two members: every row); its first query signs every
+    pulled row and scans with K1. Then the first server drains and hands
+    its rows off. The new owner's neighbor_row_from_id answers must equal
+    the source's, after the pull and after the handoff."""
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    d = fleet_dir("elastic")
+    config = os.path.join(ROOT, "config", "nearest_neighbor", "lsh.json")
+    extra = p12_args(d, "elastic", "--drain-grace", "0.2",
+                     "--no-auto-rebalance")
+    src_proc = start_server("nearest_neighbor", config, tag="_elastic_src",
+                            extra=extra)
+    dst_proc = None
+    launches = {m: 0 for m in RECORDED}
+    try:
+        with serving("nearest_neighbor", "", src_proc) as src:
+            wait_fleet(d, "nearest_neighbor", "elastic", 1)
+            t0 = time.perf_counter()
+            for rows in elastic_fill_calls(seed):
+                check(src.call("put_rows", "smoke", rows) == len(rows),
+                      "put_rows applied a short count")
+            fill_s = time.perf_counter() - t0
+            check(src.call("get_row_count", "smoke") == ELASTIC_ROWS,
+                  "the source holds a short row count")
+            probe = [f"r{(i * 7919) % ELASTIC_ROWS}"
+                     for i in range(ELASTIC_QUERIES)]
+            want, src_first_ms = timed(
+                lambda: [src.call("neighbor_row_from_id", "smoke", r, 10)
+                         for r in probe])
+            dst_proc = start_server("nearest_neighbor", config,
+                                    tag="_elastic_dst", extra=extra)
+            with serving("nearest_neighbor", "", dst_proc) as dst:
+                wait_fleet(d, "nearest_neighbor", "elastic", 2)
+                epoch = dst.call("get_epoch", "smoke")
+                wait_for(lambda: src.call("get_epoch", "smoke") == epoch,
+                         "the source never saw the join")
+                with RpcClient("127.0.0.1", dst_proc[1],
+                               timeout=P12_WAIT_S) as slow:
+                    pull = slow.call("rebalance", "smoke")
+                check(pull["rows"] == ELASTIC_ROWS
+                      and not pull["sources_failed"], f"pull: {pull}")
+                before = server_status(dst)
+                got, dst_first_ms = timed(
+                    lambda: [dst.call("neighbor_row_from_id", "smoke", r, 10)
+                             for r in probe[:1]])
+                mid = server_status(dst)
+                got += [dst.call("neighbor_row_from_id", "smoke", r, 10)
+                        for r in probe[1:]]
+                for g, w, r in zip(got, want, probe):
+                    compare_ranked([tuple(x) for x in g],
+                                   [tuple(x) for x in w], f"pulled {r}")
+                dst_pull_st = server_status(dst)
+                t0 = time.perf_counter()
+                src.call("drain", "smoke", False)
+                wait_for(lambda: src.call("drain_status", "smoke")["state"]
+                         == "drained", "the drain never finished")
+                drain_s = time.perf_counter() - t0
+                drained = src.call("drain_status", "smoke")
+                check(not drained["error"]
+                      and drained["rows_handed_off"] == ELASTIC_ROWS,
+                      f"drain: {drained}")
+                src_st = server_status(src)
+                got, after_handoff_ms = timed(
+                    lambda: [dst.call("neighbor_row_from_id", "smoke", r, 10)
+                             for r in probe])
+                for g, w, r in zip(got, want, probe):
+                    compare_ranked([tuple(x) for x in g],
+                                   [tuple(x) for x in w], f"handed off {r}")
+                dst_st = server_status(dst)
+            add_launches(launches, src_st)
+            add_launches(launches, dst_st)
+        sign = mid["kernel.sig_scan.hamming.launches"] \
+            - before["kernel.sig_scan.hamming.launches"]
+        return dict(
+            rows=ELASTIC_ROWS, fill_s=fill_s,
+            fill_rows_per_s=ELASTIC_ROWS / fill_s,
+            source_first_queries_ms=src_first_ms,
+            pull=dict(pull, rows_per_s=pull["rows"] / pull["seconds"],
+                      chunks=dst_pull_st["migration.chunks"]),
+            first_query_ms=dst_first_ms, first_query_k1_launches=sign,
+            drain=dict(seconds=drain_s,
+                       rows_per_s=drained["rows_handed_off"] / drain_s,
+                       bytes=drained["bytes_handed_off"],
+                       chunks=src_st["migration.chunks"],
+                       grace_s=0.2),
+            queries_after_handoff_ms=after_handoff_ms,
+            server_launches=launches)
+    finally:
+        for p in (src_proc, dst_proc):
+            if p is not None:
+                stop_server(p[0])
+
+
+def phase_store_width(torch, ClassifierDriver, dim_bits: int,
+                      seed: int) -> dict:
+    """The AROW driver at phase 8's shape on the card and a model store in
+    OUT_DIR: a full upload, then a diff record after one more train batch,
+    with ``--store-compress`` off and int8 (time, bytes); the off chain's
+    compaction; materialize of each chain (off: equal to the driver's
+    model; int8: within one quantization step); the lock hold of a
+    snapshot into the ring, and a rollback's restore (the tables equal
+    the snapshot's)."""
+    from jubatus_tpu_torch.framework.model_guard import ModelSnapshotRing
+    from jubatus_tpu_torch.framework.model_store import (LocalDirBackend,
+                                                         ModelStore,
+                                                         StoreUploader)
+    from jubatus_tpu_torch.framework.save_load import read_envelope
+    from jubatus_tpu_torch.utils.serialization import unpack_obj
+
+    drv = ClassifierDriver(CLF_CONFIG, dim_bits=dim_bits, device="cuda")
+    rng = np.random.default_rng(seed + 1205 + dim_bits)
+    names = np.array(["neg", "pos"])
+
+    def train_step():
+        idx, val, lab = bench_batch(rng, dim_bits)
+        drv.train_hashed(list(names[lab]), idx, val)
+        torch.cuda.synchronize()
+
+    train_step()
+    root = fleet_dir(f"store_{dim_bits}")
+    store = ModelStore(LocalDirBackend(root), cluster="smoke",
+                       engine="classifier")
+    ups = {mode: StoreUploader(store, f"n_{mode}", model_id="smoke",
+                               config=json.dumps(CLF_CONFIG), compress=mode)
+           for mode in ("off", "int8")}
+
+    def record_bytes(key):
+        return os.path.getsize(os.path.join(root, key))
+
+    out = {"dim_bits": dim_bits}
+    for mode, up in ups.items():
+        key, ms = timed(up.tick, drv, 1)
+        out[f"full_{mode}"] = dict(ms=ms, bytes=record_bytes(key))
+    train_step()
+    for mode, up in ups.items():
+        key, ms = timed(up.tick, drv, 2)
+        check(key is not None and "/diff/" in key, f"{mode}: no diff record")
+        out[f"diff_{mode}"] = dict(ms=ms, bytes=record_bytes(key))
+    want = drv.pack()
+    (blob, meta), ms = timed(lambda: store.materialize(node="n_int8"))
+    check(meta["chain_len"] == 1, "the int8 chain did not replay")
+    got = unpack_obj(read_envelope(blob, "int8")[1])[1]
+    scale = float(np.abs(want["w"]).max())
+    err = float(np.abs(np.asarray(got["w"]) - want["w"]).max())
+    check(err <= scale / 127.0, f"int8 replay off by {err} (scale {scale})")
+    out["materialize_int8"] = dict(ms=ms, max_abs_err=err)
+    key, ms = timed(lambda: store.compact(node="n_off"))
+    check(key is not None, "nothing compacted")
+    out["compact_off_ms"] = ms
+    (blob, meta), ms = timed(lambda: store.materialize(node="n_off"))
+    got = unpack_obj(read_envelope(blob, "off")[1])[1]
+    check(np.array_equal(got["w"], want["w"])
+          and np.array_equal(got["prec"], want["prec"]),
+          "the compacted chain differs from the model")
+    out["materialize_off"] = dict(ms=ms, chain_len=meta["chain_len"])
+    del got, blob, want
+    ring = ModelSnapshotRing()
+    t0 = time.perf_counter()
+    with drv.lock:
+        entry = ring.snapshot(drv, 2)
+    out["snapshot_lock_ms"] = (time.perf_counter() - t0) * 1e3
+    out["snapshot_bytes"] = entry["bytes"]
+    snap_w = drv.state.w + drv.state.dw
+    train_step()
+    t0 = time.perf_counter()
+    with drv.lock:
+        ring.restore(drv)
+    torch.cuda.synchronize()
+    out["rollback_ms"] = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(drv.state.w, snap_w), "rollback restored other tables")
+    return out
+
+
+def phase_warmboot(Datum, seed: int) -> dict:
+    """A regression server (its own process, ``--store-dir``, uploads each
+    second) takes STORE_ROWS rows; once the store holds its last version
+    it is stopped, and a new server on the same store boots warm: every
+    estimate equal to the first server's; then it trains, and its flushes
+    launch the scan kernel."""
+    d = fleet_dir("warmboot")
+    config = os.path.join(ROOT, "config", "regression", "default.json")
+    extra = ("--store-dir", d, "--store-interval", "1", "-d", d)
+    rng = np.random.default_rng(seed + 1206)
+    rows = [linear_example(rng, Datum, "regression", i)
+            for i in range(STORE_ROWS + LINEAR_BATCH)]
+    queries = [[server_datum(rng, Datum, STORE_ROWS + i)]
+               for i in range(SL_QUERIES)]
+    launches = {m: 0 for m in RECORDED}
+    with serving("regression", "", start_server(
+            "regression", config, tag="_warm0", extra=extra)) as cli:
+        feed(cli, [("train", (rows[lo:lo + LINEAR_BATCH],))
+                   for lo in range(0, STORE_ROWS, LINEAR_BATCH)])
+        version = server_status(cli)["update_count"]
+        t0 = time.perf_counter()
+        wait_for(lambda: any(
+            r["version"] == version for r in next(iter(cli.call(
+                "get_store_status", "smoke").values()))["records"]),
+            "the store never held the last version")
+        upload_wait_s = time.perf_counter() - t0
+        want = [cli.call("estimate", "smoke", q) for q in queries]
+        add_launches(launches, server_status(cli))
+    with serving("regression", "", start_server(
+            "regression", config, tag="_warm1", extra=extra)) as cli:
+        st = server_status(cli)
+        check(st["warmboot.outcome"] == "warm", f"warm boot: "
+              f"{st['warmboot.outcome']}")
+        check(st["warmboot.model_version"] == version,
+              "the warm boot loaded another version")
+        got = [cli.call("estimate", "smoke", q) for q in queries]
+        check(got == want, "the warm-booted server answers otherwise")
+        before = st["kernel.online_scan.launches"]
+        cli.call("train", "smoke", rows[STORE_ROWS:])
+        st = server_status(cli)
+        check(st["kernel.online_scan.launches"] > before,
+              "the warm-booted server's flush did not launch the scan")
+        add_launches(launches, st)
+    return dict(rows=STORE_ROWS, upload_wait_s=upload_wait_s,
+                warmboot_s=st["warmboot.seconds"],
+                chain_len=st["warmboot.chain_len"],
+                records_full=st["store.records_full"],
+                records_diff=st["store.records_diff"],
+                server_launches=launches)
+
+
+def phase_quarantine(Datum, seed: int) -> dict:
+    """Two arow.json servers (each its own process) on ``-x
+    broadcast_mixer --mix-guard quarantine --model-snapshot-interval 1``,
+    the second armed with ``--fault mix.diff.poison*:nan``. Both train;
+    once each has snapshotted the trained model, the poisoned member's
+    round folds its NaN diff into the exchange's total: both members
+    refuse it and roll back, and answer as before the round."""
+    d = fleet_dir("quarantine")
+    config = os.path.join(ROOT, "config", "classifier", "arow.json")
+    extra = p12_args(d, "q", "-x", "broadcast_mixer", "--mix-guard",
+                     "quarantine", "--model-snapshot-interval", "1")
+    procs = [start_server("classifier", config, tag=f"_q{i}",
+                          extra=extra + (("--fault", "mix.diff.poison*:nan")
+                                         if i else ()))
+             for i in range(2)]
+    rng = np.random.default_rng(seed + 1207)
+    rows = [linear_example(rng, Datum, "classifier", i)
+            for i in range(QUARANTINE_ROWS)]
+    queries = [[server_datum(rng, Datum, QUARANTINE_ROWS + i)]
+               for i in range(SL_QUERIES)]
+    with contextlib.ExitStack() as stack:
+        clis = [stack.enter_context(serving("classifier", "", p))
+                for p in procs]
+        wait_fleet(d, "classifier", "q", 2)
+        for k, c in enumerate(clis):
+            feed(c, [("train", (rows[lo:lo + LINEAR_BATCH],))
+                     for lo in range(k * LINEAR_BATCH, QUARANTINE_ROWS,
+                                     2 * LINEAR_BATCH)])
+        taken = [server_status(c)["snapshot.taken"] for c in clis]
+        for c, t in zip(clis, taken):
+            wait_for(lambda c=c, t=t: server_status(c)["snapshot.taken"] > t,
+                     "no snapshot after training")
+        before = [[c.call("classify", "smoke", q) for q in queries]
+                  for c in clis]
+        _, round_ms = timed(clis[1].call, "do_mix", "smoke")
+        sts = [server_status(c) for c in clis]
+        for st in sts:
+            check(st["rollback.count"] == 1,
+                  f"a member rolled back {st['rollback.count']} times")
+            check(st.get("trace.counter.mix.guard.nonfinite_total", 0) >= 1,
+                  "the non-finite total was not refused")
+        after = [[c.call("classify", "smoke", q) for q in queries]
+                 for c in clis]
+        check(after == before, "a rolled-back member answers otherwise")
+    return dict(rows=QUARANTINE_ROWS, round_ms=round_ms,
+                members=[dict(rollbacks=st["rollback.count"],
+                              snapshots_taken=st["snapshot.taken"],
+                              snapshot_bytes=st["snapshot.bytes"],
+                              snapshot_lock_ms=st.get(
+                                  "trace.snapshot.lock.max_ms"),
+                              refused=st.get(
+                                  "trace.counter.mix.guard.nonfinite_total"))
+                         for st in sts])
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2902,6 +3527,29 @@ def main(argv=None) -> int:
                     total[m] += r["launches"][m]
             return {"server_launches": total}
 
+        def p12_path():
+            total = {m: 0 for m in RECORDED}
+            res = phase_push(Datum, EngineServer, args.seed)
+            for strategy, r in res.items():
+                log(f"[push] {strategy} {json.dumps(r)} | {kind} | {smi}")
+            res = phase_async(Datum, EngineServer, args.seed)
+            log(f"[async] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_elastic(args.seed)
+            log(f"[elastic] {json.dumps(res)} | {kind} | {smi}")
+            for m in RECORDED:
+                total[m] += res["server_launches"][m]
+            for dim_bits in CLF_DIM_BITS:
+                r = phase_store_width(torch, ClassifierDriver, dim_bits,
+                                      args.seed)
+                log(f"[store_width] {json.dumps(r)} | {kind} | {smi}")
+            res = phase_warmboot(Datum, args.seed)
+            log(f"[warmboot] {json.dumps(res)} | {kind} | {smi}")
+            for m in RECORDED:
+                total[m] += res["server_launches"][m]
+            res = phase_quarantine(Datum, args.seed)
+            log(f"[quarantine] {json.dumps(res)} | {kind} | {smi}")
+            return {"server_launches": total}
+
         def save_load_mix_path():
             res = phase_save_load_servers(Datum, args.seed)
             for key, r in res["servers"].items():
@@ -2931,6 +3579,7 @@ def main(argv=None) -> int:
         run_path("linear_servers", linear_servers_path)
         run_path("clustering_graph", clustering_graph_path)
         run_path("save_load_mix", save_load_mix_path)
+        run_path("push_async_elastic_store", p12_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         launches = {m: sum(p[m] for p in paths.values()) for m in COUNTED}
         for mode, n in launches.items():
@@ -2944,6 +3593,9 @@ def main(argv=None) -> int:
         for mode in ("hamming", "pa_scan"):
             check(paths["save_load_mix"][mode] > 0,
                   f"{mode} never launched on the save/load and mix path")
+            check(paths["push_async_elastic_store"][mode] > 0,
+                  f"{mode} never launched on the push, async, elastic and "
+                  "store path")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -8,7 +8,8 @@ server (cht.hpp:36, ring entries md5(f"{node}_{i}"), cht.cpp:77-93);
 
 The ring is a pure function of the member list: every observer of the
 same membership computes the identical ring, so nothing needs storing. The
-port's server uses it for burst's keyword assignment.
+port's server uses it for burst's keyword assignment and for row
+ownership in the migration plane (framework/migration.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,12 @@ def make_hash(key: str) -> str:
     return hashlib.md5(key.encode("utf-8")).hexdigest()
 
 
+def ring_key(members: Sequence[NodeInfo]) -> Tuple[str, ...]:
+    """Canonical identity of a ring: the sorted member names. Two member
+    lists with the same key build the IDENTICAL ring."""
+    return tuple(sorted(m.name for m in members))
+
+
 class CHT:
     def __init__(self, members: Sequence[NodeInfo], epoch: int = 0) -> None:
         self.members = list(members)
@@ -40,6 +47,10 @@ class CHT:
                 ring.append((make_hash(f"{m.name}_{i}"), m))
         ring.sort(key=lambda e: e[0])
         self._ring = ring
+
+    @property
+    def key(self) -> Tuple[str, ...]:
+        return ring_key(self.members)
 
     @classmethod
     def from_coordinator(

@@ -22,9 +22,8 @@ Every ACTUAL actives change (a create that created, a remove that
 removed) mints a new **membership epoch** through the coordinator's
 atomic counter. The mirror node makes the epoch READABLE without bumping
 it; consumers treat ANY difference as "refresh", never as an ordering.
-The port registers no drain markers itself (the drain plane is not
-ported); it reads them, so a draining JAX member leaves a mixed fleet's
-quorum as it leaves a JAX fleet's.
+A draining member of either package marks itself there, so it leaves a
+mixed fleet's quorum as it leaves a one-package fleet's.
 """
 
 from __future__ import annotations
@@ -127,6 +126,22 @@ def get_epoch(coord: Coordinator, engine: str, name: str) -> int:
 
 def draining_path(engine: str, name: str) -> str:
     return f"{actor_path(engine, name)}/draining"
+
+
+def mark_draining(coord: Coordinator, engine: str, name: str,
+                  host: str, port: int) -> str:
+    """Announce a member is draining: still booted (nodes/), no longer
+    routable or quorum-countable. Ephemeral — a drain that dies with its
+    process clears itself."""
+    path = f"{draining_path(engine, name)}/{NodeInfo(host, port).name}"
+    coord.create(path, ephemeral=True)
+    return path
+
+
+def clear_draining(coord: Coordinator, engine: str, name: str,
+                   host: str, port: int) -> bool:
+    return coord.remove(
+        f"{draining_path(engine, name)}/{NodeInfo(host, port).name}")
 
 
 def get_draining(coord: Coordinator, engine: str, name: str) -> List[NodeInfo]:

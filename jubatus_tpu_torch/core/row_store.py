@@ -15,16 +15,24 @@ of the nearest-neighbor backend.
 - The live-slot mask is kept up to date on every write (the JAX package
   rebuilds it per query, a loop over every row).
 - Mix support: ``updated_since_mix`` tracks locally-written row ids.
+- ``version`` is a stamp drawn from one process-wide counter on every
+  write, clear and unpack, so two different contents of any store never
+  share one: the device caches and the migration walk's sorted ids
+  (framework/migration.py) key on it.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from jubatus_tpu_torch.core.sparse import SparseVector
+
+#: version stamps, unique across the process (next() is atomic)
+_STAMPS = itertools.count(1)
 
 _INITIAL_CAPACITY = 64
 _INITIAL_WIDTH = 8
@@ -56,7 +64,7 @@ class RowStore:
         self._touch: Dict[str, int] = {}      # id -> last-touch tick (LRU)
         self.datums: Dict[str, Any] = {}      # id -> original datum
         self.updated_since_mix: Dict[str, None] = {}
-        self.version = 0                      # bumped on every write
+        self.version = next(_STAMPS)          # new stamp on every write
         self._dev_cache: Optional[Tuple[int, torch.device, tuple]] = None
 
     # -- sizing --------------------------------------------------------------
@@ -115,7 +123,7 @@ class RowStore:
             self.datums[row_id] = datum
         self.touch(row_id)
         self.updated_since_mix[row_id] = None
-        self.version += 1
+        self.version = next(_STAMPS)
         return slot
 
     def remove_row(self, row_id: str) -> bool:
@@ -129,7 +137,7 @@ class RowStore:
         self._touch.pop(row_id, None)
         self.datums.pop(row_id, None)
         self.updated_since_mix.pop(row_id, None)
-        self.version += 1
+        self.version = next(_STAMPS)
         return True
 
     def clear(self) -> None:

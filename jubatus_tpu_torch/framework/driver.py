@@ -8,9 +8,12 @@ for checkpoints, and clear. ``Mixable`` is a local protocol here, in place of
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import Any, Dict, Protocol
+
+from jubatus_tpu_torch import device_scope
 
 
 class Mixable(Protocol):
@@ -35,6 +38,16 @@ def locked(fn):
             return fn(self, *args, **kwargs)
 
     return wrapper
+
+
+def on_driver(driver) -> contextlib.ExitStack:
+    """The driver's model lock, entered on the driver's device: the mixer,
+    the RPC workers, the tick thread and the migration threads call in
+    from outside the thread that built the driver."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(device_scope(driver.device))
+    stack.enter_context(driver.lock)
+    return stack
 
 
 class DriverBase:

@@ -32,7 +32,6 @@ context of a round.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import logging
 import math
@@ -43,10 +42,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from jubatus_tpu_torch import device_scope
 from jubatus_tpu_torch.coord import membership
 from jubatus_tpu_torch.coord.base import Coordinator, NodeInfo
-from jubatus_tpu_torch.framework.driver import DriverBase
+from jubatus_tpu_torch.framework.driver import DriverBase, on_driver
 from jubatus_tpu_torch.framework.mixer import IntervalMixer, MixFlightRecorder
 from jubatus_tpu_torch.framework.model_guard import MixGuard, payload_nonfinite
 from jubatus_tpu_torch.parallel.mix import tree_sum
@@ -358,9 +356,9 @@ class RpcLinearMixer:
         #: it enters a fold and every folded total before it applies —
         #: --mix-guard {off,warn,quarantine} + --mix-norm-bound
         self.guard = guard if guard is not None else MixGuard()
-        #: called when put_diff refuses a non-finite folded total (the
-        #: quarantine mode's roll back to a last-good snapshot; the port's
-        #: server refuses that mode, so it stays unset there)
+        #: set by the owning server: called when put_diff refuses a
+        #: non-finite folded total, so the server can roll back to its
+        #: last-good model snapshot
         self.on_poisoned_total: Optional[Any] = None
         #: minimum fraction of members whose diffs must arrive for the
         #: round to proceed (--mix-quorum). The reference aborts only
@@ -457,18 +455,32 @@ class RpcLinearMixer:
                 ])
         return True
 
-    def local_diff_obj(self, materialize: bool = False) -> Dict[str, Any]:
+    def local_diff_obj(self, materialize: bool = False,
+                       canonical_schema: bool = False) -> Dict[str, Any]:
         """My diff as a payload dict (model read lock;
-        linear_mixer.cpp:562-579).
+        linear_mixer.cpp:562-579) — in-process consumers (push exchange)
+        use this directly, skipping the wire pack/unpack.
 
         ``materialize=True`` reads device leaves back to host numpy INSIDE
         the lock: the RPC pack runs after release, and a train step in
         between would race the very buffers the snapshot references.
 
+        ``canonical_schema=True`` is the ASYNC plane's extra contract:
+        ``get_schema`` is sorted but diff ROWS sit in slot (training)
+        order, and the async fold has no pre-round schema phase to
+        align contributors — so the snapshot first aligns its own rows
+        to its sorted vocabulary (a no-op in steady state). The sync
+        round must NOT do this: its schema phase already aligned slots
+        to the union, and re-sorting around a just-trained novel label
+        would break the trailing-row pad tree_sum relies on.
+
         The lock-held time is the snapshot's ENTIRE train-path cost —
         gauged as ``mix.snapshot_stall_ms``."""
         with self.trace.span("mix.stall.snapshot") as sp:
             with self._on_driver():
+                if canonical_schema and self._has_schema() and \
+                        hasattr(self.driver, "sync_schema"):
+                    self.driver.sync_schema(self.driver.get_schema())
                 diffs = {
                     name: m.get_diff()
                     for name, m in self.driver.get_mixables().items()
@@ -694,13 +706,8 @@ class RpcLinearMixer:
             )
 
     def _on_driver(self):
-        """The model lock, entered on the driver's device: the mixer
-        thread and the RPC workers call in from outside the thread that
-        built the driver."""
-        stack = contextlib.ExitStack()
-        stack.enter_context(device_scope(self.driver.device))
-        stack.enter_context(self.driver.lock)
-        return stack
+        """The model lock, entered on the driver's device."""
+        return on_driver(self.driver)
 
     def set_trace_registry(self, registry) -> None:
         """Route mix.round spans into the owning server's registry (and

@@ -6,9 +6,10 @@ server_util.cpp:223-228): a background thread wakes at most every 0.5 s and
 fires a mix when update_count >= interval_count (512) OR elapsed >=
 interval_sec (16 s) with at least one update. The mix itself is a supplied
 callable (the RPC linear mixer's round). Each round lands as one record in
-the mixer's flight recorder. Not carried over: the per-round trace
-context, which waits for the port's tracing plane, and the async plane's
-knobs (``fire_idle``, ``set_interval``).
+the mixer's flight recorder. The async plane sets ``fire_idle``: its fold
+tick fires on the interval whether or not this process trained. Not
+carried over: the per-round trace context, which waits for the port's
+tracing plane, and the tuner's ``set_interval``.
 """
 
 from __future__ import annotations
@@ -97,6 +98,10 @@ class IntervalMixer:
         self._mix_fn = mix_fn
         self.interval_sec = interval_sec
         self.interval_count = interval_count
+        #: async mix plane (framework/async_mixer.py) sets this: a fold
+        #: tick must consume OTHER members' submitted diffs whether or
+        #: not this process trained anything since the last round
+        self.fire_idle = False
         #: set by the owning server so mix spans land in ITS registry
         self.trace: Registry = default_registry()
         #: per-round flight records; an owning mixer passes its own so
@@ -128,14 +133,16 @@ class IntervalMixer:
     def due(self) -> bool:
         """Would the loop fire a round now? ``interval_count`` updates, or
         ``interval_sec`` elapsed since the last round with at least one
-        update (the reference's stabilizer condition)."""
+        update (the reference's stabilizer condition), or with none when
+        ``fire_idle`` is set."""
         with self._cond:
             return self._due_locked()
 
     def _due_locked(self) -> bool:
         elapsed = time.monotonic() - self._last_mix_time
         return self._counter >= self.interval_count or (
-            self._counter > 0 and elapsed >= self.interval_sec)
+            (self._counter > 0 or self.fire_idle)
+            and elapsed >= self.interval_sec)
 
     def _run_mix(self) -> Any:
         """Execute one mix round WITHOUT holding the condition lock: updated()

@@ -1,10 +1,12 @@
-"""Mix admission guard (``MixGuard`` and the screens of
+"""Mix admission guard and model snapshot ring (copy of
 ``jubatus_tpu/framework/model_guard.py``).
 
 Mix is model averaging, so one replica gone sick (a NaN from a bad datum,
 a norm-exploded diff from a runaway learner) poisons every peer's weights
-in a single round. **MixGuard** is the fold-time admission screen of the
-sync master (``linear_mixer._run_as_master``). Two screens, in order:
+in a single round. **MixGuard** is the fold-time admission screen shared
+by the sync master (``linear_mixer._run_as_master``), the async fold
+(``async_mixer._weighted_fold``), the async inbox (``local_submit_diff``)
+and the push exchange. Two screens, in order:
 
 * **finite screen** — any non-finite element in a summable mixable's
   diff rejects the contribution outright (NaN is absorbing under
@@ -15,11 +17,16 @@ sync master (``linear_mixer._run_as_master``). Two screens, in order:
 
 Verdicts feed a per-member quarantine breaker. Mode ladder
 (``--mix-guard``): ``off`` — no screening; ``warn`` — screen, count, emit,
-fold everything anyway; ``quarantine`` — drop screened-out contributions.
-The port's server accepts ``off`` and ``warn``: ``quarantine`` refuses a
-non-finite total by rolling back to the last-good model snapshot, and the
-snapshot ring (``ModelSnapshotRing``) is not ported yet, so the server
-raises ``NotYetPorted`` for it.
+fold everything anyway; ``quarantine`` — drop screened-out contributions,
+and refuse a non-finite folded total at apply time.
+
+**ModelSnapshotRing** is a bounded ring of periodic in-process model
+snapshots in the save_load envelope format (48-byte header + CRC32), so a
+restore revalidates integrity exactly like a checkpoint load. ``put_diff``
+refusing a non-finite folded total rolls the server back to the newest
+snapshot (server/base.py wires the callback); ``rollback`` does it by RPC.
+The snapshot packs the model under the driver's lock: ``driver.pack()``
+reads the device state back to the host there.
 """
 
 from __future__ import annotations
@@ -225,6 +232,30 @@ class MixGuard:
             rep.admitted[member] = diffs
         return rep
 
+    def screen_payload(self, member: str, diffs: Dict[str, Any],
+                       names: List[str]) -> Optional[str]:
+        """Single-payload admission screen (the async inbox, the push
+        exchange): the finite screen plus the breaker — no peer
+        distribution exists yet, so norm outliers are judged at fold
+        time. Returns the flag reason ("nonfinite" / "quarantined") or
+        None; the caller REJECTS only in quarantine mode (warn flags and
+        admits). A quarantined member's clean payload still counts
+        toward its K-clean release."""
+        if not self.enabled:
+            return None
+        self.screened += 1
+        if payload_nonfinite(diffs, names):
+            self._note_offense(member)
+            if self.mode == "quarantine":
+                self.rejected += 1
+            return "nonfinite"
+        if self.mode == "quarantine" and self.is_quarantined(member):
+            self._note_clean(member)
+            if self.is_quarantined(member):
+                self.rejected += 1
+                return "quarantined"
+        return None
+
     def quarantined(self) -> Dict[str, float]:
         """member -> seconds in quarantine (status/watch view)."""
         now = time.monotonic()
@@ -244,3 +275,92 @@ class MixGuard:
             "guard_quarantined": q,
             "guard_offense_streaks": offenses,
         }
+
+
+class ModelSnapshotRing:
+    """Bounded ring of in-process model snapshots — the rollback
+    plane's "last good". Entries are full save_load envelopes (header +
+    CRC32 + system + user sections), so ``restore`` revalidates exactly
+    like a checkpoint load: a snapshot that rotted in RAM refuses to
+    apply instead of substituting one corruption for another."""
+
+    def __init__(self, capacity: int = 4) -> None:
+        self.capacity = max(1, int(capacity))
+        self._lock = threading.Lock()
+        self._ring: List[Dict[str, Any]] = []
+        self.taken = 0
+        self.restored = 0
+
+    def snapshot(self, driver, model_version: int) -> Dict[str, Any]:
+        """Capture one snapshot. The caller holds the driver's model
+        lock — pack() must see a quiescent model."""
+        from jubatus_tpu_torch.utils.serialization import pack_obj
+
+        system = {"version": 1, "timestamp": int(time.time()),  # wall-clock
+                  "type": driver.TYPE, "id": "snapshot",
+                  "model_version": int(model_version), "config": ""}
+        from jubatus_tpu_torch.framework.save_load import pack_envelope
+
+        blob = pack_envelope(
+            pack_obj(system),
+            pack_obj([driver.USER_DATA_VERSION, driver.pack()]))
+        entry = {"model_version": int(model_version),
+                 "ts": time.time(),  # wall-clock
+                 "bytes": len(blob), "blob": blob}
+        with self._lock:
+            self._ring.append(entry)
+            if len(self._ring) > self.capacity:
+                self._ring.pop(0)
+            self.taken += 1
+        return entry
+
+    def latest(self) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return self._ring[-1] if self._ring else None
+
+    def restore(self, driver, entry: Optional[Dict[str, Any]] = None) -> int:
+        """Apply a snapshot (default: newest) back into the driver —
+        CRC-validated through the same read_envelope every checkpoint
+        load uses. The caller holds the driver's model lock. Returns
+        the snapshot's model_version."""
+        from jubatus_tpu_torch.framework.save_load import read_envelope
+        from jubatus_tpu_torch.utils.serialization import unpack_obj
+
+        if entry is None:
+            entry = self.latest()
+        if entry is None:
+            raise RuntimeError("no model snapshot to roll back to "
+                               "(--model-snapshot-interval off?)")
+        system_b, user_b = read_envelope(entry["blob"], "snapshot-ring")
+        system = unpack_obj(system_b)
+        user_version, user_data = unpack_obj(user_b)
+        if user_version != driver.USER_DATA_VERSION:
+            raise RuntimeError(
+                f"snapshot user data version {user_version} != "
+                f"{driver.USER_DATA_VERSION}")
+        driver.unpack(user_data)
+        with self._lock:
+            self.restored += 1
+        return int(system.get("model_version", 0))
+
+    def list(self) -> List[Dict[str, Any]]:
+        """Metadata view (no blobs) for status / jubactl."""
+        with self._lock:
+            return [{k: v for k, v in e.items() if k != "blob"}
+                    for e in self._ring]
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            newest = self._ring[-1] if self._ring else None
+            return {
+                "count": len(self._ring),
+                "capacity": self.capacity,
+                "taken": self.taken,
+                "restored": self.restored,
+                "bytes": sum(e["bytes"] for e in self._ring),
+                "last_model_version": (newest or {}).get(
+                    "model_version", -1),
+                "last_age_s": round(
+                    time.time() - newest["ts"], 1)  # wall-clock
+                if newest else -1.0,
+            }

@@ -272,18 +272,39 @@ class NNRowMigration:
     def row_ids(self) -> List[str]:
         return self.backend.store.all_ids()
 
+    @property
+    def rows_version(self) -> int:
+        """The row store's version stamp: a new one on every write, clear
+        and unpack (the migration walk caches its sorted ids on it)."""
+        return self.backend.store.version
+
     def get_rows(self, ids: Optional[List[str]] = None) -> List[list]:
+        """The rows of ``ids`` (default: all) that exist, in that order:
+        each row's nonzero entries in slot order, as the store's
+        ``get_row`` reads them, gathered for the whole list at once."""
         store = self.backend.store
-        out: List[list] = []
+        found = []
         for rid in (ids if ids is not None else store.all_ids()):
             rid = rid.decode() if isinstance(rid, bytes) else rid
-            vec = store.get_row(rid)
-            if vec is None:
-                continue
+            slot = store.slots.get(rid)
+            if slot is not None:
+                found.append((rid, slot))
+        if not found:
+            return []
+        slots = np.fromiter((s for _, s in found), np.int64, len(found))
+        val = store.val[slots]
+        nonzero = val != 0
+        # row-major: each row's nonzeros in slot order, rows back to back
+        flat_idx = store.idx[slots][nonzero].tolist()
+        flat_val = val[nonzero].tolist()
+        out: List[list] = []
+        lo = 0
+        for (rid, _), k in zip(found, nonzero.sum(axis=1).tolist()):
             datum = store.datums.get(rid)
-            out.append([rid, [i for i, _ in vec], [v for _, v in vec],
+            out.append([rid, flat_idx[lo:lo + k], flat_val[lo:lo + k],
                         datum.to_msgpack()
                         if hasattr(datum, "to_msgpack") else None])
+            lo += k
         return out
 
     def put_rows(self, rows: List[list]) -> int:

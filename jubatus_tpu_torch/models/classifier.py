@@ -461,7 +461,9 @@ class ClassifierDriver(DriverBase):
 
 class _ClassifierMixable:
     """The ops-level diff, trimmed to the live label rows, with the label
-    counts; host numpy on the way out."""
+    counts; host numpy on the way out. No custom ``mix``: the fold is the
+    host tree_sum (its trailing-row pad included), as in the JAX
+    package, so the guard screens it and the async fold weights it."""
 
     def __init__(self, driver: ClassifierDriver):
         self._d = driver
@@ -477,10 +479,6 @@ class _ClassifierMixable:
                 "dprec": st.dprec[:n].cpu().numpy(),
                 "count": 1.0,
                 "label_counts": d._dcounts[:n].copy()}
-
-    @staticmethod
-    def mix(lhs, rhs):
-        return {k: lhs[k] + rhs[k] for k in lhs}
 
     def put_diff(self, diff) -> bool:
         d = self._d

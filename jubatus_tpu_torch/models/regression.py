@@ -149,7 +149,11 @@ class RegressionDriver(DriverBase):
 
 
 class _RegressionMixable:
-    """The ops-level diff as host numpy."""
+    """The ops-level diff as host numpy. ``mix`` is the elementwise sum
+    (``MIX_IS_SUM``), so the admission guard screens it and the async
+    fold weights it as the JAX package's summed diff."""
+
+    MIX_IS_SUM = True
 
     def __init__(self, driver: RegressionDriver):
         self._d = driver

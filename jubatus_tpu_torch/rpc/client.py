@@ -200,12 +200,21 @@ class RpcMClient:
 class _ServiceClient:
     """One engine's service methods (``METHODS``) plus the built-ins, each
     call prefixed with the cluster ``name``: ``get_config()``,
-    ``get_status()`` (one map per node), ``save(model_id)`` (node → path),
-    ``load(model_id)`` (True) and ``do_mix()`` (True when a round ran),
-    with the JAX client's wire shapes."""
+    ``get_status()`` (one map per node), ``save(model_id)`` (node → path,
+    plus ``store:<node>`` → store key with a model store),
+    ``load(model_id)`` (True; ``store:<key>`` ids too) and ``do_mix()``
+    (True when a round ran); the elastic plane's ``get_epoch()``,
+    ``drain(stop_after)``, ``drain_status()``, ``rebalance()``,
+    ``migrate_range(epoch, target, cursor, limit)``, ``put_rows(rows)``
+    and ``get_row_count()``; ``rollback(reason)``; and the store's
+    ``store_restore(at_hlc)`` and ``get_store_status()``, with the JAX
+    server's wire shapes."""
 
     METHODS: tuple = ()
-    BUILTINS = ("get_config", "get_status", "save", "load", "do_mix")
+    BUILTINS = ("get_config", "get_status", "save", "load", "do_mix",
+                "get_epoch", "drain", "drain_status", "rebalance",
+                "migrate_range", "put_rows", "get_row_count", "rollback",
+                "store_restore", "get_store_status")
 
     def __init__(self, host: str, port: int, name: str,
                  timeout: float = 10.0) -> None:

@@ -7,8 +7,11 @@ worker pool. Same envelope as the JAX package's server: a request is
 and principal elements (accepted and ignored here), and answers are
 correlated by msgid, so a client may pipeline calls on one connection.
 A wrong parameter count answers ARGUMENT_ERROR, an unknown method
-NO_METHOD_ERROR. Not carried over: tracing, fault injection, deadlines,
-principals, the legacy-wire scan and the raw fast path.
+NO_METHOD_ERROR. ``dispatch_gate``, when set, is called with the method
+name before every dispatch, and raising there refuses the request before
+any state change (the drain plane refuses effectful calls with the
+retryable ``NodeDraining``). Not carried over: tracing, fault injection,
+deadlines, principals, the legacy-wire scan and the raw fast path.
 
 ``stop()`` waits on nothing: it shuts the listening socket and every open
 connection down (which wakes a reader blocked in ``recv`` and a worker
@@ -61,6 +64,11 @@ class RpcServer:
         self._conns_lock = threading.Lock()
         self._running = False
         self.port: Optional[int] = None
+        #: elastic-membership gate: called with the method name before
+        #: every dispatch; raising rejects the request BEFORE any state
+        #: change (the drain plane rejects effectful methods with the
+        #: retryable NodeDraining so callers re-route)
+        self.dispatch_gate: Optional[Callable[[str], None]] = None
 
     def register(self, name: str, fn: Callable[..., Any],
                  arity: Optional[int] = None) -> None:
@@ -182,6 +190,9 @@ class RpcServer:
         want = self._arity.get(method)
         if want is not None and len(params) != want:
             raise TypeError(f"{method}: expected {want} params, got {len(params)}")
+        gate = self.dispatch_gate
+        if gate is not None:
+            gate(method)
         return fn(*params)
 
     def _invoke_silent(self, method: str, params: Any) -> None:

@@ -2,14 +2,18 @@
 
 The reference's flag names and defaults for what the port's server uses:
 the standalone flags, save/load (``-d/--datadir``, ``-m/--model-file``),
-and the RPC linear mix with its coordinator (``-z/--coordinator``,
-``-x/--mixer``, ``-s/--interval-sec``, ``-i/--interval-count``,
-``--interconnect-timeout``, ``--coordinator-timeout``, ``--mix-quorum``,
-``--mix-guard``, ``--mix-norm-bound``), plus ``--device``. ``--mixer``
-takes the JAX package's names, but only ``linear_mixer`` is ported: any
-other raises ``NotYetPorted``, as does ``--mix-guard quarantine``, whose
-rollback needs the model snapshot ring. No flag is accepted and then
-ignored.
+the mix plane with its coordinator (``-z/--coordinator``, ``-x/--mixer``,
+``-s/--interval-sec``, ``-i/--interval-count``, ``--interconnect-timeout``,
+``--coordinator-timeout``, ``--mix-quorum``, ``--mix-async``,
+``--mix-staleness-bound``, ``--mix-guard``, ``--mix-norm-bound``), the
+snapshot ring (``--model-snapshot-interval``), elastic membership
+(``--no-auto-rebalance``, ``--drain-grace``), the model store
+(``--store-dir``, ``--store-interval``, ``--store-compact-every``,
+``--store-compress``, ``--no-store-warmboot``), the chaos drills'
+``--fault`` rules, plus ``--device``, with
+the JAX package's defaults and checks. ``--mixer`` takes the JAX
+package's names; ``collective_mixer`` raises ``NotYetPorted``. No flag is
+accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import socket
 from typing import Any, Dict, List, Optional
 
 from jubatus_tpu_torch import NotYetPorted
+from jubatus_tpu_torch.utils.faults import parse_rule
 
-#: the JAX package's --mixer names; the port has the first
+#: the JAX package's --mixer names; the port has all but collective_mixer
 MIXERS = ("linear_mixer", "collective_mixer", "random_mixer",
           "broadcast_mixer", "skip_mixer", "dummy_mixer")
 
@@ -48,10 +53,35 @@ class ServerArgs:
     #: minimum fraction of members whose diffs must arrive for a master
     #: round to proceed (framework/linear_mixer.py)
     mix_quorum: float = 0.5
-    #: mix admission guard (framework/model_guard.py): off or warn
+    #: stream mix rounds asynchronously (framework/async_mixer.py;
+    #: linear_mixer only)
+    mix_async: bool = False
+    #: rounds-stale past which an async submission is dropped
+    mix_staleness_bound: int = 8
+    #: mix admission guard (framework/model_guard.py): off, warn or
+    #: quarantine
     mix_guard: str = "warn"
     #: norm-outlier multiplier of the mix guard
     mix_norm_bound: float = 10.0
+    #: seconds between in-process model snapshots into the rollback ring
+    #: (0 = none; take_snapshot still works)
+    model_snapshot_interval: float = 0.0
+    #: pull my owned rows from the current owners on join
+    auto_rebalance: bool = True
+    #: seconds a drain waits for in-flight work before the handoff
+    drain_grace: float = 1.0
+    #: root of the shared model store; "" = node-local durability only
+    store_dir: str = ""
+    #: seconds between background store uploads (0 = no uploader)
+    store_interval: float = 0.0
+    #: diff records per chain before a fresh full record
+    store_compact_every: int = 8
+    #: diff-record encoding: off (lossless) or int8
+    store_compress: str = "off"
+    #: boot from the store's freshest snapshot when --store-dir is set
+    store_warmboot: bool = True
+    #: fault-injection rules armed at boot (utils/faults.py grammar)
+    fault: List[str] = dataclasses.field(default_factory=list)
     #: "cuda" (default) or "cpu"; never falls back on its own
     device: str = "cuda"
     #: most examples one coalesced train flush takes; 0 = the direct
@@ -85,13 +115,10 @@ class ServerArgs:
     def check_ported(self) -> None:
         """Raise ``NotYetPorted`` for a flag value whose plane the port
         lacks."""
-        if self.mixer != "linear_mixer":
+        if self.mixer == "collective_mixer":
             raise NotYetPorted(
-                f"--mixer {self.mixer}: only linear_mixer is ported")
-        if self.mix_guard == "quarantine":
-            raise NotYetPorted(
-                "--mix-guard quarantine: its rollback needs the model "
-                "snapshot ring, which is not yet ported")
+                "--mixer collective_mixer: the collective mix plane is not "
+                "yet ported")
 
     def flags_status(self) -> Dict[str, Any]:
         """Flag dump for get_status."""
@@ -120,7 +147,9 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
                         "(or file://path) or 'memory'; empty = standalone")
     p.add_argument("-n", "--name", default="")
     p.add_argument("-x", "--mixer", default="linear_mixer", choices=MIXERS,
-                   help="mix strategy; only linear_mixer is ported")
+                   help="mix strategy: linear_mixer, a push strategy "
+                        "(random_mixer, broadcast_mixer, skip_mixer) or "
+                        "dummy_mixer (collective_mixer is not yet ported)")
     p.add_argument("-s", "--interval-sec", type=float, default=16.0)
     p.add_argument("-i", "--interval-count", type=int, default=512)
     p.add_argument("--coordinator-timeout", "--zookeeper-timeout",
@@ -129,13 +158,59 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("--mix-quorum", type=float, default=0.5,
                    help="minimum fraction of members whose diffs must "
                         "arrive for a mix round to proceed")
+    p.add_argument("--mix-async", action="store_true",
+                   help="stream mix rounds asynchronously (linear mixer "
+                        "only): members push diffs to the master's inbox "
+                        "and the master folds what arrived with "
+                        "bounded-staleness weights")
+    p.add_argument("--mix-staleness-bound", type=int, default=8,
+                   help="rounds-stale past which a submitted diff is "
+                        "dropped from the async fold (its weight decays "
+                        "2**-staleness up to the bound)")
     p.add_argument("--mix-guard", default="warn",
                    choices=["off", "warn", "quarantine"],
                    help="mix admission guard: off = no screening; warn = "
-                        "count + emit, fold anyway (quarantine is not yet "
-                        "ported)")
+                        "count + emit, fold anyway; quarantine = drop "
+                        "screened-out contributions and roll back on a "
+                        "non-finite folded total")
     p.add_argument("--mix-norm-bound", type=float, default=10.0,
                    help="norm-outlier multiplier for the mix guard")
+    p.add_argument("--model-snapshot-interval", type=float, default=0.0,
+                   help="seconds between in-process model snapshots into "
+                        "the bounded rollback ring (save_load envelope, "
+                        "CRC-checked on restore); 0 = none")
+    p.add_argument("--no-auto-rebalance", dest="auto_rebalance",
+                   action="store_false",
+                   help="do NOT pull owned rows from the current owners "
+                        "on join; repair later with the rebalance RPC")
+    p.add_argument("--drain-grace", type=float, default=1.0,
+                   help="seconds a drain waits for in-flight work after "
+                        "new effectful calls start being rejected, before "
+                        "handing rows to their new ring owners")
+    p.add_argument("--store-dir", default="",
+                   help="root of the shared model store: warm boot, "
+                        "background uploads (--store-interval), store:<key> "
+                        "ids in save/load, store_restore; empty = "
+                        "node-local durability only")
+    p.add_argument("--store-interval", type=float, default=0.0,
+                   help="seconds between background uploads to "
+                        "--store-dir (a full record, then diff records); "
+                        "0 = no uploader")
+    p.add_argument("--store-compact-every", type=int, default=8,
+                   help="diff records per chain before the uploader "
+                        "re-anchors with a full record and the store folds "
+                        "the chain")
+    p.add_argument("--store-compress", default="off",
+                   choices=["off", "int8"],
+                   help="diff-record encoding: off = bit-exact replay; "
+                        "int8 = block-quantized deltas with error feedback")
+    p.add_argument("--no-store-warmboot", dest="store_warmboot",
+                   action="store_false",
+                   help="boot cold even when --store-dir is set")
+    p.add_argument("--fault", action="append", default=[],
+                   help="arm a fault-injection rule at boot (repeatable; "
+                        "site:action[:arg], e.g. mix.diff.poison*:nan) — "
+                        "for chaos drills, never in production")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device the model runs on; cuda unless cpu is asked "
                         "for (no fallback)")
@@ -157,6 +232,26 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
         raise SystemExit("--microbatch-max must be >= 0")
     if args.mix_norm_bound <= 0:
         raise SystemExit("--mix-norm-bound must be > 0")
+    if args.mix_staleness_bound < 0:
+        raise SystemExit("--mix-staleness-bound must be >= 0")
+    if args.model_snapshot_interval < 0:
+        raise SystemExit("--model-snapshot-interval must be >= 0")
+    if args.mix_async and args.mixer != "linear_mixer":
+        raise SystemExit(
+            "--mix-async requires -x linear_mixer (push mixers are "
+            "already leaderless; the collective is a barrier by "
+            "construction)")
+    if args.store_interval < 0:
+        raise SystemExit("--store-interval must be >= 0")
+    if args.store_compact_every < 1:
+        raise SystemExit("--store-compact-every must be >= 1")
+    if args.store_interval > 0 and not args.store_dir:
+        raise SystemExit("--store-interval requires --store-dir")
+    for rule in args.fault:
+        try:  # reject bad grammar at argv time, not at first firing
+            parse_rule(rule)
+        except ValueError as e:
+            raise SystemExit(str(e))
     if args.is_standalone and not args.configpath:
         raise SystemExit("standalone mode requires -f/--configpath")
     if not args.is_standalone and not args.name:

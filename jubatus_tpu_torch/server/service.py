@@ -1,7 +1,10 @@
 """Wire adapters: bind a driver onto the RpcServer (counterpart of
 ``jubatus_tpu/server/service.py``).
 
-Registers the built-ins get_config, get_status, save, load and do_mix and
+Registers the built-ins get_config, get_status, save, load and do_mix,
+those of the elastic membership plane (get_epoch, drain, drain_status,
+rebalance, migrate_range, put_rows, get_row_count), of the snapshot ring
+(rollback) and of the model store (store_restore, get_store_status), and
 the engine's IDL methods, each under its wire name, arity and wire shape,
 with the leading cluster-name parameter every jubatus call carries (the
 mixer registers its own ``mix_*`` RPCs). Update methods run under the
@@ -61,6 +64,21 @@ def bind_engine(rpc: RpcServer, server: Any) -> None:
     rpc.register("load", server.load, arity=2)
     rpc.register("get_status", server.get_status, arity=1)
     rpc.register("do_mix", server.do_mix, arity=1)
+    # elastic membership: ring version, drain control and the migration
+    # data plane (framework/migration.py); row payloads travel as msgpack
+    # bin, as the JAX server's binary registration sends them
+    rpc.register("get_epoch", server.get_epoch, arity=1)
+    rpc.register("drain", server.drain, arity=2)
+    rpc.register("drain_status", server.drain_status, arity=1)
+    rpc.register("rebalance", server.rebalance, arity=1)
+    rpc.register("migrate_range", server.migrate_range, arity=5)
+    rpc.register("put_rows", server.put_rows, arity=2)
+    rpc.register("get_row_count", server.get_row_count, arity=1)
+    # model-integrity plane: restore the last-good snapshot
+    rpc.register("rollback", server.rollback, arity=2)
+    # durable model plane: point-in-time restore + the store's status
+    rpc.register("store_restore", server.store_restore, arity=2)
+    rpc.register("get_store_status", server.get_store_status, arity=1)
     _BINDERS[server.engine](rpc, server)
 
 

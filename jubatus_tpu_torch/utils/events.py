@@ -20,7 +20,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 #: default journal depth
 DEFAULT_CAPACITY = 2048
@@ -77,6 +77,15 @@ def observe(remote: int) -> int:
     return _clock.observe(remote)
 
 
+def _rec_matches(rec: Dict[str, Any], grep: str) -> bool:
+    """Case-insensitive substring match over the rendered identity of
+    one event (subsystem, type, severity, node, field values)."""
+    hay = " ".join(
+        str(v) for v in rec.values() if isinstance(v, (str, int, float))
+    ).lower()
+    return grep.lower() in hay
+
+
 class EventJournal:
     """Bounded per-process ring of typed, HLC-stamped events."""
 
@@ -121,12 +130,23 @@ class EventJournal:
                 self._counter("event.dropped")
         return rec
 
+    def snapshot(self, since: int = 0, grep: str = "",
+                 limit: int = 0) -> List[Dict[str, Any]]:
+        """Oldest-first copy of events with ``hlc > since`` (the
+        cursor contract: re-poll with the max hlc you saw), optionally
+        grep-filtered; ``limit > 0`` keeps the newest that many."""
+        since = int(since or 0)
+        with self._lock:
+            out = [dict(r) for r in self._ring if r["hlc"] > since]
+        if grep:
+            out = [r for r in out if _rec_matches(r, str(grep))]
+        return out[-limit:] if limit > 0 else out
+
     def stats(self) -> Dict[str, Any]:
         with self._lock:
             return {"emitted": self._emitted,
                     "retained": len(self._ring),
                     "capacity": self.capacity}
-
 
 
 _default = EventJournal()

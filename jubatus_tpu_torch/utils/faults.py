@@ -1,5 +1,5 @@
 """Fault injection registry (copy of ``jubatus_tpu/utils/faults.py``,
-trimmed to what the mix plane fires).
+trimmed to what the mix, migration and store planes fire).
 
 Named sites in the mix plane call ``fire(site)`` or ``fire_mutate(site)``,
 and a test arms rules against them with ``armed(...)``. Rule syntax:
@@ -15,13 +15,17 @@ and a test arms rules against them with ``armed(...)``. Rule syntax:
                                  sites only)
     <site-glob>:scale:<F>        poison: multiply every float leaf of a
                                  contribution by F
+    <site-glob>:bitflip          corrupt: flip one bit of the bytes a
+                                 fire_mutate site stages (flip_byte)
     <site-glob>:error@<n>        ... only for the first n firings
 
-Sites of the port's mix plane: ``mix.comm.get_diff``,
-``mix.comm.put_diff``, ``mix.put_diff``, ``mix.diff.poison[.<node>]``
-and ``breaker.allow.<host:port>``. ``fire`` is a no-op (one module flag
-read) when nothing is armed. Not carried over: the ``JUBATUS_TPU_FAULTS``
-environment variable, the ``--fault`` flag and the ``bitflip`` action.
+Sites of the port: ``mix.comm.get_diff``, ``mix.comm.put_diff``,
+``mix.put_diff``, ``mix.diff.poison[.<node>]``,
+``mix.async.submit.<node>``, ``mix.async.inbox.<node>``,
+``migration.pull``, ``store.put``, ``store.get``, ``store.compact`` and
+``breaker.allow.<host:port>``. ``fire`` is a no-op (one module flag read)
+when nothing is armed. Not carried over: the ``JUBATUS_TPU_FAULTS``
+environment variable and the ``--fault`` flag.
 
     with faults.armed("mix.comm.get_diff:error@1"):
         ...  # the next master-side gather fails once
@@ -42,12 +46,12 @@ from jubatus_tpu_torch.utils import events
 from jubatus_tpu_torch.utils.tree import tree_map
 
 __all__ = ["FaultInjected", "armed", "fire", "fire_mutate", "poison_tree",
-           "is_armed"]
+           "flip_byte", "is_armed", "disarm_all"]
 
 #: actions that MUTATE data instead of dropping/raising: returned by
 #: fire_mutate for the caller to apply (poison_tree), and invisible to
 #: plain fire() sites by construction
-MUTATE_ACTIONS = ("nan", "scale")
+MUTATE_ACTIONS = ("nan", "scale", "bitflip")
 
 
 class FaultInjected(RuntimeError):
@@ -82,13 +86,13 @@ def parse_rule(text: str) -> _Rule:
     action_idx = None
     for i in range(len(parts) - 1, -1, -1):
         if parts[i].split("@", 1)[0] in ("error", "delay", "drop",
-                                         "nan", "scale"):
+                                         "nan", "scale", "bitflip"):
             action_idx = i
             break
     if action_idx is None or action_idx == 0:
         raise ValueError(
             f"bad fault rule {text!r} (want site:action[:arg], action in "
-            "{error, delay, drop, nan, scale})")
+            "{error, delay, drop, nan, scale, bitflip})")
     pattern = ":".join(parts[:action_idx])
     action = parts[action_idx]
     extra = parts[action_idx + 1:]
@@ -136,6 +140,14 @@ def disarm(rules: List[_Rule]) -> None:
             if r in _rules:
                 _rules.remove(r)
         _armed = bool(_rules)
+
+
+def disarm_all() -> None:
+    global _armed
+    with _lock:
+        _rules.clear()
+        _fired.clear()
+        _armed = False
 
 
 def is_armed() -> bool:
@@ -248,3 +260,13 @@ def poison_tree(diffs, mutation: tuple):
         return y
 
     return tree_map(mutate, diffs)
+
+
+def flip_byte(buf: bytes) -> bytes:
+    """One-byte corruption of staged bytes (the ``bitflip`` drill):
+    returns a copy with a single bit flipped at a seeded-random offset."""
+    if not buf:
+        return buf
+    out = bytearray(buf)
+    out[_rng.randrange(len(out))] ^= 0x40
+    return bytes(out)

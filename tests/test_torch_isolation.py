@@ -75,6 +75,13 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.coord.cht",
     "jubatus_tpu_torch.rpc.breaker",
     "jubatus_tpu_torch.parallel.mix",
+    "jubatus_tpu_torch.framework.idl",
+    "jubatus_tpu_torch.framework.migration",
+    "jubatus_tpu_torch.framework.push_mixer",
+    "jubatus_tpu_torch.framework.async_mixer",
+    "jubatus_tpu_torch.framework.model_store",
+    "jubatus_tpu_torch.rpc.errors",
+    "jubatus_tpu_torch.rpc.server",
 )
 
 

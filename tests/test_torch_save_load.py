@@ -365,14 +365,17 @@ def test_model_files_cross_load_between_the_packages(engine, conf, rtol,
 
 
 def test_load_refuses_store_ids_as_not_yet_ported(tmp_path):
-    from jubatus_tpu_torch import NotYetPorted
-
+    """Without --store-dir a store id names no store: load refuses it as
+    the JAX server does, looking for a model file of that id."""
     srv, _ = _port_server("stat", _conf("stat/default.json"), str(tmp_path))
+    jsrv, _ = _jax_server("stat", _conf("stat/default.json"), str(tmp_path))
     try:
-        with pytest.raises(NotYetPorted, match="store"):
-            srv.load(NAME, "store:abc")
+        for s in (srv, jsrv):
+            with pytest.raises(FileNotFoundError, match="store:abc"):
+                s.load(NAME, "store:abc")
     finally:
         srv.stop()
+        jsrv.stop()
 
 
 def test_server_main_saves_and_loads_with_datadir_and_model_file(tmp_path):
