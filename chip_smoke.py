@@ -40,7 +40,8 @@ each of which fails the run (non-zero exit, no result line) on error:
    with the port's driver on the CPU fed the same rows; the server's
    scan-launch count (get_status) must move;
 5. recommender: ``config/recommender/{lsh,minhash,default}.json`` (default
-   is inverted_index) with the rows of phase 3 through ``backend.set_row``;
+   is inverted_index) with the first REC_ROWS (2.5·10^5) rows of phase 3
+   through ``backend.set_row``;
    50 ``similar_row_from_datum`` (k = 10) and 50
    ``complete_row_from_datum`` timed (p50/p99), the flush (or, for the
    exact method, the arenas' upload) timed; the first answers held against
@@ -120,7 +121,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    fold of both members' diffs against two CPU port servers driven the
    same way, then streaming turns (submits, folds, staleness, drops,
    stalls) until the replicas hold one model; an ``lsh.json`` server
-   filled with 10^6 rows through ``put_rows``, a second server's
+   filled with 2.5·10^5 rows through ``put_rows``, a second server's
    ``rebalance`` pull, its first query (signing every pulled row, K1),
    then the first server's drain and handoff, the new owner's answers
    equal to the source's each time; the AROW driver at phase 8's shape
@@ -129,9 +130,31 @@ each of which fails the run (non-zero exit, no result line) on error:
    regression server stopped and restarted warm from ``--store-dir``
    (answers equal, its flushes launch S1); two ``arow.json`` servers
    under ``--mix-guard quarantine``, one armed with ``--fault
-   mix.diff.poison*:nan``, rolling back on the refused total.
+   mix.diff.poison*:nan``, rolling back on the refused total;
+13. the fleet, every process on the card: a port ``jubacoordd``
+   (``python -m jubatus_tpu_torch.coord.server --journal``), three configs
+   written with ``jubaconfig`` (nearest_neighbor lsh.json, phase 6's LOF
+   config over lsh, regression default.json), one ``jubavisor``,
+   ``jubactl -c start -N 2`` per engine and one routing proxy per engine
+   (``python -m jubatus_tpu_torch.server.proxy``). nearest_neighbor: each
+   member filled with 2.5·10^5 rows on their CHT(1) owner by ``put_rows``
+   (5·10^5 in all), 2,000 ``set_row`` through the proxy,
+   200 each of ``neighbor_row_from_datum`` and ``similar_row_from_datum``
+   through the proxy and directly to both members (every proxied answer
+   equal to one member's exactly; p50/p99 both ways; the proxy's forwards
+   through the raw relay and the generic path); anomaly: 200 ``add``
+   through the proxy, each id held by both CHT(2) owners, ``calc_score``;
+   regression: 10^4 rows through the proxy in calls of 256, ``estimate``;
+   the broadcasts (``get_status`` and ``save`` merged, ``clear``
+   all_and); ``jubactl -c drain`` of one NN member while a client writes
+   through the proxy (no client error, every row on the survivor), then
+   ``rebalance``, ``rollback`` (refused by every member: jubactl start
+   forwards no snapshot interval), ``status --all``, one ``watch`` frame
+   and ``stop``, after which the visor has no children. K1 and S1
+   launches of the phase come from the members' get_status
+   (``[deploy_launches]``).
 
-Phases 3-7, 8, 9, 10, 11 and 12 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8, 9, 10, 11, 12 and 13 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -171,7 +194,8 @@ ROWS = 1_000_000              # rows of each full-size backend
 QUERIES = 200                 # timed neighbors() queries per backend
 PROFILED_QUERIES = 20         # further queries under torch.profiler
 SERVER_ROWS = 10_000          # rows written over the wire per server
-REC_ROWS = 1_000_000          # rows of each recommender (phase 5)
+REC_ROWS = 250_000            # rows of each recommender (phase 5; cut from
+                              # 10^6 to keep the run inside its time limit)
 REC_QUERIES = 50              # timed similar_row / complete_row calls each
 REC_PROFILED = 10             # further similar_row calls under the profiler
 REC_CONFIGS = ("lsh.json", "minhash.json", "default.json")
@@ -868,7 +892,7 @@ def compare_close(got, want, what: str, tol: float) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the recommender at 10^6 rows
+# phase 5: the recommender at REC_ROWS rows
 # ---------------------------------------------------------------------------
 EXACT_TOL = 1e-5      # exact distances on the card against the CPU (abs)
 
@@ -2771,7 +2795,8 @@ PUSH_REPEATABLE = ("broadcast_mixer", "skip_mixer")
 PUSH_ROWS = 3_000             # arow.json rows, a third per member
 ASYNC_ROWS = 2_000            # arow.json rows, half per member
 ASYNC_STREAM_STEPS = 4        # train + do_mix on each member, in turns
-ELASTIC_ROWS = 1_000_000      # phase 3's row count
+ELASTIC_ROWS = 250_000        # cut from phase 3's 10^6 to keep the run
+                              # inside its time limit
 ELASTIC_FILL = 20_000         # rows per put_rows call of the fill
 ELASTIC_QUERIES = 5
 STORE_ROWS = 2_000            # regression rows before the warm boot
@@ -3366,6 +3391,451 @@ def phase_quarantine(Datum, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 13: the fleet — jubacoordd, jubaconfig, jubavisor, jubactl and one
+# routing proxy per engine, every process on the card
+# ---------------------------------------------------------------------------
+FLEET_NN_ROWS = 250_000       # put_rows per NN member (cut from 5·10^5:
+                              # the phase passed 150 s)
+FLEET_NN_FILL = 20_000        # rows per put_rows call
+FLEET_SETS = 2_000            # set_row calls through the proxy
+FLEET_QUERIES = 200           # each NN query method through the proxy
+FLEET_ADDS = 200              # anomaly adds through the proxy
+FLEET_SCORES = 20             # calc_score through the proxy
+FLEET_TRAIN = 10_000          # regression rows through the proxy
+FLEET_ESTIMATES = 50
+FLEET_WAIT_S = 300            # longest wait for a fleet, a drain, a stop
+FLEET_ENGINES = (("nearest_neighbor", "fleet_nn"), ("anomaly", "fleet_lof"),
+                 ("regression", "fleet_reg"))
+
+
+def spawn(tag: str, *argv):
+    """``python -m <argv>`` from the repo root, its output to a log file
+    under OUT_DIR; returns (process, log path)."""
+    log_path = os.path.join(OUT_DIR, f"chip_smoke_{tag}.log")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                                stdout=logf, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def ctl(tool, *argv) -> tuple:
+    """One ``jubactl`` / ``jubaconfig`` run in this process (their
+    ``main``): (exit code, what it printed)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(list(argv))
+    return rc, buf.getvalue()
+
+
+def children_of(pid: int) -> list:
+    """The live child processes of ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.append(int(entry))
+    return out
+
+
+def fleet_nn_fill(ring, members, seed: int):
+    """FLEET_NN_ROWS rows for each member, each row on its CHT(1) owner:
+    {member name: [put_rows chunk, ...]} (phase 3's row shape)."""
+    rng = np.random.default_rng(seed + 1301)
+    want = {m.name: [] for m in members}
+    i = 0
+    while any(len(v) < FLEET_NN_ROWS for v in want.values()):
+        idx, val = random_rows(rng, FLEET_NN_FILL, 32, 18)
+        for ii, vv in zip(idx.tolist(), val.tolist()):
+            rid = f"r{i}"
+            i += 1
+            owner = ring.find(rid, 1)[0].name
+            if len(want[owner]) < FLEET_NN_ROWS:
+                want[owner].append([rid, ii, vv, None])
+    return {name: [rows[lo:lo + FLEET_NN_FILL]
+                   for lo in range(0, len(rows), FLEET_NN_FILL)]
+            for name, rows in want.items()}
+
+
+def one_of(got, answers, what: str) -> int:
+    """The index of the direct answer ``got`` equals exactly."""
+    for i, a in enumerate(answers):
+        if got == a:
+            return i
+    raise SmokeError(f"{what}: the proxied answer equals no member's "
+                     f"direct answer")
+
+
+def phase_fleet(Datum, seed: int) -> dict:
+    """A port ``jubacoordd`` (``--journal``), three configs written with
+    ``jubaconfig`` (nearest_neighbor lsh.json, the LOF config of phase 6
+    over lsh, regression default.json), one ``jubavisor`` on the card,
+    ``jubactl -c start -N 2`` per engine and one proxy per engine, every
+    one its own process. nearest_neighbor: each member filled with
+    FLEET_NN_ROWS rows on their CHT(1) owner by ``put_rows``, FLEET_SETS
+    ``set_row`` through the proxy, then FLEET_QUERIES of each query method
+    through the proxy and directly to both members (each proxied answer
+    equal to one member's). anomaly: FLEET_ADDS ``add`` through the proxy,
+    each id held by both CHT(2) owners, then ``calc_score``. regression:
+    FLEET_TRAIN rows in calls of LINEAR_BATCH through the proxy, then
+    ``estimate``. The broadcasts (``get_status`` merge, ``save`` merge,
+    ``clear`` all_and), then ``jubactl -c drain`` of one NN member under a
+    writer through the proxy (no client error, every row handed off),
+    ``rebalance``, ``rollback``, ``status --all``, ``watch --once`` and
+    ``stop``: the visor is left with no children."""
+    import threading
+
+    from jubatus_tpu_torch.cmd import jubaconfig, jubactl
+    from jubatus_tpu_torch.coord import membership
+    from jubatus_tpu_torch.coord.cht import CHT
+    from jubatus_tpu_torch.coord.remote import RemoteCoordinator
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    d = fleet_dir("fleet13")
+    cport, vport = free_port(), free_port()
+    locator = f"tcp://127.0.0.1:{cport}"
+    procs = []
+    out: dict = {}
+    launches = {m: 0 for m in RECORDED}
+    view = None
+    try:
+        t_boot = time.perf_counter()
+        coordd = spawn("coordd", "jubatus_tpu_torch.coord.server", "-p",
+                       str(cport), "-b", "127.0.0.1", "--journal",
+                       os.path.join(d, "coord.journal"))
+        procs.append(coordd)
+        deadline = time.time() + FLEET_WAIT_S
+        while view is None:
+            check(coordd[0].poll() is None, "jubacoordd exited")
+            try:
+                view = RemoteCoordinator("127.0.0.1", cport)
+            except Exception:  # broad-ok — still starting
+                check(time.time() < deadline, "jubacoordd never answered")
+                time.sleep(0.2)
+        configs = {
+            "nearest_neighbor": os.path.join(ROOT, "config",
+                                             "nearest_neighbor", "lsh.json"),
+            "anomaly": write_config("fleet_lof.json", lof_config("lsh")),
+            "regression": os.path.join(ROOT, "config", "regression",
+                                       "default.json")}
+        for engine, name in FLEET_ENGINES:
+            rc, text = ctl(jubaconfig, "-c", "write", "-t", engine, "-n",
+                           name, "-f", configs[engine], "-z", locator,
+                           "--device", "cuda")
+            check(rc == 0, f"jubaconfig write {engine}: {text}")
+        visor = spawn("jubavisor", "jubatus_tpu_torch.cmd.jubavisor", "-z",
+                      locator, "-p", str(vport), "-m", "8", "-b",
+                      "127.0.0.1", "-l", os.path.join(d, "children.log"),
+                      "--device", "cuda")
+        procs.append(visor)
+        wait_for(lambda: view.list(membership.SUPERVISOR_BASE),
+                 "the visor never registered", FLEET_WAIT_S)
+        for engine, name in FLEET_ENGINES:
+            rc, text = ctl(jubactl, "-c", "start", "-t", engine, "-n", name,
+                           "-N", "2", "-z", locator, "-B", "127.0.0.1",
+                           "-C", "4", "-D", d, "-S", str(10 ** 9),
+                           "-I", str(1 << 30))
+            check(rc == 0, f"jubactl start {engine}: {text}")
+        proxies = {}
+        for engine, name in FLEET_ENGINES:
+            pport = free_port()
+            procs.append(spawn(f"proxy_{engine}",
+                               "jubatus_tpu_torch.server.proxy", engine,
+                               "-z", locator, "-p", str(pport), "-b",
+                               "127.0.0.1", "-c", "8", "-t", "300",
+                               "--interconnect-timeout", "300"))
+            proxies[engine] = pport
+        for engine, name in FLEET_ENGINES:
+            wait_for(lambda e=engine, n=name: len(membership.get_all_actives(
+                view, e, n)) == 2, f"two {engine} members never joined",
+                FLEET_WAIT_S)
+        pcli = {}
+        for engine, name in FLEET_ENGINES:
+            pcli[engine] = RpcClient("127.0.0.1", proxies[engine],
+                                     timeout=300.0)
+            wait_for(lambda c=pcli[engine], n=name: answers_ok(
+                c, "get_proxy_status", n), f"the {engine} proxy never "
+                "answered", FLEET_WAIT_S)
+        members = {engine: sorted(membership.get_all_actives(view, engine,
+                                                              name),
+                                  key=lambda m: m.port)
+                   for engine, name in FLEET_ENGINES}
+        direct = {engine: [RpcClient(m.host, m.port, timeout=300.0)
+                           for m in ms] for engine, ms in members.items()}
+        for engine, clis in direct.items():
+            for c in clis:
+                st = next(iter(c.call("get_status", "smoke").values()))
+                check(st["driver.device"].startswith("cuda"),
+                      f"{engine} member on {st['driver.device']}")
+        out["boot_s"] = time.perf_counter() - t_boot
+        nn_name = FLEET_ENGINES[0][1]
+
+        # -- nearest_neighbor: fill, set_row, queries
+        ring = CHT.from_coordinator(view, "nearest_neighbor", nn_name)
+        fill = fleet_nn_fill(ring, members["nearest_neighbor"], seed)
+        t0 = time.perf_counter()
+
+        def put(member, cli):
+            for rows in fill[member.name]:
+                check(cli.call("put_rows", nn_name, rows) == len(rows),
+                      "put_rows applied a short count")
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(put, m, c) for m, c in zip(
+                    members["nearest_neighbor"],
+                    direct["nearest_neighbor"])]:
+                fut.result()
+        fill_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 1302)
+        nn = pcli["nearest_neighbor"]
+        set_lat = []
+        for i in range(FLEET_SETS):
+            dat = server_datum(rng, Datum, i)
+            ok, ms = timed(nn.call, "set_row", nn_name, f"s{i}", dat)
+            check(ok is True, "set_row through the proxy failed")
+            set_lat.append(ms)
+        # each member's first query signs the rows written since the fill
+        warm = server_datum(rng, Datum, FLEET_SETS + FLEET_QUERIES)
+        first = [timed(c.call, "neighbor_row_from_datum", nn_name, warm,
+                       10)[1] for c in direct["nearest_neighbor"]]
+        queries = {"neighbor_row_from_datum": [], "similar_row_from_datum": []}
+        lat = {m: {"proxy": [], "direct": []} for m in queries}
+        routed = {m: [0, 0] for m in queries}
+        for i in range(FLEET_QUERIES):
+            dat = server_datum(rng, Datum, FLEET_SETS + i)
+            for method in queries:
+                got, ms = timed(nn.call, method, nn_name, dat, 10)
+                lat[method]["proxy"].append(ms)
+                answers = []
+                for c in direct["nearest_neighbor"]:
+                    a, ms = timed(c.call, method, nn_name, dat, 10)
+                    lat[method]["direct"].append(ms)
+                    answers.append(a)
+                check(len(got) == 10, f"{method}: {len(got)} answers")
+                routed[method][one_of(got, answers, method)] += 1
+        (pst,) = nn.call("get_proxy_status", nn_name).values()
+        nn_rows = sum(c.call("get_row_count", nn_name)
+                      for c in direct["nearest_neighbor"])
+        check(nn_rows == 2 * FLEET_NN_ROWS + FLEET_SETS,
+              f"the NN members hold {nn_rows} rows")
+        out["nearest_neighbor"] = dict(
+            config="config/nearest_neighbor/lsh.json",
+            rows=2 * FLEET_NN_ROWS, fill_s=fill_s,
+            fill_rows_per_s=2 * FLEET_NN_ROWS / fill_s,
+            set_row=pcts(set_lat), first_query_direct_ms=first,
+            queries={m: dict(proxy=pcts(v["proxy"]),
+                             direct=pcts(v["direct"]),
+                             answered_by_member=routed[m])
+                     for m, v in lat.items()},
+            proxy=dict(forward_count=pst["forward_count"],
+                       relay_count=pst["relay_count"],
+                       generic_count=pst["forward_count"]
+                       - pst["relay_count"],
+                       forward_errors=pst["forward_errors"],
+                       ring_builds=pst["ring.builds"],
+                       ring_hits=pst["ring.hits"]))
+
+        # -- anomaly: adds placed on both CHT(2) owners, then calc_score
+        lof_name = FLEET_ENGINES[1][1]
+        an = pcli["anomaly"]
+        add_lat, ids = [], []
+        for i in range(FLEET_ADDS):
+            (rid, score), ms = timed(an.call, "add", lof_name,
+                                     server_datum(rng, Datum, i))
+            check(np.isfinite(score), f"add score {score}")
+            ids.append(rid)
+            add_lat.append(ms)
+        ring = CHT.from_coordinator(view, "anomaly", lof_name)
+        held = [set(c.call("get_all_rows", lof_name))
+                for c in direct["anomaly"]]
+        by_name = {m.name: h for m, h in zip(members["anomaly"], held)}
+        for rid in ids:
+            owners = ring.find(rid, 2)
+            check(len(owners) == 2 and all(rid in by_name[o.name]
+                                           for o in owners),
+                  f"row {rid} is not on both of its CHT(2) owners")
+        score_lat = []
+        for i in range(FLEET_SCORES):
+            dat = server_datum(rng, Datum, FLEET_ADDS + i)
+            got, ms = timed(an.call, "calc_score", lof_name, dat)
+            score_lat.append(ms)
+            answers = [c.call("calc_score", lof_name, dat)
+                       for c in direct["anomaly"]]
+            check(np.isfinite(got), f"calc_score {got}")
+            one_of(got, answers, "calc_score")
+        out["anomaly"] = dict(config="lof_unlearner_lru.json, nested lsh",
+                              adds=FLEET_ADDS, add=pcts(add_lat),
+                              calc_score=pcts(score_lat))
+
+        # -- regression: train in calls of LINEAR_BATCH, then estimate
+        reg_name = FLEET_ENGINES[2][1]
+        rg = pcli["regression"]
+        rows = [linear_example(rng, Datum, "regression", i)
+                for i in range(FLEET_TRAIN)]
+        t0 = time.perf_counter()
+        train_lat = []
+        for lo in range(0, FLEET_TRAIN, LINEAR_BATCH):
+            batch = rows[lo:lo + LINEAR_BATCH]
+            n, ms = timed(rg.call, "train", reg_name, batch)
+            check(n == len(batch), "train through the proxy: short count")
+            train_lat.append(ms)
+        train_s = time.perf_counter() - t0
+        est_lat = []
+        for i in range(FLEET_ESTIMATES):
+            dat = [rows[i][1]]
+            got, ms = timed(rg.call, "estimate", reg_name, dat)
+            est_lat.append(ms)
+            answers = [c.call("estimate", reg_name, dat)
+                       for c in direct["regression"]]
+            check(all(np.isfinite(got)), f"estimate {got}")
+            one_of(got, answers, "estimate")
+        out["regression"] = dict(config="config/regression/default.json",
+                                 rows=FLEET_TRAIN,
+                                 rows_per_s=FLEET_TRAIN / train_s,
+                                 train=pcts(train_lat),
+                                 estimate=pcts(est_lat))
+
+        # -- broadcasts
+        bc = {}
+        for engine, name in FLEET_ENGINES:
+            st, ms = timed(pcli[engine].call, "get_status", name)
+            check(set(st) == {m.name for m in members[engine]},
+                  f"{engine} get_status merged {sorted(st)}")
+            saved, save_ms = timed(pcli[engine].call, "save", name, "f13")
+            check(len(saved) == 2 and all(
+                os.path.exists(p) for p in saved.values()),
+                f"{engine} save merged {saved}")
+            bc[engine] = dict(get_status_ms=ms, save_ms=save_ms)
+        ok, ms = timed(rg.call, "clear", reg_name)
+        check(ok is True, "clear through the proxy")
+        for c in direct["regression"]:
+            check(c.call("estimate", reg_name, [rows[0][1]]) == [0.0],
+                  "a regression member kept its model after clear")
+        bc["regression"]["clear_ms"] = ms
+        out["broadcasts"] = bc
+
+        # -- operations: a drain under a writer through the proxy; the
+        # drained member exits (--stop), so its counts are read first
+        final = {c.port: next(iter(c.call("get_status", "smoke").values()))
+                 for clis in direct.values() for c in clis}
+        src = members["nearest_neighbor"][0]
+        src_rows = direct["nearest_neighbor"][0].call("get_row_count",
+                                                      nn_name)
+        writes, errors = [0], []
+        stop = threading.Event()
+
+        def writer():
+            with RpcClient("127.0.0.1", proxies["nearest_neighbor"],
+                           timeout=300.0) as w:
+                wrng = np.random.default_rng(seed + 1303)
+                while not stop.is_set():
+                    try:
+                        ok = w.call("set_row", nn_name, f"w{writes[0]}",
+                                    server_datum(wrng, Datum, writes[0]))
+                        check(ok is True, "set_row returned False")
+                        writes[0] += 1
+                    except Exception as e:  # broad-ok — counted, checked
+                        errors.append(repr(e))
+
+        wt = threading.Thread(target=writer, daemon=True)
+        wt.start()
+        t0 = time.perf_counter()
+        rc, text = ctl(jubactl, "-c", "drain", "-t", "nearest_neighbor",
+                       "-n", nn_name, "-z", locator, "--target", src.name,
+                       "--stop", "--drain-timeout", str(FLEET_WAIT_S))
+        drain_s = time.perf_counter() - t0
+        stop.set()
+        wt.join(timeout=FLEET_WAIT_S)
+        check(rc == 0, f"jubactl drain: {text}")
+        check(not errors, f"{len(errors)} client errors during the drain: "
+              f"{errors[:3]}")
+        wait_for(lambda: len(membership.get_all_nodes(
+            view, "nearest_neighbor", nn_name)) == 1,
+            "the drained member never left", FLEET_WAIT_S)
+        direct["nearest_neighbor"][0].close()
+        survivor = direct["nearest_neighbor"][1]
+        direct["nearest_neighbor"] = [survivor]
+        total = 2 * FLEET_NN_ROWS + FLEET_SETS + writes[0]
+        check(survivor.call("get_row_count", nn_name) == total,
+              "the survivor does not hold every row after the drain")
+        # the source's rows when the drain began (the writer's few rows
+        # routed to it before its gate closed are not counted)
+        out["drain"] = dict(seconds=drain_s, source_rows=src_rows,
+                            rows_per_s=src_rows / drain_s,
+                            writes_during=writes[0], client_errors=0)
+        rc, text = ctl(jubactl, "-c", "rebalance", "-t", "nearest_neighbor",
+                       "-n", nn_name, "-z", locator)
+        check(rc == 0 and "rebalance complete" in text,
+              f"jubactl rebalance: {text}")
+        check(survivor.call("get_row_count", nn_name) == total,
+              "rows moved by the rebalance")
+        # jubactl start forwards no --model-snapshot-interval (nor does
+        # the JAX package's), so no member holds a snapshot: rollback
+        # must reach every member and be refused by each
+        rc, text = ctl(jubactl, "-c", "rollback", "-t", "regression", "-n",
+                       reg_name, "-z", locator)
+        check(text.count("refused: no model snapshot retained") == 2,
+              f"jubactl rollback: {text}")
+        rc, text = ctl(jubactl, "-c", "status", "--all", "-t",
+                       "nearest_neighbor", "-n", nn_name, "-z", locator)
+        check(rc == 0 and f"{nn_name}: 1 node(s), 1 active" in text
+              and f"update_count: " in text, f"jubactl status: {text[:400]}")
+        rc, frame = ctl(jubactl, "-c", "watch", "--once", "-t",
+                        "nearest_neighbor", "-n", nn_name, "-z", locator)
+        check(rc == 0 and "(1 server(s), 3 proxy(ies))" in frame,
+              f"jubactl watch: {frame}")
+        out["watch_frame"] = frame.splitlines()
+        for engine, clis in direct.items():
+            for c in clis:
+                final[c.port] = next(iter(
+                    c.call("get_status", "smoke").values()))
+                c.close()
+        launches = {m: 0 for m in RECORDED}
+        for st in final.values():
+            add_launches(launches, st)
+        for c in pcli.values():
+            c.close()
+        for engine, name in FLEET_ENGINES:
+            rc, text = ctl(jubactl, "-c", "stop", "-t", engine, "-n", name,
+                           "-z", locator)
+            check(rc == 0, f"jubactl stop {engine}: {text}")
+        for engine, name in FLEET_ENGINES:
+            wait_for(lambda e=engine, n=name: not membership.get_all_nodes(
+                view, e, n), f"the {engine} members never left",
+                FLEET_WAIT_S)
+        wait_for(lambda: not children_of(visor[0].pid),
+                 "the visor still has children", FLEET_WAIT_S)
+        out["visor_children_after_stop"] = 0
+        return dict(out, server_launches=launches)
+    except Exception:
+        for _, log_path in procs:
+            with open(log_path) as f:
+                tail = f.read()[-2000:]
+            print(f"--- {log_path}, last lines:\n{tail}", file=sys.stderr)
+        raise
+    finally:
+        if view is not None:
+            view.close()
+        for proc, _ in reversed(procs):
+            stop_server(proc)
+
+
+def answers_ok(cli, method: str, name: str) -> bool:
+    try:
+        cli.call(method, name)
+        return True
+    except Exception:  # broad-ok — not serving yet
+        return False
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3579,8 +4049,25 @@ def main(argv=None) -> int:
         run_path("linear_servers", linear_servers_path)
         run_path("clustering_graph", clustering_graph_path)
         run_path("save_load_mix", save_load_mix_path)
+        def deploy_path():
+            res = phase_fleet(Datum, args.seed)
+            for key in ("nearest_neighbor", "anomaly", "regression",
+                        "broadcasts", "drain"):
+                log(f"[deploy] {key} {json.dumps(res[key])} | {kind} | {smi}")
+            log(f"[deploy] boot_s {res['boot_s']:.3f} visor children after "
+                f"stop {res['visor_children_after_stop']}")
+            for line in res["watch_frame"]:
+                log(f"[deploy] watch | {line}")
+            return {"server_launches": res["server_launches"]}
+
         run_path("push_async_elastic_store", p12_path)
+        run_path("deploy", deploy_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
+        log(f"[deploy_launches] phase 13, read from the members' get_status: "
+            f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
+            f"sig_scan.minhash {paths['deploy']['minhash']}, "
+            f"S1 online_scan.pa {paths['deploy']['pa_scan']} "
+            f"({json.dumps(paths['deploy'])}) | {kind} | {smi}")
         launches = {m: sum(p[m] for p in paths.values()) for m in COUNTED}
         for mode, n in launches.items():
             check(n > 0, f"{mode} never launched on the main path")
@@ -3596,6 +4083,8 @@ def main(argv=None) -> int:
             check(paths["push_async_elastic_store"][mode] > 0,
                   f"{mode} never launched on the push, async, elastic and "
                   "store path")
+            check(paths["deploy"][mode] > 0,
+                  f"{mode} never launched on the deploy path (phase 13)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,5 +1,6 @@
 """Cluster registry path schema (copy of ``jubatus_tpu/coord/membership.py``,
-trimmed to what an engine server and its mixer use; ≙
+trimmed to what an engine server, its mixer, the proxy and the ops CLIs
+use; ≙
 common/membership.{hpp,cpp}).
 
 Same tree as the reference (membership.hpp:32-36, membership.cpp:59-66),
@@ -11,6 +12,8 @@ coordinator see each other:
     /jubatus/actors/<type>/<name>/master_lock           per-round mix master
     /jubatus/actors/<type>/<name>/id_generator          cluster id counter
     /jubatus/config/<type>/<name>                       engine JSON config
+    /jubatus/supervisors/<ip>_<port>                    jubavisor daemons
+    /jubatus/jubaproxies/<ip>_<port>                    routing proxies
 
 Beyond the reference — elastic membership:
 
@@ -39,6 +42,8 @@ log = logging.getLogger(__name__)
 JUBATUS_BASE = "/jubatus"
 ACTOR_BASE = f"{JUBATUS_BASE}/actors"
 CONFIG_BASE = f"{JUBATUS_BASE}/config"
+SUPERVISOR_BASE = f"{JUBATUS_BASE}/supervisors"
+PROXY_BASE = f"{JUBATUS_BASE}/jubaproxies"
 
 
 def actor_path(engine: str, name: str) -> str:
@@ -165,3 +170,15 @@ def get_all_nodes(coord: Coordinator, engine: str, name: str) -> List[NodeInfo]:
 
 def get_all_actives(coord: Coordinator, engine: str, name: str) -> List[NodeInfo]:
     return _nodes_under(coord, f"{actor_path(engine, name)}/actives")
+
+
+def register_proxy(coord: Coordinator, host: str, port: int) -> str:
+    path = f"{PROXY_BASE}/{NodeInfo(host, port).name}"
+    coord.create(path, ephemeral=True)
+    return path
+
+
+def register_supervisor(coord: Coordinator, host: str, port: int) -> str:
+    path = f"{SUPERVISOR_BASE}/{NodeInfo(host, port).name}"
+    coord.create(path, ephemeral=True)
+    return path

@@ -1,5 +1,6 @@
-"""In-memory coordinator (copy of ``jubatus_tpu/coord/memory.py``, without
-the coordination service's journal hooks) — the test/standalone backend.
+"""In-memory coordinator (copy of ``jubatus_tpu/coord/memory.py``) — the
+test/standalone backend, and the store behind the coordination service
+(coord/server.py), whose journal the durable-mutation hooks feed.
 
 One process-wide store; each `MemoryCoordinator` instance is a *session*
 (ephemeral nodes die with the instance), so multi-node logic (membership,
@@ -25,12 +26,29 @@ class _Store:
         self.locks: Dict[str, int] = {}  # lock path → owner session
         self.counters: Dict[str, int] = {}
         self.seq = 0
+        #: hi-lo reservations already journaled (coord/journal.py); minting
+        #: below the reservation needs no IO
+        self.counter_res: Dict[str, int] = {}
+        self.seq_res = 0
+        #: durable-mutation hook (set by CoordServer to the journal's
+        #: append); called UNDER the store lock so record order matches
+        #: mutation order
+        self.on_durable: Optional[Callable[[tuple], None]] = None
         self.child_watchers: Dict[str, List[Callable[[str], None]]] = {}
         self.delete_watchers: Dict[str, List[Callable[[str], None]]] = {}
+
+    def durable(self, rec: tuple) -> None:
+        if self.on_durable is not None:
+            self.on_durable(rec)
 
     def next_seq(self) -> int:
         n = self.seq
         self.seq += 1
+        if self.seq > self.seq_res and self.on_durable is not None:
+            from jubatus_tpu_torch.coord.journal import RESERVE_BLOCK
+
+            self.seq_res = self.seq + RESERVE_BLOCK
+            self.on_durable(("seq", self.seq_res))
         return n
 
     def fire_child(self, parent: str) -> None:
@@ -96,6 +114,8 @@ class MemoryCoordinator(Coordinator):
             self._mkparents(path)
             owner = self._session if ephemeral else None
             self._store.nodes[path] = (payload, owner)
+            if owner is None:
+                self._store.durable(("c", path, payload))
         self._store.fire_child(_parent(path))
         return True
 
@@ -116,9 +136,12 @@ class MemoryCoordinator(Coordinator):
                 self._mkparents(path)
                 self._store.nodes[path] = (payload, None)
                 created = True
+                self._store.durable(("c", path, payload))
             else:
                 _, owner = self._store.nodes[path]
                 self._store.nodes[path] = (payload, owner)
+                if owner is None:
+                    self._store.durable(("c", path, payload))
         if created:
             self._store.fire_child(_parent(path))
         return True
@@ -133,6 +156,8 @@ class MemoryCoordinator(Coordinator):
             node = self._store.nodes.pop(path, None)
             if node is None:
                 return False
+            if node[1] is None:
+                self._store.durable(("r", path))
         self._store.fire_delete(path)
         self._store.fire_child(_parent(path))
         return True
@@ -181,6 +206,13 @@ class MemoryCoordinator(Coordinator):
         with self._store.lock:
             nxt = self._store.counters.get(path, 0) + 1
             self._store.counters[path] = nxt
+            if nxt > self._store.counter_res.get(path, 0) \
+                    and self._store.on_durable is not None:
+                from jubatus_tpu_torch.coord.journal import RESERVE_BLOCK
+
+                hi = nxt + RESERVE_BLOCK
+                self._store.counter_res[path] = hi
+                self._store.on_durable(("cnt", path, hi))
             return nxt
 
     # -- lifecycle -----------------------------------------------------------

@@ -1,13 +1,21 @@
 """Engine service definitions (trimmed copy of
 ``jubatus_tpu/framework/idl.py``; ≙ jubatus/server/server/*.idl).
 
-One ``Method`` per RPC, transcribed from each engine's .idl, with the
-retry-safety class the JAX package adds to the reference's decorators.
-The port reads the table for one thing: ``idempotent_methods(engine)``,
-which the drain plane's dispatch gate (framework/migration.py) uses to
-tell the calls it still answers (reads) from the effectful ones it
-refuses with ``NodeDraining``. Not carried over: the proxy's routing and
-aggregation use of the table and the client-side retry table.
+The reference generates server bindings, proxy routing and clients from
+msgpack-IDL files with three decorators per RPC — routing (#@random /
+#@broadcast / #@cht(n) / #@internal), lock (#@update / #@analysis /
+#@nolock) and aggregator (#@pass / #@all_and / #@all_or / #@merge /
+#@concat). Here the same information is a data table: one ``Method`` per
+RPC, transcribed from each engine's .idl, with the retry-safety class the
+JAX package adds to the reference's decorators. The table drives:
+
+- ``jubatus_tpu_torch.server.proxy`` — routing + aggregation per method
+  (``get_service``, ``INTERNAL`` methods never exposed, ``USES_CHT``);
+- the drain plane's dispatch gate (framework/migration.py), which tells
+  the calls it still answers (reads, ``idempotent_methods``) from the
+  effectful ones it refuses with ``NodeDraining``;
+- ``jubatus_tpu_torch.rpc.client`` — ``CLIENT_SAFE_RETRY``, the methods a
+  client retries on a transport failure.
 """
 
 from __future__ import annotations
@@ -181,6 +189,13 @@ SERVICES: Dict[str, Tuple[Method, ...]] = {
     ),
 }
 
+#: engines whose proxies route by CHT (use_cht=true in *_impl.cpp)
+USES_CHT = frozenset(
+    e
+    for e, methods in SERVICES.items()
+    if any(m.routing == CHT for m in methods)
+)
+
 ENGINES: Tuple[str, ...] = tuple(sorted(SERVICES))
 
 
@@ -262,3 +277,20 @@ def idempotent_methods(engine: str) -> FrozenSet[str]:
     return frozenset(
         m.name for m in get_service(engine) if m.is_idempotent
     ) | IDEMPOTENT_BUILTINS
+
+
+def _client_safe() -> FrozenSet[str]:
+    """Method names idempotent in EVERY engine that defines them — the
+    conservative table for clients that don't know which engine they talk
+    to (a name like ``update`` that is effectful anywhere stays
+    effectful everywhere)."""
+    verdict: Dict[str, bool] = {}
+    for methods in SERVICES.values():
+        for m in methods:
+            verdict[m.name] = verdict.get(m.name, True) and m.is_idempotent
+    return frozenset(n for n, ok in verdict.items() if ok) \
+        | IDEMPOTENT_BUILTINS
+
+
+#: engine-agnostic retry-safety table (rpc/client.py's default gate)
+CLIENT_SAFE_RETRY: FrozenSet[str] = _client_safe()

@@ -1,7 +1,7 @@
 """Per-backend circuit breakers (copy of ``jubatus_tpu/rpc/breaker.py``).
 
-The port uses them in the mix plane's fan-out (``mix.breaker``); the JAX
-package's proxy uses the same board.
+The port uses them in the mix plane's fan-out (``mix.breaker``) and in the
+routing proxy (``proxy.breaker``, server/proxy.py), as the JAX package does.
 
 The reference's only reaction to a sick backend is cache invalidation
 (proxy_common.cpp watch → re-read actives) — a backend that is REGISTERED
@@ -100,6 +100,13 @@ class CircuitBreaker:
                     time.monotonic() - self._opened_at >= self.cooldown_sec:
                 return HALF_OPEN
             return self._state
+
+    def available(self) -> bool:
+        """Peek: would a call be routable here? Unlike ``allow`` this
+        NEVER claims the half-open probe slot — use it to FILTER
+        candidates, then ``allow`` only on the node actually called
+        (an unclaimed probe slot would wedge the breaker half-open)."""
+        return self.state != OPEN
 
     def pop_half_open(self) -> bool:
         """Consume the open→half_open transition flag (board-side event
@@ -205,6 +212,10 @@ class BreakerBoard:
         if b.pop_half_open():
             self._emit("half_open", key)
         return admitted
+
+    def available(self, key: Hashable) -> bool:
+        """Peek (no probe claim) — candidate filtering."""
+        return self.get(key).available()
 
     def record(self, key: Hashable, ok: bool) -> None:
         """Fold one call outcome into the backend's breaker; counts

@@ -4,14 +4,31 @@
 A TCP accept loop + per-connection reader threads over a shared bounded
 worker pool. Same envelope as the JAX package's server: a request is
 ``[0, msgid, method, params]``, optionally followed by the trace, deadline
-and principal elements (accepted and ignored here), and answers are
-correlated by msgid, so a client may pipeline calls on one connection.
-A wrong parameter count answers ARGUMENT_ERROR, an unknown method
-NO_METHOD_ERROR. ``dispatch_gate``, when set, is called with the method
-name before every dispatch, and raising there refuses the request before
-any state change (the drain plane refuses effectful calls with the
-retryable ``NodeDraining``). Not carried over: tracing, fault injection,
-deadlines, principals, the legacy-wire scan and the raw fast path.
+and principal elements (``[..., trace]``, ``[..., trace, deadline]``,
+``[..., trace, deadline, principal]``, earlier absent slots nil), and
+answers are correlated by msgid, so a client may pipeline calls on one
+connection. A wrong parameter count answers ARGUMENT_ERROR, an unknown
+method NO_METHOD_ERROR.
+
+For the length of a dispatch the worker adopts the caller's trace context
+(or roots a fresh one), its deadline (the remaining budget, re-anchored on
+this host's monotonic clock) and its principal, so every call the handler
+makes onward carries them. A request whose deadline has already expired
+is refused before dispatch with ``DeadlineExceeded`` and counted as
+``rpc.deadline_rejected``. Each dispatch is a span ``rpc.<method>`` in the
+server's registry, each failure a count ``rpc.<method>.errors``.
+``dispatch_gate``, when set, is called with the method name before every
+dispatch, and raising there refuses the request before any state change
+(the drain plane refuses effectful calls with the retryable
+``NodeDraining``).
+
+``register_raw`` gives a method a fast path that receives the request's
+params as raw msgpack bytes, never decoded here, and may answer with a
+``RawResult`` (an already-encoded result span, spliced into the response
+frame) or decline with ``RAW_FALLBACK`` (the request is then decoded and
+served by the method's registered handler). The proxy's zero-decode relay
+uses it. Not carried over: fault sites other than the dispatch's, the
+usage ledger and the legacy-wire scan.
 
 ``stop()`` waits on nothing: it shuts the listening socket and every open
 connection down (which wakes a reader blocked in ``recv`` and a worker
@@ -31,11 +48,167 @@ from typing import Any, Callable, Dict, List, Optional, Set
 
 import msgpack
 
-from jubatus_tpu_torch.rpc.errors import RpcMethodNotFound, error_to_wire
+from jubatus_tpu_torch.rpc import deadline as deadlines
+from jubatus_tpu_torch.rpc import principal as principals
+from jubatus_tpu_torch.rpc.errors import (
+    DeadlineExceeded,
+    RpcMethodNotFound,
+    error_to_wire,
+)
+from jubatus_tpu_torch.utils import faults, tracing
+from jubatus_tpu_torch.utils.tracing import Registry
 
 log = logging.getLogger(__name__)
 
 REQUEST, RESPONSE, NOTIFY = 0, 1, 2
+
+#: sentinel a raw-registered handler returns to decline the fast path —
+#: the request is then decoded generically and served by the normal handler
+RAW_FALLBACK = object()
+
+#: payload widths of fixed-size msgpack types
+_MP_SCALAR_WIDTH = {0xC0: 0, 0xC2: 0, 0xC3: 0, 0xCA: 4, 0xCB: 8, 0xCC: 1,
+                    0xCD: 2, 0xCE: 4, 0xCF: 8, 0xD0: 1, 0xD1: 2, 0xD2: 4,
+                    0xD3: 8, 0xD4: 2, 0xD5: 3, 0xD6: 5, 0xD7: 9, 0xD8: 17}
+
+
+def msgpack_span_end(buf: bytes, i: int = 0) -> int:
+    """End offset of the msgpack object starting at ``buf[i]`` — a type-
+    byte walk that builds no values (the raw relay path needs to split an
+    envelope into spans without decoding multi-megabyte payloads).
+    Raises ValueError on truncated/unknown bytes."""
+    n = len(buf)
+    remaining = 1
+    while remaining:
+        if i >= n:
+            raise ValueError("truncated msgpack object")
+        t = buf[i]
+        i += 1
+        remaining -= 1
+        if t <= 0x7F or t >= 0xE0:
+            continue
+        if 0x80 <= t <= 0x8F:
+            remaining += (t & 0x0F) * 2
+        elif 0x90 <= t <= 0x9F:
+            remaining += t & 0x0F
+        elif 0xA0 <= t <= 0xBF:
+            i += t & 0x1F
+        elif t in _MP_SCALAR_WIDTH:
+            i += _MP_SCALAR_WIDTH[t]
+        elif t in (0xC4, 0xC7, 0xD9):     # bin8/ext8/str8
+            if i >= n:
+                raise ValueError("truncated msgpack object")
+            i += 1 + buf[i] + (1 if t == 0xC7 else 0)
+        elif t in (0xC5, 0xC8, 0xDA):     # bin16/ext16/str16
+            if i + 2 > n:
+                raise ValueError("truncated msgpack object")
+            i += 2 + int.from_bytes(buf[i:i + 2], "big") + \
+                (1 if t == 0xC8 else 0)
+        elif t in (0xC6, 0xC9, 0xDB):     # bin32/ext32/str32
+            if i + 4 > n:
+                raise ValueError("truncated msgpack object")
+            i += 4 + int.from_bytes(buf[i:i + 4], "big") + \
+                (1 if t == 0xC9 else 0)
+        elif t in (0xDC, 0xDD, 0xDE, 0xDF):
+            w = 2 if t in (0xDC, 0xDE) else 4
+            if i + w > n:
+                raise ValueError("truncated msgpack object")
+            count = int.from_bytes(buf[i:i + w], "big")
+            if count > n - i:
+                raise ValueError("impossible msgpack length")
+            i += w
+            remaining += count * (2 if t in (0xDE, 0xDF) else 1)
+        else:
+            raise ValueError(f"unknown msgpack type byte 0x{t:02x}")
+    if i > n:
+        raise ValueError("truncated msgpack object")
+    return i
+
+
+class RawResult:
+    """A handler result that is ALREADY msgpack-encoded (a relayed
+    backend response span): build_response splices it into the response
+    frame without a decode/encode round trip."""
+
+    __slots__ = ("span",)
+
+    def __init__(self, span: bytes) -> None:
+        self.span = span
+
+
+def _parse_response_envelope(raw: bytes) -> int:
+    """Offset of the ERROR object in a response frame
+    ``[1, msgid, error, result]``; ValueError on anything else."""
+    if len(raw) < 3 or raw[0] != 0x94 or raw[1] != 0x01:
+        raise ValueError("not a msgpack-rpc response frame")
+    t = raw[2]
+    if t <= 0x7F:
+        return 3
+    if t == 0xCC:
+        return 4
+    if t == 0xCD:
+        return 5
+    if t == 0xCE:
+        return 7
+    raise ValueError("unexpected msgid encoding")
+
+
+def _parse_envelope(raw: bytes):
+    """Request envelope without decoding params: ``[0, msgid, method,
+    params]`` or its 5-, 6- and 7-element variants -> (msgid, method,
+    params_offset, n_extra), or None for anything else (notify, malformed,
+    exotic headers) — those take the generic decode path."""
+    try:
+        if raw[0] not in (0x94, 0x95, 0x96, 0x97) or raw[1] != 0x00:
+            return None
+        n_extra = raw[0] - 0x94
+        i = 2
+        t = raw[i]
+        if t <= 0x7F:
+            msgid, i = t, i + 1
+        elif t == 0xCC:
+            msgid, i = raw[i + 1], i + 2
+        elif t == 0xCD:
+            msgid, i = int.from_bytes(raw[i + 1:i + 3], "big"), i + 3
+        elif t == 0xCE:
+            msgid, i = int.from_bytes(raw[i + 1:i + 5], "big"), i + 5
+        else:
+            return None
+        t = raw[i]
+        if 0xA0 <= t <= 0xBF:  # fixstr
+            n, i = t & 0x1F, i + 1
+        elif t == 0xD9:        # str8
+            n, i = raw[i + 1], i + 2
+        elif t == 0xDA:        # str16
+            n, i = int.from_bytes(raw[i + 1:i + 3], "big"), i + 3
+        else:
+            return None
+        method = raw[i:i + n].decode("utf-8", "surrogateescape")
+        return msgid, method, i + n, n_extra
+    except IndexError:
+        return None
+
+
+def split_extras(raw: bytes, off: int):
+    """Split a request's params span from its OPTIONAL trailing envelope
+    elements (trace, then deadline, then principal). Returns
+    (params_span, trace_wire, deadline_wire, principal_wire); a malformed
+    tail degrades to (everything, None, None, None) — a bad extra element
+    must not fail the request."""
+    try:
+        pend = msgpack_span_end(raw, off)
+        trace_w = dl_w = pr_w = None
+        if pend < len(raw):
+            tend = msgpack_span_end(raw, pend)
+            trace_w = msgpack.unpackb(raw[pend:tend], raw=False)
+            if tend < len(raw):
+                dend = msgpack_span_end(raw, tend)
+                dl_w = msgpack.unpackb(raw[tend:dend], raw=False)
+                if dend < len(raw):
+                    pr_w = msgpack.unpackb(raw[dend:], raw=False)
+        return raw[off:pend], trace_w, dl_w, pr_w
+    except Exception:  # broad-ok — a bad trailing element must not fail
+        return raw[off:], None, None, None
 
 
 def _arity(fn: Callable[..., Any]) -> Optional[int]:
@@ -50,12 +223,22 @@ def _arity(fn: Callable[..., Any]) -> Optional[int]:
                 and p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)])
 
 
+def _unpack(raw: bytes) -> Any:
+    return msgpack.unpackb(raw, raw=False, strict_map_key=False,
+                           use_list=True, unicode_errors="surrogateescape")
+
+
 class RpcServer:
     """Dispatcher + listener: register(), then serve_background(), then stop()."""
 
-    def __init__(self) -> None:
+    def __init__(self, trace: Optional[Registry] = None) -> None:
         self._methods: Dict[str, Callable[..., Any]] = {}
         self._arity: Dict[str, Optional[int]] = {}
+        #: raw-span fast paths: method -> fn(raw_params bytes) -> result
+        #: (or RAW_FALLBACK to decode generically)
+        self._raw_methods: Dict[str, Callable[[bytes], Any]] = {}
+        #: per-server span aggregates and counters
+        self.trace = trace or Registry()
         self._sock: Optional[socket.socket] = None
         #: requests for the workers: (fn, args), or None to end a worker
         self._work: "queue.SimpleQueue[Optional[tuple]]" = queue.SimpleQueue()
@@ -74,6 +257,17 @@ class RpcServer:
                  arity: Optional[int] = None) -> None:
         self._methods[name] = fn
         self._arity[name] = _arity(fn) if arity is None else arity
+
+    def register_raw(self, name: str, fn: Callable[[bytes], Any]) -> None:
+        """Fast path for ``name``: ``fn`` receives the request's raw params
+        msgpack bytes (no Python decode) and returns the result — or
+        ``RAW_FALLBACK`` to route the request through the generic decode +
+        registered handler. The generic handler must also be registered
+        (fallback + arity)."""
+        self._raw_methods[name] = fn
+
+    def method_names(self):
+        return sorted(self._methods)
 
     # -- lifecycle -----------------------------------------------------------
     def serve_background(self, port: int = 0, nthreads: int = 2,
@@ -134,18 +328,36 @@ class RpcServer:
                              daemon=True, name="rpc-conn").start()
 
     def _conn_loop(self, conn: socket.socket) -> None:
-        unpacker = msgpack.Unpacker(raw=False, strict_map_key=False,
-                                    use_list=True,
-                                    unicode_errors="surrogateescape")
+        # Frame messages by span (Unpacker.skip + tell: builds no objects)
+        # and keep a mirror of the bytes: raw-registered methods get their
+        # params span as is, everything else goes through one unpackb.
+        framer = msgpack.Unpacker()
+        buf = bytearray()
+        base = 0       # stream offset of buf[0]
+        msg_start = 0  # stream offset of the next undelivered message
         wlock = threading.Lock()
+        try:
+            peer = "%s:%s" % conn.getpeername()[:2]
+        except (OSError, TypeError):
+            peer = ""
         try:
             while self._running:
                 data = conn.recv(65536)
                 if not data:
                     return
-                unpacker.feed(data)
-                for msg in unpacker:
-                    self._handle(conn, wlock, msg)
+                framer.feed(data)
+                buf += data
+                while True:
+                    try:
+                        framer.skip()
+                    except msgpack.OutOfData:
+                        break
+                    end = framer.tell()
+                    raw = bytes(buf[msg_start - base:end - base])
+                    msg_start = end
+                    self._handle_raw(conn, wlock, raw, peer)
+                del buf[:msg_start - base]
+                base = msg_start
         except (OSError, ValueError):
             pass
         finally:
@@ -156,31 +368,93 @@ class RpcServer:
             except OSError:
                 pass
 
-    def _handle(self, conn: socket.socket, wlock: threading.Lock,
-                msg: Any) -> None:
+    def _handle_raw(self, conn: socket.socket, wlock: threading.Lock,
+                    raw: bytes, peer: str) -> None:
+        env = _parse_envelope(raw)
+        if env is not None:
+            msgid, method, off, n_extra = env
+            if method in self._raw_methods:
+                params_span, trace, dl, pr = raw[off:], None, None, None
+                if n_extra:
+                    params_span, trace, dl, pr = split_extras(raw, off)
+                self._work.put((self._dispatch, (
+                    conn, wlock, msgid, method, params_span, True, peer,
+                    trace, dl, pr)))
+                return
+        msg = _unpack(raw)
         if not isinstance(msg, (list, tuple)) or not msg:
             return
         if msg[0] == REQUEST and 4 <= len(msg) <= 7:
             _, msgid, method, params = msg[:4]
-            self._work.put((self._dispatch, (conn, wlock, msgid, method,
-                                             params)))
+            # 5th element: trace context ({"t", "s"}); 6th: deadline
+            # budget (remaining seconds); 7th: principal (tenant id)
+            trace = msg[4] if len(msg) >= 5 else None
+            dl = msg[5] if len(msg) >= 6 else None
+            pr = msg[6] if len(msg) == 7 else None
+            self._work.put((self._dispatch, (
+                conn, wlock, msgid, method, params, False, peer, trace, dl,
+                pr)))
         elif msg[0] == NOTIFY and len(msg) == 3:
             self._work.put((self._invoke_silent, (msg[1], msg[2])))
 
-    def _dispatch(self, conn, wlock, msgid, method, params) -> None:
-        error, result = None, None
+    def _dispatch(self, conn, wlock, msgid, method, params, raw: bool,
+                  peer: str, trace: Any, dl: Any, pr: Any) -> None:
+        # adopt the caller's trace context (or root a fresh one), its
+        # deadline AND its principal for the duration of the dispatch;
+        # restore after — worker threads are reused
+        ctx = tracing.from_wire(trace)
+        ctx.peer = peer
+        prev = tracing.swap_trace(ctx)
+        prev_dl = deadlines.swap(deadlines.adopt_wire(dl))
+        prev_pr = principals.swap(principals.adopt_wire(pr))
         try:
-            result = self._invoke(method, params)
-        except Exception as e:  # broad-ok — every failure must answer
-            if not isinstance(e, RpcMethodNotFound):
-                log.debug("rpc method %s raised", method, exc_info=True)
-            error = error_to_wire(e)
+            if raw:
+                error, result = self._execute_fast(method, params)
+            else:
+                error, result = self._execute(method, params)
+        finally:
+            tracing.swap_trace(prev)
+            deadlines.swap(prev_dl)
+            principals.swap(prev_pr)
         payload = build_response(msgid, error, result)
         try:
             with wlock:
                 conn.sendall(payload)
         except OSError:
             pass
+
+    def _execute_fast(self, method: str, raw_params: bytes):
+        """Raw-span invoke; falls back to the generic decode + handler when
+        the fast fn declines (RAW_FALLBACK). The span is recorded here only
+        when the fast path served the request — a fallback cancels it so
+        the request is counted once, by _invoke's span."""
+        fn = self._raw_methods[method]
+        with self.trace.span(f"rpc.{method}") as sp:
+            try:
+                self._admit(method)
+                result = fn(raw_params)
+            except Exception as e:  # broad-ok — every failure must answer
+                log.debug("rpc raw method %s raised", method, exc_info=True)
+                self.trace.count(f"rpc.{method}.errors")
+                return error_to_wire(e), None
+            if result is not RAW_FALLBACK:
+                return None, result
+            sp.cancel()
+        return self._execute(method, _unpack(raw_params))
+
+    def _execute(self, method: str, params: Any):
+        """Invoke + error taxonomy."""
+        error, result = None, None
+        try:
+            result = self._invoke(method, params)
+        except Exception as e:  # broad-ok — every failure must answer
+            if not isinstance(e, RpcMethodNotFound):
+                log.debug("rpc method %s raised", method, exc_info=True)
+            # per-method failure counter: the dispatch span times success
+            # and failure alike, so the error rate needs its own series
+            self.trace.count(f"rpc.{method}.errors")
+            error = error_to_wire(e)
+        return error, result
 
     def _invoke(self, method: str, params: Any) -> Any:
         fn = self._methods.get(method)
@@ -190,10 +464,28 @@ class RpcServer:
         want = self._arity.get(method)
         if want is not None and len(params) != want:
             raise TypeError(f"{method}: expected {want} params, got {len(params)}")
+        self._admit(method)
+        with self.trace.span(f"rpc.{method}"):
+            return fn(*params)
+
+    def _admit(self, method: str) -> None:
+        """The checks before a handler runs: the dispatch fault site (fired
+        BEFORE the deadline gate, so an injected delay can expire a
+        propagated budget), the deadline, the drain gate."""
+        if faults.is_armed():
+            faults.fire(f"rpc.dispatch.{method}")
+        self._check_deadline(method)
         gate = self.dispatch_gate
         if gate is not None:
             gate(method)
-        return fn(*params)
+
+    def _check_deadline(self, method: str) -> None:
+        """Reject already-expired work at dispatch: computing an answer
+        nobody is waiting for only steals capacity from live requests.
+        Counted per server (``rpc.deadline_rejected``)."""
+        if deadlines.expired():
+            self.trace.count("rpc.deadline_rejected")
+            raise DeadlineExceeded(f"{method}: deadline expired at dispatch")
 
     def _invoke_silent(self, method: str, params: Any) -> None:
         try:
@@ -210,7 +502,14 @@ def _shutdown(sock: socket.socket) -> None:
 
 
 def build_response(msgid: int, error: Any, result: Any) -> bytes:
-    """Pack one msgpack-rpc response message."""
+    """Pack one msgpack-rpc response message. A ``RawResult`` is spliced
+    in as its pre-encoded span (fixarray(4) + RESPONSE + msgid + nil
+    error + the span), with no decode/encode of the payload."""
+    if isinstance(result, RawResult):
+        if error is None:
+            return (b"\x94\x01" + msgpack.packb(msgid) + b"\xc0"
+                    + result.span)
+        result = _unpack(result.span)
     return msgpack.packb([RESPONSE, msgid, error, result], default=_to_wire,
                          unicode_errors="surrogateescape")
 

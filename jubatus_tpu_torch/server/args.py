@@ -144,7 +144,9 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("--config-test", action="store_true")
     p.add_argument("-z", "--coordinator", default="",
                    help="coordination backend: a shared directory path "
-                        "(or file://path) or 'memory'; empty = standalone")
+                        "(or file://path), the coordination service "
+                        "(tcp://host:port or host:port) or 'memory'; "
+                        "empty = standalone")
     p.add_argument("-n", "--name", default="")
     p.add_argument("-x", "--mixer", default="linear_mixer", choices=MIXERS,
                    help="mix strategy: linear_mixer, a push strategy "

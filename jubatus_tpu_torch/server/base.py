@@ -7,14 +7,18 @@ and do_mix. Models are saved in the JAX package's file format
 so a file saved by either package's server loads in the other's; ``-m``
 loads one at start.
 
-Given a coordinator (``-z``), the server registers its membership, mixes
-with its fleet through the mixer ``--mixer`` names (framework/push_mixer.py
-``create_mixer``: the RPC linear mixer, the asynchronous plane with
-``--mix-async``, a push strategy, or none), which serves the ``mix_*``
-RPCs, mints anomaly's and graph's ids through the coordinator, and keeps
-burst's keyword assignment on the CHT of the booted members. The fleet
-may hold JAX servers too: the coordinator layout, the mix wire and the
-model files are the JAX package's.
+Given a coordinator (``-z``: a directory, ``file://``, or the
+coordination service at ``tcp://host:port``), the server registers its
+membership, mixes with its fleet through the mixer ``--mixer`` names
+(framework/push_mixer.py ``create_mixer``: the RPC linear mixer, the
+asynchronous plane with ``--mix-async``, a push strategy, or none), which
+serves the ``mix_*`` RPCs, mints anomaly's and graph's ids through the
+coordinator and places each new row or node on its CHT(2) owners
+(server/service.py ``_replicated_write``), and keeps burst's keyword
+assignment on the CHT of the booted members. The fleet may hold JAX
+servers too: the coordinator layout, the mix wire and the model files are
+the JAX package's. A routing proxy (server/proxy.py) may stand in front of
+the fleet.
 
 The durability and elastic planes, as in the JAX server:
 
@@ -39,10 +43,9 @@ The durability and elastic planes, as in the JAX server:
 The snapshot and upload hooks run on one small tick thread that waits on
 the server's stop event. Each of these planes packs or loads the model
 under the driver's lock on the driver's device, where the JAX server
-holds its lock. Not carried over: the collective mixer, the CHT
-replication of anomaly ``add`` and graph ``create_node`` (both apply
-locally), the incident bundles a rollback triggers (the event is
-emitted), and the observability planes.
+holds its lock. Not carried over: the collective mixer, the incident
+bundles a rollback triggers (the event is emitted), and the observability
+planes.
 """
 
 from __future__ import annotations
@@ -107,9 +110,10 @@ class EngineServer:
         self.start_time = time.time()  # wall-clock
         self.last_saved = 0.0
         self.last_loaded = 0.0
-        self.rpc = RpcServer()
-        #: this server's metrics (mix spans, counters, gauges, events)
+        #: this server's metrics (rpc and mix spans, counters, gauges,
+        #: events); the RPC server records its dispatch spans here
         self.trace = Registry()
+        self.rpc = RpcServer(trace=self.trace)
         #: method -> its microbatch coalescer (server/service.py)
         self.coalescers: Dict[str, Any] = {}
         self._stopped = threading.Event()

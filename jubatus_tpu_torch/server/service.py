@@ -10,23 +10,29 @@ with the leading cluster-name parameter every jubatus call carries (the
 mixer registers its own ``mix_*`` RPCs). Update methods run under the
 driver lock and bump the driver's update counter when the driver did not.
 The classifier's and regression's ``train`` go through the microbatch
-coalescer (``server/microbatch.py``). The CHT replication of writes is not
-ported, so the writes the JAX server replicates over its ring in a fleet
-(anomaly's ``add``, graph's ``create_node``) apply locally, as the JAX
-server does standalone, and reach the other members through the mix;
-graph's internal RPCs (``create_node_here``, ``remove_global_node``,
-``create_edge_here``) are registered all the same. Not carried over: the
-raw-wire train path (``_register_train_raw``), which needs the raw fast
-path of the RPC server.
+coalescer (``server/microbatch.py``). In a fleet, anomaly's ``add`` and
+graph's ``create_node`` mint a cluster-unique id and place it on its CHT(2)
+owners by direct peer RPC (``_replicated_write``: ``overwrite`` and
+``create_node_here`` on each owner, the primary's result answered), as the
+JAX server does, so the CHT-routed calls that follow through a proxy find
+the row on its owners; standalone they apply locally. Graph's internal
+RPCs (``create_node_here``, ``remove_global_node``, ``create_edge_here``)
+are registered for the peers and never exposed on a proxy. Not carried
+over: the raw-wire train path (``_register_train_raw``), which needs the
+native ingest parse.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Dict, List
 
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.rpc.server import RpcServer
 from jubatus_tpu_torch.server.microbatch import Coalescer, PipelinedCoalescer
+
+
+log = logging.getLogger(__name__)
 
 
 def _datum(obj: Any) -> Datum:
@@ -179,13 +185,63 @@ def _bind_recommender(rpc: RpcServer, server: Any) -> None:
     rpc.register("calc_l2norm", lambda name, row: float(d.calc_l2norm(_datum(row))), arity=2)
 
 
+def _replicated_write(server: Any, key: str, apply_local, apply_remote,
+                      replication: int = 2):
+    """Server-side CHT-replicated write (≙ anomaly_serv.cpp:178-211,
+    graph_serv.cpp:181-228): place ``key`` on its ``replication`` ring
+    successors — apply locally when a successor is me, RPC the peer
+    otherwise. The primary write must succeed (exceptions propagate);
+    replicas are best-effort (warn + continue). Returns the primary's
+    result. Falls back to a local-only apply when the ring is empty."""
+    cht = server.cluster_cht()
+    nodes = cht.find(key, replication) if cht is not None else []
+    if not nodes:
+        return apply_local()
+    me = server.self_nodeinfo()
+    result = None
+    for i, node in enumerate(nodes):
+        try:
+            if node.name == me.name:
+                out = apply_local()
+            else:
+                out = apply_remote(server.peer_client(node))
+            if i == 0:
+                result = out
+        except Exception:  # broad-ok — replica writes are best-effort
+            if i == 0:
+                raise  # primary failure is the caller's failure
+            server.drop_peer_client(node)
+            log.warning("replica write to %s failed (best-effort)",
+                        node.name, exc_info=True)
+    return result
+
+
 @_binder("anomaly")
 def _bind_anomaly(rpc: RpcServer, server: Any) -> None:
-    """The anomaly service: ``add`` is the driver's local add (the CHT
-    replication of the JAX server's fleet is not ported)."""
     d = server.driver
     rpc.register("clear_row", _updating(server, lambda name, rid: d.clear_row(rid)), arity=2)
-    rpc.register("add", _updating(server, lambda name, row: list(d.add(_datum(row)))), arity=2)
+
+    def add(name, row):
+        """Distributed add = mint id + CHT(2) placement + primary write +
+        best-effort replica, INSIDE the server — a direct-to-server add is
+        replicated immediately, not at the next mix (anomaly_serv.cpp:
+        155-211). Standalone keeps the driver's local add."""
+        if server.coord is None:
+            return list(_updating(server, lambda: d.add(_datum(row)))())
+        row_id = str(d.idgen.generate()) if getattr(d, "idgen", None) \
+            else None
+        if row_id is None:
+            return list(_updating(server, lambda: d.add(_datum(row)))())
+        score = _replicated_write(
+            server, row_id,
+            apply_local=_updating(
+                server, lambda: float(d.overwrite(row_id, _datum(row)))),
+            apply_remote=lambda cli: float(
+                cli.call("overwrite", name, row_id, row)),
+        )
+        return [row_id, float(score)]
+
+    rpc.register("add", add, arity=2)
     rpc.register("update", _updating(server, lambda name, rid, row: float(d.update(rid, _datum(row)))),
                  arity=3)
     rpc.register("overwrite", _updating(server, lambda name, rid, row: float(d.overwrite(rid, _datum(row)))),
@@ -223,8 +279,6 @@ def _bind_regression(rpc: RpcServer, server: Any) -> None:
 
 @_binder("graph")
 def _bind_graph(rpc: RpcServer, server: Any) -> None:
-    """The graph service: ``create_node`` is the driver's local create
-    (the CHT replication of the JAX server's fleet is not ported)."""
     d = server.driver
 
     def edge_parts(e):
@@ -232,7 +286,27 @@ def _bind_graph(rpc: RpcServer, server: Any) -> None:
         (source, target, properties)."""
         return e[1], e[2], dict(e[0])
 
-    rpc.register("create_node", lambda name: _updating(server, d.create_node)(), arity=1)
+    def create_node(name):
+        """Distributed create_node = mint global id + create_node_here on
+        the CHT(2) successors via direct peer RPC (graph_serv.cpp:181-228)
+        — a direct-to-server create is visible on its replica before any
+        mix. Standalone keeps the local driver path."""
+        if server.coord is None:
+            return _updating(server, lambda: d.create_node())()
+        node_id = str(d.idgen.generate()) if getattr(d, "idgen", None) \
+            else None
+        if node_id is None:
+            return _updating(server, lambda: d.create_node())()
+        _replicated_write(
+            server, node_id,
+            apply_local=_updating(
+                server, lambda: d.create_node_here(node_id)),
+            apply_remote=lambda cli: cli.call(
+                "create_node_here", name, node_id),
+        )
+        return node_id
+
+    rpc.register("create_node", create_node, arity=1)
     rpc.register("remove_node", _updating(server, lambda name, nid: d.remove_node(nid)), arity=2)
     rpc.register("update_node", _updating(server, lambda name, nid, prop: d.update_node(nid, dict(prop))),
                  arity=3)

@@ -22,8 +22,11 @@ and a test arms rules against them with ``armed(...)``. Rule syntax:
 Sites of the port: ``mix.comm.get_diff``, ``mix.comm.put_diff``,
 ``mix.put_diff``, ``mix.diff.poison[.<node>]``,
 ``mix.async.submit.<node>``, ``mix.async.inbox.<node>``,
-``migration.pull``, ``store.put``, ``store.get``, ``store.compact`` and
-``breaker.allow.<host:port>``. ``fire`` is a no-op (one module flag read)
+``migration.pull``, ``store.put``, ``store.get``, ``store.compact``,
+``breaker.allow.<host:port>``, and the RPC plane's
+``rpc.dispatch.<method>`` (before the deadline gate),
+``rpc.call.<method>.<host:port>`` (each client attempt) and
+``rpc.connect.<host:port>``. ``fire`` is a no-op (one module flag read)
 when nothing is armed. Not carried over: the ``JUBATUS_TPU_FAULTS``
 environment variable and the ``--fault`` flag.
 

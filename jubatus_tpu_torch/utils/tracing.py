@@ -1,20 +1,28 @@
-"""Metrics registry (copy of the ``Registry`` of
-``jubatus_tpu/utils/tracing.py``, trimmed to what the mixer and its flight
-recorder write).
+"""Metrics registry and trace context (copy of the ``Registry`` and the
+trace context of ``jubatus_tpu/utils/tracing.py``, trimmed to what the
+mixer, its flight recorder and the RPC plane write).
 
 One registry per server: span histograms (quarter-octave log buckets,
 ~19% relative quantile error), monotonic counters, point-in-time gauges,
 and the server's event journal (utils/events.py). ``trace_status()``
 flattens them into ``get_status`` keys (``trace.<span>.p50_ms`` …,
 ``trace.counter.<name>``), as in the JAX package. Not carried over: the
-trace context and span store, the slow-request log, the Prometheus
-exposition and device traces (the port's tracing plane is still to come).
+span store, the slow-request log, the Prometheus exposition and device
+traces (the port's tracing plane is still to come).
+
+The trace context is one hop's identity inside a distributed trace: the
+RPC server adopts the caller's (the envelope's 5th element) or roots a
+fresh one for the length of a dispatch, and a client call under it ships
+a child span id, so a proxied call keeps one trace id on every hop, JAX
+and port hops alike.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
+import os
 import threading
 import time
 from typing import Any, Dict, Iterator, Optional
@@ -95,12 +103,17 @@ class Histogram:
 
 class _SpanHandle:
     """Yielded by ``Registry.span``: ``seconds`` is the measured duration
-    (set at scope exit)."""
+    (set at scope exit); ``cancel()`` drops the record (a request that
+    falls back to another path is counted once, there)."""
 
-    __slots__ = ("seconds",)
+    __slots__ = ("seconds", "cancelled")
 
     def __init__(self) -> None:
         self.seconds = 0.0
+        self.cancelled = False
+
+    def cancel(self) -> None:
+        self.cancelled = True
 
 
 class Registry:
@@ -125,7 +138,8 @@ class Registry:
             yield h
         finally:
             h.seconds = time.perf_counter() - t0
-            self.record(name, h.seconds)
+            if not h.cancelled:
+                self.record(name, h.seconds)
 
     def record(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -180,9 +194,83 @@ class Registry:
                     "gauges": dict(self._gauges)}
 
 
-
 _default = Registry()
 
 
 def default_registry() -> Registry:
     return _default
+
+
+# -- trace context ------------------------------------------------------------
+
+class TraceContext:
+    """One hop's identity inside a distributed trace. ``peer`` is the
+    remote address the request arrived from (stamped per connection; it
+    never rides the wire)."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "peer")
+
+    def __init__(self, trace_id: str, span_id: str,
+                 parent_id: str = "", peer: str = "") -> None:
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.peer = peer
+
+
+_tls = threading.local()
+_id_seq = itertools.count(1)
+_PROC = os.urandom(4).hex()
+
+
+def _new_id() -> str:
+    # process-unique prefix + atomic counter: no urandom per call
+    return f"{_PROC}{next(_id_seq) & 0xFFFFFFFF:08x}"
+
+
+def current_trace() -> Optional[TraceContext]:
+    return getattr(_tls, "ctx", None)
+
+
+def swap_trace(ctx: Optional[TraceContext]) -> Optional[TraceContext]:
+    """Install ``ctx`` as this thread's trace context; returns the
+    previous one (restore it in a finally — dispatch pool threads are
+    reused, a leaked context would mislabel the next request)."""
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = ctx
+    return prev
+
+
+@contextlib.contextmanager
+def use_trace(ctx: Optional[TraceContext]) -> Iterator[None]:
+    prev = swap_trace(ctx)
+    try:
+        yield
+    finally:
+        swap_trace(prev)
+
+
+def from_wire(wire: Any) -> TraceContext:
+    """Adopt a wire trace element ({"t": trace_id, "s": caller span}) as a
+    child context, or start a fresh root when the caller sent none."""
+    if isinstance(wire, dict):
+        tid = wire.get("t")
+        if isinstance(tid, bytes):
+            tid = tid.decode("utf-8", "replace")
+        parent = wire.get("s", "")
+        if isinstance(parent, bytes):
+            parent = parent.decode("utf-8", "replace")
+        if tid:
+            return TraceContext(str(tid), _new_id(), str(parent))
+    return TraceContext(_new_id(), _new_id(), "")
+
+
+def to_wire(ctx: TraceContext) -> Dict[str, str]:
+    return {"t": ctx.trace_id, "s": ctx.span_id}
+
+
+def child_of(ctx: TraceContext) -> TraceContext:
+    """A fresh child span of ``ctx`` (same trace, new span id): the
+    identity an outbound client call ships, so the receiving hop's parent
+    edge points at the call, not the whole dispatch."""
+    return TraceContext(ctx.trace_id, _new_id(), ctx.span_id)

@@ -82,6 +82,18 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.framework.model_store",
     "jubatus_tpu_torch.rpc.errors",
     "jubatus_tpu_torch.rpc.server",
+    "jubatus_tpu_torch.rpc.deadline",
+    "jubatus_tpu_torch.rpc.principal",
+    "jubatus_tpu_torch.rpc.retry",
+    "jubatus_tpu_torch.rpc.aggregators",
+    "jubatus_tpu_torch.coord.journal",
+    "jubatus_tpu_torch.coord.server",
+    "jubatus_tpu_torch.coord.remote",
+    "jubatus_tpu_torch.cmd",
+    "jubatus_tpu_torch.cmd.jubaconfig",
+    "jubatus_tpu_torch.cmd.jubavisor",
+    "jubatus_tpu_torch.cmd.jubactl",
+    "jubatus_tpu_torch.server.proxy",
 )
 
 
@@ -131,6 +143,28 @@ def test_server_main_without_device_fails_without_cuda(no_cuda):
          "--config-test", "-f", os.path.join(ROOT, "config",
                                              "nearest_neighbor", "lsh.json")],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "CUDA is not available" in proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["jubatus_tpu_torch.cmd.jubavisor", "-z", "memory", "-p", "0"],
+    ["jubatus_tpu_torch.cmd.jubaconfig", "-c", "write", "-t",
+     "nearest_neighbor", "-n", "x", "-z", "memory", "-f",
+     os.path.join(ROOT, "config", "nearest_neighbor", "lsh.json")],
+])
+def test_new_entry_points_default_to_cuda(no_cuda, argv):
+    """The visor's children and jubaconfig's dry validation run on cuda
+    unless --device cpu is passed: without CUDA the visor refuses to
+    start a child on the CPU by itself (its --device default is cuda) and
+    jubaconfig rejects the config."""
+    if argv[0].endswith("jubavisor"):
+        from jubatus_tpu_torch.cmd.jubavisor import Jubavisor
+
+        assert Jubavisor("memory").device == "cuda"
+        return
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1
     assert "CUDA is not available" in proc.stderr
 

@@ -26,7 +26,8 @@ from jubatus_tpu.framework import linear_mixer as jax_linear_mixer
 from jubatus_tpu.server import EngineServer as JEngineServer
 from jubatus_tpu.server.args import ServerArgs as JServerArgs
 from jubatus_tpu_torch import NotYetPorted
-from jubatus_tpu_torch.coord import create_coordinator, membership
+from jubatus_tpu_torch.coord import (CoordinatorError, create_coordinator,
+                                     membership)
 from jubatus_tpu_torch.coord.base import NodeInfo
 from jubatus_tpu_torch.coord.file import FileCoordinator
 from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
@@ -660,8 +661,13 @@ def test_unported_mix_flags_raise_not_yet_ported(flags):
 
 
 def test_unported_coordinator_locators_raise_not_yet_ported(tmp_path):
-    for spec in ("tcp://127.0.0.1:1", "127.0.0.1:1", "zk://127.0.0.1:1"):
-        with pytest.raises(NotYetPorted):
+    """ZooKeeper sessions are the one locator the port lacks; tcp:// and
+    host:port open a session on the coordination service (here none
+    listens, so the session cannot open)."""
+    with pytest.raises(NotYetPorted):
+        create_coordinator("zk://127.0.0.1:1")
+    for spec in ("tcp://127.0.0.1:1", "127.0.0.1:1"):
+        with pytest.raises(CoordinatorError, match="cannot reach"):
             create_coordinator(spec)
     coord = create_coordinator(f"file://{tmp_path}")
     assert isinstance(coord, FileCoordinator)
