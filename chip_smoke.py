@@ -14,7 +14,10 @@ each of which fails the run (non-zero exit, no result line) on error:
    versions on the same tensors, bit-equal required: first at edge shapes
    (C in {1, 7, 4099}, B around each variant's limits, W in {2, 3, 64, 70},
    tables on and 4 bytes off 16-byte alignment), which must reach every
-   kernel variant; then (hamming at hash_num 64, W=2; minhash at H=64) at
+   kernel variant, and K1's gathered variant (the IVF rescore) at M in
+   {1, 7, 4099} candidates, W in {2, 3, 64, 70}, a query row of padding
+   only and the table's last slot; then (hamming at hash_num 64, W=2;
+   minhash at H=64) at
    B in {1, 256} and C = 1,000,003 rows with kernel, plain and library-call
    times (CUDA events), the variant that ran, the bound, and the same
    operations at the card's int32 issue rate; then regression's scan
@@ -152,9 +155,28 @@ each of which fails the run (non-zero exit, no result line) on error:
    forwards no snapshot interval), ``status --all``, one ``watch`` frame
    and ``stop``, after which the visor has no children. K1 and S1
    launches of the phase come from the members' get_status
-   (``[deploy_launches]``).
+   (``[deploy_launches]``);
+14. the IVF tier and row-sharded serving: phase 3's lsh and minhash
+   backends (10^6 rows) with ``configure_ann("ivf")`` (auto cells, nprobe
+   8): the build split (embed / train / assign / tables), 200 queries
+   (p50/p99, recall@10 against phase 3's exact answers, K1's gathered
+   launches +200), a forced cell re-split and its event, the gathered
+   kernel timed at the index's B = 1 and 256 probes (kernel, plain,
+   bound; minhash also index_select + cdist), then ``off`` again: the
+   exact answers equal phase 3's bit for bit. ``inverted_index`` (phase
+   5's recommender, default.json) under IVF: every answer within
+   EXACT_TOL of a CPU recomputation. The same backends on 4 logical
+   shards of cuda:0: 200 exact queries (distances equal to phase 3's, K1
+   once a shard), IVF with every cell probed equal to them; LOF (phase
+   6's config over lsh, 4096 rows) on the shards, bit-equal to the CPU
+   port's sharded driver, its agreement with the flat LOF counted. Then
+   two ``--ann ivf`` lsh.json servers: one filled with 2.5·10^5 rows by
+   ``put_rows`` and queried 200 times over RPC, its ``ann.*`` status
+   read, saved; the other loads the file (centroids byte for byte, equal
+   answers); and ``--shard-devices 2`` on one card exits with the JAX
+   server's message.
 
-Phases 3-7, 8, 9, 10, 11, 12 and 13 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8, 9, 10, 11, 12, 13 and 14 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -208,8 +230,12 @@ REPS = 30                     # timed kernel launches per shape (median)
 EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
 EDGE_W = (2, 3, 64, 70)
 EDGE_B_EXTRA = ((4100, 4099, 2),)  # hamming past one shared query tile
-#: launch counts a path reads: K1's two modes and regression's scan
-COUNTED = ("hamming", "minhash", "pa_scan")
+#: launch counts a path reads: K1's two modes, its gathered variant's two
+#: modes (the IVF rescore) and regression's scan
+COUNTED = ("hamming", "minhash", "hamming_gather", "minhash_gather",
+           "pa_scan")
+#: K1's gathered variant: the launch count of each mode
+GATHER_MODES = ("hamming", "minhash")
 #: regression's scan kernel variants (online_scan.VARIANTS), counted apart
 SCAN_VARIANTS = ("direct", "r1", "r2", "r4")
 #: every count a path records: COUNTED and the scan's launches by variant
@@ -443,7 +469,8 @@ def fill_rows(be, rows: int, seed: int, nnz: int = 32,
 
 
 def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
-                  seed: int) -> dict:
+                  seed: int, keep: dict) -> dict:
+    """``keep[method]`` gets (backend, queries, answers) for phase 14."""
     rows, queries = ROWS, QUERIES
     dim_bits, nnz, k = 18, 32, 10
     be = NNBackend(method, dim=1 << dim_bits, hash_num=64, seed=0,
@@ -506,8 +533,8 @@ def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
                kernel_launches=launched,
                table_bytes=int(table.numel() * table.element_size()),
                profile=prof)
-    del be, table
-    torch.cuda.empty_cache()
+    keep[method] = (be, vecs, answers)
+    del table
     return out
 
 
@@ -735,6 +762,9 @@ def server_status(cli) -> dict:
 def server_launches(st: dict) -> dict:
     out = {mode: int(st[f"kernel.sig_scan.{mode}.launches"])
            for mode in KERNELS}
+    for mode in GATHER_MODES:
+        out[f"{mode}_gather"] = int(
+            st[f"kernel.sig_scan.{mode}.gather.launches"])
     out["pa_scan"] = int(st["kernel.online_scan.launches"])
     for v in SCAN_VARIANTS:
         out[f"pa_scan.{v}"] = int(st[f"kernel.online_scan.{v}.launches"])
@@ -809,6 +839,8 @@ def launch_counts(sig_scan) -> dict:
     out = {"hamming": sig_scan.hamming.launches,
            "minhash": sig_scan.minhash.launches,
            "pa_scan": online_scan.pa_scan.launches}
+    for mode in GATHER_MODES:
+        out[f"{mode}_gather"] = sig_scan.GATHERS[mode].launches
     for v in SCAN_VARIANTS:
         out[f"pa_scan.{v}"] = online_scan.pa_scan.by_variant[v]
     return out
@@ -819,6 +851,8 @@ def set_counts(sig_scan, counts: dict) -> None:
 
     sig_scan.hamming.launches = counts["hamming"]
     sig_scan.minhash.launches = counts["minhash"]
+    for mode in GATHER_MODES:
+        sig_scan.GATHERS[mode].launches = counts[f"{mode}_gather"]
     online_scan.pa_scan.launches = counts["pa_scan"]
     for v in SCAN_VARIANTS:
         online_scan.pa_scan.by_variant[v] = counts[f"pa_scan.{v}"]
@@ -898,7 +932,9 @@ EXACT_TOL = 1e-5      # exact distances on the card against the CPU (abs)
 
 
 def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
-                      config_name: str, seed: int) -> dict:
+                      config_name: str, seed: int, keep: dict) -> dict:
+    """``keep[config_name]`` gets the driver of an exact method (for phase
+    14's IVF over it)."""
     config = load_config("recommender", config_name)
     rec = RecommenderDriver(config, device="cuda")
     be = rec.backend
@@ -962,6 +998,8 @@ def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
         del view
     else:
         out["table_bytes"] = int(be._sigs.numel() * be._sigs.element_size())
+    if exact:
+        keep[config_name] = rec
     del rec, be
     torch.cuda.empty_cache()
     return out
@@ -3835,6 +3873,509 @@ def answers_ok(cli, method: str, name: str) -> bool:
     except Exception:  # broad-ok — not serving yet
         return False
 
+# ---------------------------------------------------------------------------
+# phase 2: K1's gathered variant at its edges
+# ---------------------------------------------------------------------------
+GATHER_EDGE_M = (1, 7, 4099)
+GATHER_EDGE_C = (7, 4099)
+
+
+def phase_gather_edges(torch, sig_scan, seed: int) -> dict:
+    """The gathered variant against its plain version on the card, bit for
+    bit: M in GATHER_EDGE_M candidates, W in EDGE_W, tables on and 4 bytes
+    off 16-byte alignment (the 16-byte and the word-at-a-time loads), a
+    query row of padding only, the table's last slot."""
+    rng = np.random.default_rng(seed + 2)
+    n = 0
+    t0 = time.perf_counter()
+    for mode in GATHER_MODES:
+        for c in GATHER_EDGE_C:
+            for w in EDGE_W:
+                for m in GATHER_EDGE_M:
+                    for misaligned in (False, True):
+                        q, r = edge_inputs(torch, mode, 3, c, w, rng,
+                                           misaligned)
+                        cand = rng.integers(-1, c, (3, m)).astype(np.int32)
+                        cand[0, 0] = c - 1
+                        cand[1] = -1
+                        cd = torch.from_numpy(cand).cuda()
+                        got = sig_scan.gathered(mode, q, r, cd, 32 * w)
+                        ref = sig_scan.gathered_plain(mode, q, r, cd, 32 * w)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, ref),
+                              f"{mode} gather C={c} W={w} M={m} misaligned="
+                              f"{misaligned}: kernel != plain (max abs err "
+                              f"{float((got - ref).nan_to_num().abs().max())})")
+                        check(bool(torch.isinf(got[1]).all()),
+                              f"{mode} gather: padding did not score +inf")
+                        n += 1
+    return dict(shapes=n, bit_equal=True, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the IVF tier and row-sharded serving
+# ---------------------------------------------------------------------------
+IVF_NPROBE = 8                # --ann-nprobe's default
+SHARDS = 4                    # logical shards on cuda:0
+SHARD_IVF_CELLS = 16          # the sharded full-probe check's cells
+SHARD_IVF_QUERIES = 20
+IVF_SERVER_ROWS = 250_000     # the --ann ivf server's put_rows fill
+IVF_SERVER_QUERIES = 200
+IVF_LOAD_QUERIES = 50
+SHARD_LOF_SCORES = 20
+
+
+def gather_bound(b: int, m: int, valid: int, distinct: int, w: int,
+                 ops_per_word: int):
+    """(bound_ms, bound_by) of one gathered launch: bytes = the distinct
+    table rows the valid candidates name (queries that probe one cell share
+    its rows), every slot id and output, the queries, each once;
+    operations = ``ops_per_word`` int32 ops per (valid candidate, word)."""
+    t_bytes = (distinct * w * 4 + b * m * 4 + b * m * 4 + b * w * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_per_word * valid * w / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_timing(torch, sig_scan, ivf, be, seed: int, l2) -> list:
+    """The gathered variant at this index's shapes (B = 1 and 256 queries'
+    real probe of IVF_NPROBE cells): cold-L2 kernel time, the plain
+    version's and, for minhash, the library pair index_select + cdist."""
+    mode = "hamming" if be.method == "lsh" else "minhash"
+    spec = KERNELS[mode]
+    rng = np.random.default_rng(seed + 14)
+    cen, tab, _cap = be._ann_device_state()
+    table = be.sig_table()
+    w = table.shape[1]
+    rows = []
+    for b in (1, 256):
+        idx, val = random_rows(rng, b, 32, 18)
+        q = be._query_sigs_batch([list(zip(ii, vv)) for ii, vv in
+                                  zip(idx.tolist(), val.tolist())])
+        emb = ivf.embed_signatures(q, method=be.method, hash_num=be.hash_num)
+        cand = ivf.probe_gather(emb, cen, tab, IVF_NPROBE).to(
+            torch.int32).contiguous()
+        run_k = lambda: sig_scan.gathered(mode, q, table, cand, be.hash_num)
+        run_p = lambda: sig_scan.gathered_plain(mode, q, table, cand,
+                                                be.hash_num)
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"{mode} gather B={b}: kernel != plain")
+        run_l = None
+        if mode == "minhash":
+            def run_l():
+                g = table.index_select(0, cand.reshape(-1).clamp(min=0)
+                                       .long()).view(b, -1, w).float()
+                return torch.cdist(q.float()[:, None, :], g, p=0)[:, 0] / w
+        m = cand.shape[1]
+        valid = int((cand >= 0).sum())
+        distinct = int(torch.unique(cand[cand >= 0]).numel())
+        bms, by = gather_bound(b, m, valid, distinct, w, spec["ops_per_word"])
+        ms = time_ms(torch, run_k, REPS, flush=l2.zero_)
+        row = dict(B=b, M=m, valid_candidates=valid, distinct_rows=distinct,
+                   W=w, C=table.shape[0],
+                   kernel_ms=ms,
+                   kernel_warm_ms=time_ms(torch, run_k, REPS),
+                   plain_ms=time_ms(torch, run_p, REPS // 4),
+                   library_ms=(time_ms(torch, run_l, REPS // 4)
+                               if run_l is not None else None),
+                   bound_ms=bms, bound_by=by, bound_share=bms / ms,
+                   max_abs_err=float((got - ref).nan_to_num(posinf=0.0)
+                                     .abs().max()))
+        log(f"[kernels] sig_scan.{mode}_gather " + json.dumps(row))
+        rows.append(row)
+        del got, ref, cand
+    return rows
+
+
+def recall_at(got, want, k: int) -> tuple:
+    """(id recall, distance recall) of an approximate answer: the share of
+    the exact answer's ids it holds, and the share of its rows as near as
+    the exact k-th (tie-aware: rows tied at the boundary count)."""
+    ids = len({r for r, _ in got} & {r for r, _ in want}) / k
+    edge = want[-1][1]
+    return ids, sum(1 for _, d in got if d <= edge) / k
+
+
+def phase_ivf_flat(torch, sig_scan, ivf, events, kept, seed: int,
+                   l2) -> dict:
+    """configure_ann("ivf") on phase 3's backend (auto cells, nprobe 8):
+    the build split, 200 queries against phase 3's exact answers (recall,
+    every distance the row's true one), a forced re-split and its event,
+    the gathered kernel's timing, then ``off`` again: the exact path's
+    answers equal phase 3's bit for bit."""
+    be, vecs, answers = kept
+    mode = "hamming" if be.method == "lsh" else "minhash"
+    k = 10
+    be.configure_ann("ivf")
+    t0 = time.perf_counter()
+    check(be._ann_ready(), f"{be.method}: the IVF index did not build")
+    be._ann_device_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    split = dict(be.ann_last_build)
+    st = be.ann_stats()
+    check(st["cells"] >= ivf.auto_cells(ROWS)
+          and st["rows_indexed"] == ROWS, f"{be.method}: index {st}")
+    before = launch_counts(sig_scan)
+    lat, got = [], []
+    for vec in vecs:
+        res, ms = timed(be.neighbors, vec, k)
+        lat.append(ms)
+        got.append(res)
+    launched = moved(sig_scan, before)
+    check(launched[f"{mode}_gather"] == len(vecs),
+          f"{be.method}: {launched[f'{mode}_gather']} gathered launches for "
+          f"{len(vecs)} IVF queries")
+    rec = [recall_at(g, a, k) for g, a in zip(got, answers)]
+    for res in got:
+        check(len(res) == k and all(np.isfinite(d) for _, d in res),
+              f"{be.method}: bad IVF answer {res[:3]}")
+    with uncounted(sig_scan):
+        for vec, res in list(zip(vecs, got))[:5]:
+            full = be.distances(vec)
+            check(all(full[be.store.slots[r]] == d for r, d in res),
+                  f"{be.method}: an IVF distance is not the row's own")
+    # a forced re-split: the widest cells past a width one under theirs
+    sizes = be._ann_arenas.sizes()
+    cells_before = len(sizes)
+    be.ann_split_width = max(sizes) - 1
+    seen = len(events.default_journal().snapshot(grep="resplit"))
+    be.set_row("ivf_probe_row", vecs[0])
+    be.neighbors(vecs[0], k)
+    be.ann_split_width = 0
+    resplits = len(events.default_journal().snapshot(grep="resplit")) - seen
+    check(resplits >= 1 and be._ann_arenas.n_cells > cells_before,
+          f"{be.method}: no re-split ({resplits} events)")
+    be.remove_row("ivf_probe_row")
+    with uncounted(sig_scan):
+        timing = gather_timing(torch, sig_scan, ivf, be, seed, l2)
+    st = be.ann_stats()
+    be.configure_ann("off")
+    exact_lat, same = [], 0
+    for vec, want in zip(vecs, answers):
+        res, ms = timed(be.neighbors, vec, k)
+        exact_lat.append(ms)
+        same += res == want
+    check(same == len(vecs), f"{be.method}: the exact path after --ann off "
+                             f"answered {len(vecs) - same} queries unlike "
+                             "phase 3")
+    return dict(method=be.method, rows=ROWS, cells=split["cells"],
+                nprobe=IVF_NPROBE, build_s=build_s, build_split=split,
+                cells_after_resplit=st["cells"], resplit_events=resplits,
+                ivf=pcts(lat), exact=pcts(exact_lat),
+                recall_at_10=statistics.fmean(r[0] for r in rec),
+                recall_at_10_tie_aware=statistics.fmean(r[1] for r in rec),
+                rescore_candidates=st["rescore_candidates"],
+                recall_probe=st.get("recall_probe"), launches=launched,
+                exact_equal_to_phase3=same, gather_timing=timing)
+
+
+def phase_ivf_exact(torch, knn, rec, Datum, seed: int) -> dict:
+    """``inverted_index`` (recommender default.json) under IVF on phase
+    5's rows: the JL probe table filled at the flush, ivf_topk_exact's
+    answers each within EXACT_TOL of a CPU recomputation of every
+    distance, recall against that exact top-10."""
+    be = rec.backend
+    t0 = time.perf_counter()
+    be.configure_ann("ivf")
+    signed = be.flush()
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    check(signed == REC_ROWS, f"inverted_index: {signed} JL rows signed")
+    t0 = time.perf_counter()
+    check(be._ann_ready(), "inverted_index: the IVF index did not build")
+    be._ann_device_state()
+    build_s = time.perf_counter() - t0
+    queries = random_datums(np.random.default_rng(seed + 2), Datum,
+                            REC_QUERIES)
+    lat, answers = [], []
+    for q in queries:
+        res, ms = timed(rec.similar_row_from_datum, q, 10)
+        lat.append(ms)
+        answers.append(res)
+    st = be.ann_stats()
+    idx = torch.from_numpy(be.store.idx)
+    val = torch.from_numpy(be.store.val)
+    live = torch.from_numpy(be.store.live)
+    worst, recalls = 0.0, []
+    for q, res in list(zip(queries, answers))[:10]:
+        vec = rec.converter.convert(q)
+        qd = knn.densify(torch.tensor([i for i, _ in vec], dtype=torch.int32),
+                         torch.tensor([v for _, v in vec],
+                                      dtype=torch.float32), dim=be.dim)
+        d_cpu = torch.where(live, 1.0 - knn.cosine_scores(idx, val, qd),
+                            torch.tensor(float("inf")))
+        true = [(rid, float(d_cpu[be.store.slots[rid]])) for rid, _ in res]
+        for (_, sim), (_, d) in zip(res, true):
+            worst = max(worst, abs(float(sim) - (1.0 - d)))
+        vals, order = torch.topk(d_cpu, 10, largest=False, sorted=True)
+        want = [(be.store.ids[s], float(v)) for s, v in
+                zip(order.tolist(), vals.tolist())]
+        recalls.append(recall_at(true, want, 10))
+    check(worst <= EXACT_TOL, f"inverted_index IVF: similarities off the "
+                              f"CPU's by {worst} (> {EXACT_TOL})")
+    be.configure_ann("off")
+    exact_lat = [timed(rec.similar_row_from_datum, q, 10)[1]
+                 for q in queries]
+    return dict(config="config/recommender/default.json", rows=REC_ROWS,
+                cells=st["cells"], nprobe=st["nprobe"],
+                probe_table_s=probe_s, build_s=build_s,
+                build_split=dict(be.ann_last_build), ivf=pcts(lat),
+                exact=pcts(exact_lat), max_abs_err=worst, tol=EXACT_TOL,
+                recall_at_10=statistics.fmean(r[0] for r in recalls),
+                recall_at_10_tie_aware=statistics.fmean(
+                    r[1] for r in recalls))
+
+
+def phase_sharded(torch, sig_scan, ShardMesh, kept) -> dict:
+    """Phase 3's backend row-sharded over SHARDS logical shards on cuda:0:
+    200 exact queries (distances equal to phase 3's, ids up to ties at the
+    k-th, K1 launched once a shard), then IVF over the shards with every
+    cell probed, equal to the sharded exact answers."""
+    be, vecs, answers = kept
+    mode = "hamming" if be.method == "lsh" else "minhash"
+    k = 10
+    t0 = time.perf_counter()
+    be.attach_mesh(ShardMesh(["cuda:0"] * SHARDS))
+    attach_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    signed = be.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    check(signed == ROWS, f"{be.method} sharded: signed {signed} rows")
+    before = launch_counts(sig_scan)
+    lat, got, merge = [], [], []
+    for vec in vecs:
+        res, ms = timed(be.neighbors, vec, k)
+        lat.append(ms)
+        got.append(res)
+        merge.append(be.last_topk_ms)
+    launched = moved(sig_scan, before)
+    check(launched[mode] == SHARDS * len(vecs),
+          f"{be.method} sharded: {launched[mode]} scans for {len(vecs)} "
+          f"queries over {SHARDS} shards")
+    for g, a in zip(got, answers):
+        check([d for _, d in g] == [d for _, d in a],
+              f"{be.method} sharded: distances differ from the flat path's")
+        compare_ranked(g, a, f"{be.method} sharded")
+    shard_st = be.shard_stats()
+    be.configure_ann("ivf", cells=SHARD_IVF_CELLS, nprobe=SHARD_IVF_CELLS)
+    t0 = time.perf_counter()
+    check(be._ann_ready(), f"{be.method} sharded: the IVF index did not "
+                           "build")
+    build_s = time.perf_counter() - t0
+    before = launch_counts(sig_scan)
+    ivf_lat = []
+    for vec, want in list(zip(vecs, got))[:SHARD_IVF_QUERIES]:
+        res, ms = timed(be.neighbors, vec, k)
+        ivf_lat.append(ms)
+        check([d for _, d in res] == [d for _, d in want],
+              f"{be.method} sharded IVF with every cell probed: distances "
+              "differ from the sharded exact path's")
+        compare_ranked(res, want, f"{be.method} sharded IVF")
+    ivf_launched = moved(sig_scan, before)
+    check(ivf_launched[f"{mode}_gather"] == SHARDS * SHARD_IVF_QUERIES,
+          f"{be.method} sharded IVF: {ivf_launched[f'{mode}_gather']} "
+          "gathered launches")
+    st = be.ann_stats()
+    be.configure_ann("off")
+    launched = {m: launched[m] + ivf_launched[m] for m in launched}
+    return dict(method=be.method, rows=ROWS, shards=SHARDS,
+                attach_s=attach_s, flush_s=flush_s, exact=pcts(lat),
+                topk_merge_ms=pcts(merge), shard_stats=shard_st,
+                ivf_full_probe=dict(cells=st["cells"], build_s=build_s,
+                                    rescore_candidates=st[
+                                        "rescore_candidates"],
+                                    queries=SHARD_IVF_QUERIES,
+                                    latency=pcts(ivf_lat)),
+                launches=launched)
+
+
+def lof_by_id(torch, drv, datums) -> list:
+    """LOF of ``datums`` from the driver's backend distances with ties
+    between equal distances broken by row id (columns in id order, stable
+    sorts on the card): the driver's ``_support`` and ``_score`` made
+    independent of the slot layout, whose numpy sorts break ties by
+    column."""
+    be = drv.backend
+    slots = np.asarray([be.store.slots[r] for r in sorted(be.store.slots)])
+    n = len(slots)
+    kk, k = min(drv.k, n - 1), min(drv.k, n)
+    d = torch.from_numpy(be.distances_from_slots(slots)[:, slots]).cuda()
+    d.fill_diagonal_(float("inf"))
+    dv, nbr = torch.sort(d, dim=1, stable=True)
+    dv, nbr = dv[:, :kk], nbr[:, :kk]
+    kdist = dv[:, -1]
+    lrd = kk / torch.maximum(kdist[nbr], dv).sum(1)
+    q = torch.from_numpy(np.stack([
+        be.distances(drv.converter.convert(dt))[slots] for dt in datums])
+    ).cuda()
+    qv, order = torch.sort(q, dim=1, stable=True)
+    lrd_q = k / torch.maximum(kdist[order[:, :k]], qv[:, :k]).sum(1)
+    return (lrd[order[:, :k]].mean(1) / lrd_q).cpu().tolist()
+
+
+def phase_sharded_lof(torch, sig_scan, AnomalyDriver, ShardMesh, Datum,
+                      seed: int) -> dict:
+    """Phase 6's LOF config over lsh at LOF_ROWS rows on SHARDS logical
+    shards of cuda:0: the full distance rows equal the flat backend's (id
+    for id), the scores equal the CPU port driver's on the same shard
+    layout bit for bit, and how many equal the flat card driver's (LOF's
+    host sorts break ties between equal distances by column, and a shard
+    layout orders the columns differently). The witness: with ties broken
+    by row id (``lof_by_id``), the sharded and the flat card driver's
+    scores are equal bit for bit."""
+    config = lof_config("lsh")
+    card = AnomalyDriver(config, device="cuda")
+    card.backend.attach_mesh(ShardMesh(["cuda:0"] * SHARDS))
+    cpu = AnomalyDriver(config, device="cpu")
+    cpu.backend.attach_mesh(ShardMesh(["cpu"] * SHARDS))
+    flat = AnomalyDriver(config, device="cuda")
+    rng = np.random.default_rng(seed + 7)
+    idx, val = random_rows(rng, LOF_ROWS, 32, 18)
+    for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist())):
+        for drv in (card, cpu, flat):
+            drv.backend.set_row(f"r{i}", list(zip(ii, vv)))
+    datums = random_datums(np.random.default_rng(seed + 8), Datum,
+                           SHARD_LOF_SCORES)
+    before = launch_counts(sig_scan)
+    lat, got = [], []
+    for d in datums:
+        score, ms = timed(card.calc_score, d)
+        lat.append(ms)
+        got.append(score)
+    launched = moved(sig_scan, before)
+    with uncounted(sig_scan):
+        want = [cpu.calc_score(d) for d in datums]
+        flat_scores = [flat.calc_score(d) for d in datums]
+        ids = card.backend.store.all_ids()[:64]
+        ds = card.backend.distances_from_slots(
+            np.asarray([card.backend.store.slots[r] for r in ids]))
+        df = flat.backend.distances_from_slots(
+            np.asarray([flat.backend.store.slots[r] for r in ids]))
+        cols_s = np.asarray([card.backend.store.slots[r] for r in
+                             flat.backend.store.ids if r])
+        cols_f = np.asarray([flat.backend.store.slots[r] for r in
+                             flat.backend.store.ids if r])
+        check(np.array_equal(ds[:, cols_s], df[:, cols_f]),
+              "sharded LOF: distance rows differ from the flat backend's")
+        by_id = lof_by_id(torch, card, datums)
+        check(np.array_equal(by_id, lof_by_id(torch, flat, datums),
+                             equal_nan=True),
+              "sharded LOF: id-ordered scores differ from the flat driver's")
+    check(bool(np.isfinite(got).all()), "sharded LOF: non-finite score")
+    check(got == want, "sharded LOF: scores differ from the CPU driver's on "
+                       "the same shard layout")
+    check(launched["hamming"] > 0, "sharded LOF launched no K1 scan")
+    return dict(config="config/anomaly/lof_unlearner_lru.json (lsh)",
+                rows=LOF_ROWS, shards=SHARDS, scores=len(got),
+                calc_score=pcts(lat), equal_to_cpu_sharded=len(got),
+                equal_to_flat=int(sum(a == b for a, b in
+                                      zip(got, flat_scores))),
+                max_rel_diff_to_flat=float(max(
+                    abs(a / b - 1.0) for a, b in zip(got, flat_scores))),
+                id_ordered_equal_to_flat=len(by_id),
+                launches=launched)
+
+
+def ivf_fill_calls(seed: int):
+    """IVF_SERVER_ROWS rows of phase 3's shape as put_rows chunks."""
+    rng = np.random.default_rng(seed + 1404)
+    for lo in range(0, IVF_SERVER_ROWS, ELASTIC_FILL):
+        n = min(ELASTIC_FILL, IVF_SERVER_ROWS - lo)
+        idx, val = random_rows(rng, n, 32, 18)
+        yield [[f"r{lo + i}", ii, vv, None]
+               for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist()))]
+
+
+def phase_ivf_server(seed: int) -> dict:
+    """``--ann ivf`` nearest_neighbor servers (lsh.json) on the card: one
+    filled by put_rows, queried over RPC, its status read, saved; a second
+    loads the file (the centroids byte for byte, equal answers); and
+    ``--shard-devices 2`` on a one-card machine exits with the JAX
+    server's message."""
+    import shutil
+
+    config = os.path.join(ROOT, "config", "nearest_neighbor", "lsh.json")
+    d = os.path.join(OUT_DIR, "ivf_server")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    extra = ("--ann", "ivf", "-d", d)
+    procs = [start_server("nearest_neighbor", config, tag=f"_ivf_{t}",
+                          extra=extra) for t in "ab"]
+    bad = subprocess.Popen(
+        [sys.executable, "-m", "jubatus_tpu_torch.server", "nearest_neighbor",
+         "-f", config, "-p", str(free_port()), "-b", "127.0.0.1",
+         "--shard-devices", "2", "--device", "cuda"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    launches = {m: 0 for m in RECORDED}
+    try:
+        with serving("nearest_neighbor", "", procs[0]) as a, \
+                serving("nearest_neighbor", "", procs[1]) as b:
+            t0 = time.perf_counter()
+            for rows in ivf_fill_calls(seed):
+                check(a.call("put_rows", "smoke", rows) == len(rows),
+                      "put_rows applied a short count")
+            fill_s = time.perf_counter() - t0
+            probe = [f"r{(i * 7919) % IVF_SERVER_ROWS}"
+                     for i in range(IVF_SERVER_QUERIES)]
+            first, first_ms = timed(a.call, "neighbor_row_from_id", "smoke",
+                                    probe[0], 10)
+            lat, want = [], [first]
+            for rid in probe[1:]:
+                res, ms = timed(a.call, "neighbor_row_from_id", "smoke", rid,
+                                10)
+                lat.append(ms)
+                want.append(res)
+            st = server_status(a)
+            for key in ("driver.ann.built", "ann.cells", "ann.recall_probe"):
+                check(key in st, f"--ann ivf get_status lacks {key}")
+            check(st["driver.ann.built"] is True, "the server's index is "
+                                                  "not built")
+            (path,), save_ms = timed(lambda: list(a.call("save", "smoke",
+                                                          "ivf").values()))
+            b_path = os.path.join(
+                d, f"127.0.0.1_{procs[1][1]}_nearest_neighbor_ivf.jubatus")
+            shutil.copy(path, b_path)
+            ok, load_ms = timed(b.call, "load", "smoke", "ivf")
+            check(ok is True, "load of the --ann ivf model failed")
+            for rid, w in list(zip(probe, want))[:IVF_LOAD_QUERIES]:
+                got = b.call("neighbor_row_from_id", "smoke", rid, 10)
+                check(got == w, f"the loaded server answers {rid} unlike "
+                                "the saver")
+            (b2,) = b.call("save", "smoke", "ivf2").values()
+            ca = saved_model(path)["backend"]["ann"]
+            cb = saved_model(b2)["backend"]["ann"]
+            check(ca["centroids"] == cb["centroids"]
+                  and ca["cells"] == cb["cells"],
+                  "the loaded server's centroids differ from the saver's")
+            st_b = server_status(b)
+            add_launches(launches, st)
+            add_launches(launches, st_b)
+        out, err = bad.communicate(timeout=180)
+        check(bad.returncode == 1 and "--shard-devices 2 but only 1 local "
+              "devices present" in err,
+              f"--shard-devices 2 on one card: exit {bad.returncode}, "
+              f"{err[-300:]!r}")
+        return dict(config="config/nearest_neighbor/lsh.json --ann ivf",
+                    rows=IVF_SERVER_ROWS, fill_s=fill_s,
+                    fill_rows_per_s=IVF_SERVER_ROWS / fill_s,
+                    first_query_ms=first_ms, query=pcts(lat),
+                    status={k: st[k] for k in sorted(st)
+                            if k.startswith(("ann.", "driver.ann."))},
+                    save_ms=save_ms, load_ms=load_ms,
+                    loaded_queries_equal=IVF_LOAD_QUERIES,
+                    centroid_bytes=len(ca["centroids"]),
+                    shard_devices_2_exit=bad.returncode,
+                    server_launches=launches)
+    finally:
+        for p in procs:
+            stop_server(p[0])
+        if bad.poll() is None:
+            bad.kill()
+            bad.wait(timeout=20)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3888,6 +4429,8 @@ def main(argv=None) -> int:
         # -- phase 2: kernels vs plain, edge shapes first
         edges = phase_edges(torch, sig_scan, args.seed)
         log(f"[edges] {json.dumps(edges)}")
+        edges = phase_gather_edges(torch, sig_scan, args.seed)
+        log(f"[edges] gather {json.dumps(edges)}")
         scans = phase_kernels(torch, sig_scan, args.seed)
         with uncounted(sig_scan):
             pa = phase_scan(torch, online_scan, Datum, RegressionDriver,
@@ -3911,7 +4454,7 @@ def main(argv=None) -> int:
         def nn_path():
             for method in ("lsh", "minhash"):
                 res = phase_backend(torch, sig_scan, knn, NNBackend,
-                                    SparseBatch, method, args.seed)
+                                    SparseBatch, method, args.seed, kept)
                 log(f"[backend] {json.dumps(res)} | {kind} | {smi}")
             return {}
 
@@ -3924,7 +4467,7 @@ def main(argv=None) -> int:
             for name in REC_CONFIGS:
                 res = phase_recommender(torch, sig_scan, knn,
                                         RecommenderDriver, Datum, name,
-                                        args.seed)
+                                        args.seed, kept)
                 log(f"[recommender] {json.dumps(res)} | {kind} | {smi}")
             return {}
 
@@ -4040,6 +4583,10 @@ def main(argv=None) -> int:
             return {"server_launches": total}
 
         lof_shapes = {}
+        #: phase 3's backends and phase 5's exact recommender, for phase 14
+        kept: dict = {}
+        #: the gathered variant's timing rows, by mode (phase 14)
+        gather_rows: dict = {}
         run_path("nearest_neighbor", nn_path)
         run_path("nearest_neighbor_server", nn_server_path)
         run_path("recommender", recommender_path)
@@ -4062,6 +4609,38 @@ def main(argv=None) -> int:
 
         run_path("push_async_elastic_store", p12_path)
         run_path("deploy", deploy_path)
+
+        def ivf_shard_path():
+            from jubatus_tpu_torch.ops import ivf
+            from jubatus_tpu_torch.parallel.mesh import ShardMesh
+            from jubatus_tpu_torch.utils import events
+
+            assert_matmul_full_precision(torch)
+            l2 = torch.empty(25 * (1 << 20), dtype=torch.float32,
+                             device="cuda")
+            for method in ("lsh", "minhash"):
+                res = phase_ivf_flat(torch, sig_scan, ivf, events,
+                                     kept[method], args.seed, l2)
+                mode = "hamming" if method == "lsh" else "minhash"
+                gather_rows[mode] = res.pop("gather_timing")
+                log(f"[ivf] {json.dumps(res)} | {kind} | {smi}")
+            del l2
+            res = phase_ivf_exact(torch, knn, kept.pop("default.json"), Datum,
+                                  args.seed)
+            log(f"[ivf] inverted_index {json.dumps(res)} | {kind} | {smi}")
+            for method in ("lsh", "minhash"):
+                res = phase_sharded(torch, sig_scan, ShardMesh,
+                                    kept.pop(method))
+                log(f"[sharded] {json.dumps(res)} | {kind} | {smi}")
+                torch.cuda.empty_cache()
+            res = phase_sharded_lof(torch, sig_scan, AnomalyDriver, ShardMesh,
+                                    Datum, args.seed)
+            log(f"[sharded_lof] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_ivf_server(args.seed)
+            log(f"[ivf_server] {json.dumps(res)} | {kind} | {smi}")
+            return {"server_launches": res["server_launches"]}
+
+        run_path("ivf_sharded", ivf_shard_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -4085,6 +4664,11 @@ def main(argv=None) -> int:
                   "store path")
             check(paths["deploy"][mode] > 0,
                   f"{mode} never launched on the deploy path (phase 13)")
+        for mode in ("hamming", "minhash", "hamming_gather",
+                     "minhash_gather"):
+            check(paths["ivf_sharded"][mode] > 0,
+                  f"{mode} never launched on the IVF and sharded path "
+                  "(phase 14)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4104,6 +4688,22 @@ def main(argv=None) -> int:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
             "shapes": scans[mode], "lof_shape": lof_shapes[mode],
+        })
+    for mode in GATHER_MODES:
+        rows = gather_rows[mode]
+        kernels.append({
+            "name": f"sig_scan.{mode}_gather", "route": "cuda",
+            "source": "jubatus_tpu_torch/csrc/sig_scan.cu",
+            "replaces": "jubatus_tpu/ops/pallas_kernels.py:87",
+            "replaces_kind": "K1's gathered variant: the IVF rescore "
+                             "(jubatus_tpu/ops/ivf.py:251, XLA there)",
+            "launches": launches[f"{mode}_gather"],
+            "launches_by_path": {p: c[f"{mode}_gather"]
+                                 for p, c in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rows[0]["kernel_ms"], "plain_ms": rows[0]["plain_ms"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": rows[0]["library_ms"], "shapes": rows,
         })
     st = pa["stress"]
     kernels.append({

@@ -16,8 +16,10 @@ per-example scan is a CUDA kernel (``ops/online_scan.py``,
 ``csrc/online_scan.cu``); clustering (k-means, GMM, DBSCAN) and graph
 (PageRank) on the device in PyTorch (``ops/clustering.py``,
 ``models/graph.py``); and stat, bandit, burst and weight, which hold host
-state only. Features within an engine that are not ported yet (sharded
-layouts, the IVF tier, converter plugins) raise ``NotYetPorted``.
+state only. The instance engines also serve row-sharded over several
+devices (``parallel/``) and through the IVF tier (``ops/ivf.py``). Features
+not ported yet (the feature-sharded linear engines, converter plugins)
+raise ``NotYetPorted``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

@@ -84,3 +84,9 @@ class CHT:
                 if len(out) == n:
                     break
         return out
+
+
+def shard_for(key: str, n_shards: int) -> int:
+    """Static placement over a fixed shard count: a stable key → shard
+    map (the row-sharded store's owning shard)."""
+    return int(make_hash(key)[:8], 16) % max(1, n_shards)

@@ -54,6 +54,15 @@
 //   ("generic"): one thread per row, queries in shared memory tiled at
 //   48 KB, the row's words read from global memory per query word.
 //
+// - the gathered variant ("gather", the IVF rescore of ops/ivf.py): each
+//   query b is scored against its own candidate rows r[cand[b, m]] instead
+//   of the whole table, out [B, M], +inf where cand is -1. Blocks over
+//   (candidate chunk, query), one thread per candidate, the query's words
+//   in shared memory, the row's words read through its slot id (16 bytes
+//   at a time when W % 4 == 0 on a 16-byte-aligned table). A slot >= C is
+//   outside the table: its output is NaN. Bytes: each candidate's row and
+//   slot id once, its distance once; a simple kernel, not yet tuned.
+//
 // Every variant forms the distance as the Pallas kernel does, in float32,
 // with the _rn intrinsics so that nvcc cannot contract 1 - n*s into an FMA.
 // Each entry point checks its variant's preconditions and returns
@@ -437,6 +446,54 @@ sig_scan_minhash_tiled(const uint32_t* __restrict__ q,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// gathered: each query against its own candidate rows (the IVF rescore)
+// ---------------------------------------------------------------------------
+template <bool kMinhash, bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+sig_scan_gather(const uint32_t* __restrict__ q, const uint32_t* __restrict__ r,
+                const int32_t* __restrict__ cand, float* __restrict__ out,
+                int C, int M, int W, float scale) {
+  extern __shared__ uint32_t qs[];
+  const int b = blockIdx.y;
+  for (int i = threadIdx.x; i < W; i += kThreads) qs[i] = q[(int64_t)b * W + i];
+  __syncthreads();
+  const int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (m >= M) return;
+  const int64_t o = (int64_t)b * M + m;
+  const int32_t slot = __ldg(cand + o);
+  if (slot < 0) {
+    out[o] = __int_as_float(0x7f800000);  // +inf: padding
+    return;
+  }
+  if (slot >= C) {
+    out[o] = __int_as_float(0x7fc00000);  // NaN: outside the table
+    return;
+  }
+  const uint32_t* rp = r + (int64_t)slot * W;
+  unsigned cnt = 0;
+  if (kVec4) {
+    const uint4* r4 = reinterpret_cast<const uint4*>(rp);
+    for (int j = 0; j < W / 4; ++j) {
+      const uint4 x = __ldg(r4 + j);
+      const uint32_t* qw = qs + 4 * j;
+      if (kMinhash) {
+        eq4_add(cnt, x, make_uint4(qw[0], qw[1], qw[2], qw[3]));
+      } else {
+        cnt += __popc(qw[0] ^ x.x) + __popc(qw[1] ^ x.y) +
+               __popc(qw[2] ^ x.z) + __popc(qw[3] ^ x.w);
+      }
+    }
+  } else {
+    for (int w = 0; w < W; ++w) {
+      const uint32_t x = __ldg(rp + w);
+      cnt += kMinhash ? (unsigned)(qs[w] == x) : __popc(qs[w] ^ x);
+    }
+  }
+  out[o] = kMinhash ? minhash_dist(cnt, scale) : hamming_dist(cnt, scale);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -475,6 +532,28 @@ int next_pow2(int v) {
   int p = 1;
   while (p < v) p <<= 1;
   return p;
+}
+
+
+template <bool kMinhash>
+int launch_gather(const void* q, const void* r, const void* cand, void* out,
+                  int B, int C, int M, int W, float scale, void* stream) {
+  if (bad_shape(B, C, W) || M <= 0 || B > 65535 || W > kQueryTileWords)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((M + kThreads - 1) / kThreads), (unsigned)B);
+  const size_t smem = (size_t)W * sizeof(uint32_t);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* qq = static_cast<const uint32_t*>(q);
+  const uint32_t* rr = static_cast<const uint32_t*>(r);
+  const int32_t* cc = static_cast<const int32_t*>(cand);
+  float* oo = static_cast<float*>(out);
+  if (W % 4 == 0 && aligned16(r))
+    sig_scan_gather<kMinhash, true><<<grid, kThreads, smem, st>>>(
+        qq, rr, cc, oo, C, M, W, scale);
+  else
+    sig_scan_gather<kMinhash, false><<<grid, kThreads, smem, st>>>(
+        qq, rr, cc, oo, C, M, W, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -545,4 +624,18 @@ extern "C" int jt_sig_scan_minhash_tiled(const void* q, const void* r,
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(r),
       static_cast<float*>(out), B, C, W, scale);
   return (int)cudaGetLastError();
+}
+
+extern "C" int jt_sig_scan_hamming_gather(const void* q, const void* r,
+                                          const void* cand, void* out, int B,
+                                          int C, int M, int W, float scale,
+                                          void* stream) {
+  return launch_gather<false>(q, r, cand, out, B, C, M, W, scale, stream);
+}
+
+extern "C" int jt_sig_scan_minhash_gather(const void* q, const void* r,
+                                          const void* cand, void* out, int B,
+                                          int C, int M, int W, float scale,
+                                          void* stream) {
+  return launch_gather<true>(q, r, cand, out, B, C, M, W, scale, stream);
 }

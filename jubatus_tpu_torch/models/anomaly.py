@@ -36,7 +36,7 @@ from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.core.sparse import SparseVector
 from jubatus_tpu_torch.framework.driver import DriverBase, locked
-from jubatus_tpu_torch.models._nn_backend import NNBackend
+from jubatus_tpu_torch.models._nn_backend import NNBackend, NNIndexStats
 from jubatus_tpu_torch.models.nearest_neighbor import _RowUpdateMixable
 
 METHODS = ("lof", "light_lof")
@@ -46,7 +46,7 @@ class AnomalyConfigError(ValueError):
     pass
 
 
-class AnomalyDriver(DriverBase):
+class AnomalyDriver(NNIndexStats, DriverBase):
     TYPE = "anomaly"
 
     def __init__(self, config: dict, dim_bits: int = 18, device=None):
@@ -225,4 +225,5 @@ class AnomalyDriver(DriverBase):
         st = super().get_status()
         st.update(method=self.method, num_rows=len(self.backend.store),
                   k=self.k, device=str(self.device))
+        st.update(self.index_status())
         return st

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Tuple
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.framework.driver import DriverBase, locked
-from jubatus_tpu_torch.models._nn_backend import NNBackend
+from jubatus_tpu_torch.models._nn_backend import NNBackend, NNIndexStats
 from jubatus_tpu_torch.models.nearest_neighbor import _RowUpdateMixable
 
 NN_METHODS = ("NN", "cosine", "euclidean")
@@ -100,7 +100,7 @@ class _NNRowsMixable(_RowUpdateMixable):
         return ok
 
 
-class ClassifierNNDriver(DriverBase):
+class ClassifierNNDriver(NNIndexStats, DriverBase):
     TYPE = "classifier"
 
     def __init__(self, config: dict, dim_bits: int = 18, device=None):
@@ -283,4 +283,5 @@ class ClassifierNNDriver(DriverBase):
         st.update(method=self.method, num_examples=len(self.backend.store),
                   num_labels=len(self._label_counts()),
                   device=str(self.device))
+        st.update(self.index_status())
         return st

@@ -18,14 +18,14 @@ from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.framework.driver import DriverBase, locked
 from jubatus_tpu_torch.models._nn_backend import (HASH_METHODS, NNBackend,
-                                                  NNRowMigration)
+                                                  NNIndexStats, NNRowMigration)
 
 
 class NearestNeighborConfigError(ValueError):
     pass
 
 
-class NearestNeighborDriver(NNRowMigration, DriverBase):
+class NearestNeighborDriver(NNIndexStats, NNRowMigration, DriverBase):
     TYPE = "nearest_neighbor"
 
     def __init__(self, config: dict, dim_bits: int = 18, device=None):
@@ -124,6 +124,7 @@ class NearestNeighborDriver(NNRowMigration, DriverBase):
         st.update(method=self.method, num_rows=len(self.backend.store),
                   device=str(self.device),
                   nonfinite_rejected=self.converter.nonfinite_rejected)
+        st.update(self.index_status())
         return st
 
 

@@ -26,7 +26,8 @@ from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.core.sparse import SparseVector
 from jubatus_tpu_torch.framework.driver import DriverBase, locked
-from jubatus_tpu_torch.models._nn_backend import NNBackend, NNRowMigration
+from jubatus_tpu_torch.models._nn_backend import (NNBackend, NNIndexStats,
+                                                  NNRowMigration)
 from jubatus_tpu_torch.models.nearest_neighbor import _RowUpdateMixable
 
 METHODS = ("inverted_index", "inverted_index_euclid", "lsh", "minhash",
@@ -40,7 +41,7 @@ class RecommenderConfigError(ValueError):
     pass
 
 
-class RecommenderDriver(NNRowMigration, DriverBase):
+class RecommenderDriver(NNIndexStats, NNRowMigration, DriverBase):
     TYPE = "recommender"
 
     def __init__(self, config: dict, dim_bits: int = 18, device=None):
@@ -210,4 +211,5 @@ class RecommenderDriver(NNRowMigration, DriverBase):
         st = super().get_status()
         st.update(method=self.method, num_rows=len(self.backend.store),
                   device=str(self.device))
+        st.update(self.index_status())
         return st

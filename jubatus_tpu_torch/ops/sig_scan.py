@@ -22,6 +22,14 @@ Signature words are uint32 bit patterns held in ``int32`` tensors.
 - ``minhash_distances_batch(q [B, H], r [C, H])`` → [B, C]
   ``1 - (#equal lanes) * (1/H)``.
 
+The gathered variant scores each query against its own candidate rows
+instead of the whole table (the IVF rescore, ``ops/ivf.py``):
+
+- ``gathered(mode, q [B, W], table [C, W], cand [B, M], hash_num)`` → [B, M]
+  float32, ``table[cand[b, m]]``'s distance to ``q[b]`` by the mode's
+  formula, +inf where ``cand`` is −1 (padding). Its launches are counted
+  apart, in ``hamming_gather.launches`` and ``minhash_gather.launches``.
+
 On a CUDA tensor a wrapper launches the chosen kernel (or raises); on a CPU
 tensor, and only there, it runs the plain PyTorch version beside it. Each
 wrapper counts its kernel launches in ``.launches``, whatever the variant.
@@ -76,6 +84,13 @@ def library() -> ctypes.CDLL:
                                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+        for mode in VARIANTS:
+            fn = getattr(lib, f"jt_sig_scan_{mode}_gather")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -148,7 +163,8 @@ class SigScan:
         self.mode = mode
         self.launches = 0
 
-    def _check(self, q: torch.Tensor, r: torch.Tensor) -> None:
+    @staticmethod
+    def _check(q: torch.Tensor, r: torch.Tensor) -> None:
         if q.device != r.device:
             raise ValueError(f"sig_scan: queries on {q.device}, "
                              f"table on {r.device}")
@@ -217,3 +233,75 @@ def minhash_distances_batch(q_sigs: torch.Tensor,
 
 def minhash_distances(q_sig: torch.Tensor, row_sigs: torch.Tensor) -> torch.Tensor:
     return minhash(q_sig[None, :], row_sigs)[0]
+
+
+# ---------------------------------------------------------------------------
+# the gathered variant (the IVF rescore)
+# ---------------------------------------------------------------------------
+def gathered_plain(mode: str, q: torch.Tensor, table: torch.Tensor,
+                   cand: torch.Tensor, hash_num: int) -> torch.Tensor:
+    """Plain version of the gathered variant: per query, gather its
+    candidate rows and run ``hamming_plain`` / ``minhash_plain``."""
+    out = torch.empty(cand.shape, dtype=torch.float32, device=q.device)
+    rows = table[torch.clamp(cand, min=0).long()]            # [B, M, W]
+    for b in range(q.shape[0]):
+        if mode == "hamming":
+            out[b] = hamming_plain(q[b:b + 1], rows[b], hash_num)[0]
+        else:
+            out[b] = minhash_plain(q[b:b + 1], rows[b])[0]
+    return torch.where(cand >= 0, out, torch.full_like(out, float("inf")))
+
+
+class GatherScan:
+    """The gathered variant of one mode. ``launches`` counts kernel
+    launches only."""
+
+    def __init__(self, mode: str) -> None:
+        self.mode = mode
+        self.launches = 0
+
+    def __call__(self, q: torch.Tensor, table: torch.Tensor,
+                 cand: torch.Tensor, hash_num: int = 0) -> torch.Tensor:
+        SigScan._check(q, table)
+        if cand.device != q.device:
+            raise ValueError(f"sig_scan.gather: candidates on {cand.device}, "
+                             f"queries on {q.device}")
+        if cand.dim() != 2 or cand.shape[0] != q.shape[0]:
+            raise ValueError(f"sig_scan.gather: candidates {tuple(cand.shape)}"
+                             f" for {q.shape[0]} queries")
+        if q.device.type == "cpu":
+            return gathered_plain(self.mode, q, table, cand, hash_num)
+        if q.device.type != "cuda":
+            raise ValueError(f"sig_scan.gather: unsupported device {q.device}")
+        cand = cand.to(torch.int32)
+        if not (q.is_contiguous() and table.is_contiguous()
+                and cand.is_contiguous()):
+            raise ValueError("sig_scan.gather: inputs must be contiguous")
+        b, c, m, words = q.shape[0], table.shape[0], cand.shape[1], q.shape[1]
+        out = torch.empty((b, m), dtype=torch.float32, device=q.device)
+        if b == 0 or m == 0:
+            return out
+        scale = 1.0 / hash_num if self.mode == "hamming" else 1.0 / words
+        fn = getattr(library(), f"jt_sig_scan_{self.mode}_gather")
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), table.data_ptr(), cand.data_ptr(),
+                     out.data_ptr(), b, c, m, words, scale, stream)
+        if err != 0:
+            raise RuntimeError(f"sig_scan.{self.mode} (gather) launch failed: "
+                               f"cudaError_t {err} (B={b}, C={c}, M={m}, "
+                               f"W={words})")
+        self.launches += 1
+        return out
+
+
+hamming_gather = GatherScan("hamming")
+minhash_gather = GatherScan("minhash")
+GATHERS = {"hamming": hamming_gather, "minhash": minhash_gather}
+
+
+def gathered(mode: str, q: torch.Tensor, table: torch.Tensor,
+             cand: torch.Tensor, hash_num: int = 0) -> torch.Tensor:
+    """[B, M] distance of ``q[b]`` to ``table[cand[b, m]]`` in ``mode``
+    (hamming or minhash), +inf where ``cand`` is −1."""
+    return GATHERS[mode](q, table, cand, hash_num)

@@ -7,7 +7,9 @@ the mix plane with its coordinator (``-z/--coordinator``, ``-x/--mixer``,
 ``--coordinator-timeout``, ``--mix-quorum``, ``--mix-async``,
 ``--mix-staleness-bound``, ``--mix-guard``, ``--mix-norm-bound``), the
 snapshot ring (``--model-snapshot-interval``), elastic membership
-(``--no-auto-rebalance``, ``--drain-grace``), the model store
+(``--no-auto-rebalance``, ``--drain-grace``), row-sharded serving
+(``--shard-devices``, ``--shard-features``) and the IVF tier (``--ann``,
+``--ann-cells``, ``--ann-nprobe``), the model store
 (``--store-dir``, ``--store-interval``, ``--store-compact-every``,
 ``--store-compress``, ``--no-store-warmboot``), the chaos drills'
 ``--fault`` rules, plus ``--device``, with
@@ -87,6 +89,16 @@ class ServerArgs:
     #: most examples one coalesced train flush takes; 0 = the direct
     #: per-RPC path (server/microbatch.py)
     microbatch_max: int = 8192
+    #: span the model over this many local devices (0/1 = one device)
+    shard_devices: int = 0
+    #: linear engines: the per-device feature budget (not yet ported)
+    shard_features: int = 0
+    #: approximate-NN tier of the instance engines: off or ivf
+    ann: str = "off"
+    #: IVF cell count (0 = auto, a power of two near sqrt(rows))
+    ann_cells: int = 0
+    #: IVF cells probed per query
+    ann_nprobe: int = 8
 
     @property
     def is_standalone(self) -> bool:
@@ -219,6 +231,36 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("--microbatch-max", type=int, default=8192,
                    help="most examples one coalesced train flush takes "
                         "(classifier, regression); 0 trains per RPC")
+    p.add_argument("--shard-devices", type=int, default=0,
+                   help="span the model over this many local devices (0/1 = "
+                        "single device): row-sharded arenas + signature "
+                        "tables for NN/recommender/anomaly hash methods "
+                        "(rows land in their CHT-owned shard; per-shard "
+                        "top-k merged on the first device); the "
+                        "feature-sharded linear engines are not yet ported")
+    p.add_argument("--shard-features", type=int, default=0,
+                   metavar="D_PER_SHARD",
+                   help="feature-shard the linear engines by per-device "
+                        "budget instead of device count (not yet ported). "
+                        "Mutually exclusive with --shard-devices")
+    p.add_argument("--ann", choices=("off", "ivf"), default="off",
+                   help="approximate-NN tier for the instance engines "
+                        "(nearest_neighbor/recommender/anomaly): 'off' "
+                        "(default) keeps every query on the exact "
+                        "brute-force scan; 'ivf' partitions rows into "
+                        "k-means cells and answers queries by probing "
+                        "the nearest cells + an exact rescore of only "
+                        "their rows. LOF density scans and anomaly scores "
+                        "stay exact either way")
+    p.add_argument("--ann-cells", type=int, default=0, metavar="K",
+                   help="IVF cell count for --ann ivf; 0 (default) "
+                        "auto-sizes to a power of two near sqrt(rows)")
+    p.add_argument("--ann-nprobe", type=int, default=8, metavar="P",
+                   help="cells probed per query for --ann ivf — the "
+                        "recall/latency dial: each probed cell adds "
+                        "~rows/cells candidates to the exact rescore; "
+                        "raise toward the cell count to converge on "
+                        "the exact result")
     return p
 
 
@@ -232,6 +274,21 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
         raise SystemExit("--rpc-port out of range")
     if args.microbatch_max < 0:
         raise SystemExit("--microbatch-max must be >= 0")
+    if args.shard_devices < 0:
+        raise SystemExit("--shard-devices must be >= 0")
+    if args.shard_features < 0:
+        raise SystemExit("--shard-features must be >= 0")
+    if args.shard_features and args.shard_devices:
+        raise SystemExit(
+            "--shard-features and --shard-devices are mutually exclusive "
+            "(the former derives the device count from the per-device "
+            "feature budget)")
+    if args.ann_cells < 0:
+        raise SystemExit("--ann-cells must be >= 0 (0 = auto)")
+    if args.ann_nprobe < 1:
+        raise SystemExit("--ann-nprobe must be >= 1")
+    if args.ann_cells and args.ann_nprobe > args.ann_cells:
+        raise SystemExit("--ann-nprobe cannot exceed --ann-cells")
     if args.mix_norm_bound <= 0:
         raise SystemExit("--mix-norm-bound must be > 0")
     if args.mix_staleness_bound < 0:

@@ -73,6 +73,7 @@ from jubatus_tpu_torch.framework.save_load import (SaveLoadError, load_model,
                                                    load_model_bytes,
                                                    read_envelope, save_model)
 from jubatus_tpu_torch.ops import online_scan, sig_scan
+from jubatus_tpu_torch.parallel.mesh import local_shard_mesh
 from jubatus_tpu_torch.rpc.client import RpcClient
 from jubatus_tpu_torch.rpc.errors import EpochMismatch
 from jubatus_tpu_torch.rpc.server import RpcServer
@@ -91,10 +92,17 @@ TICK_MAX_SEC = 10.0
 class EngineServer:
     def __init__(self, engine: str, config: Any,
                  args: Optional[ServerArgs] = None, device=None,
-                 coord: Optional[Coordinator] = None) -> None:
+                 coord: Optional[Coordinator] = None, mesh=None) -> None:
+        """``mesh``: a ``ShardMesh`` to row-shard the model over, for
+        callers in process (tests, the chip smoke: logical shards on one
+        device); otherwise ``--shard-devices N`` builds one from the first
+        N local devices."""
         self.engine = engine
         self.args = args or ServerArgs(engine=engine)
         self.args.check_ported()
+        device = device if device is not None else self.args.device
+        if mesh is None and self.args.shard_devices > 1:
+            mesh = local_shard_mesh(self.args.shard_devices, device)
         # --fault: arm boot-time fault-injection rules (process-global, as
         # the chaos plane models the process, not one server object)
         if self.args.fault:
@@ -105,8 +113,9 @@ class EngineServer:
             config = json.dumps(config)
         self.config_json: str = config
         self.driver = create_driver(
-            engine, json.loads(config),
-            device=device if device is not None else self.args.device)
+            engine, json.loads(config), device=device, mesh=mesh,
+            shard_features=self.args.shard_features, ann=self.args.ann,
+            ann_cells=self.args.ann_cells, ann_nprobe=self.args.ann_nprobe)
         self.start_time = time.time()  # wall-clock
         self.last_saved = 0.0
         self.last_loaded = 0.0
@@ -732,7 +741,9 @@ class EngineServer:
         ``rollback.count``), the store and this node's warm boot
         (``store.*``, ``warmboot.*``), and in a fleet the mixer's state
         (``mixer.*``), the round's spans and counters (``trace.*``) and
-        its gauges (``mix.*``)."""
+        its gauges (``mix.*``); on the instance engines the shard layout
+        and the IVF tier (``driver.shard.*``, ``driver.ann.*``, and the
+        ``shard.*`` / ``ann.*`` gauges)."""
         st: Dict[str, Any] = {
             "timestamp": int(time.time()),  # wall-clock
             "uptime": int(time.time() - self.start_time),  # wall-clock
@@ -751,6 +762,8 @@ class EngineServer:
                        for k, v in co.stats().items()})
         for kern in (sig_scan.hamming, sig_scan.minhash):
             st[f"kernel.sig_scan.{kern.mode}.launches"] = kern.launches
+        for kern in sig_scan.GATHERS.values():
+            st[f"kernel.sig_scan.{kern.mode}.gather.launches"] = kern.launches
         st["kernel.online_scan.launches"] = online_scan.pa_scan.launches
         for variant, n in online_scan.pa_scan.by_variant.items():
             st[f"kernel.online_scan.{variant}.launches"] = n
@@ -769,6 +782,7 @@ class EngineServer:
             st.update({f"mixer.{k}": v
                        for k, v in self.mixer.get_status().items()})
         st.update(self.trace.trace_status())
+        self._publish_index_gauges()
         st.update(self.trace.gauges())
         if self.mixer is not None:
             node = self.self_nodeinfo().name
@@ -776,6 +790,35 @@ class EngineServer:
             host = self.args.listen_addr or "127.0.0.1"
             node = f"{host}_{self.rpc.port or self.args.rpc_port}"
         return {node: st}
+
+    def _publish_index_gauges(self) -> None:
+        """The shard-layout gauges (count, live rows, arena bytes, the last
+        sharded top-k's merge wall) and the IVF gauges (cells, probe
+        width, rescore budget, the shadow-query recall and its deficit,
+        which the SLO grammar alarms on since it alarms on high gauges)."""
+        shard_stats = getattr(self.driver, "shard_stats", None)
+        doc = shard_stats() if shard_stats is not None else {}
+        if doc:
+            self.trace.gauge("shard.count", float(doc["count"]))
+            self.trace.gauge("shard.rows", float(doc.get("rows", 0)))
+            self.trace.gauge("shard.bytes_in_use",
+                             float(doc.get("bytes_in_use", 0)))
+            if doc.get("topk_merge_ms") is not None:
+                self.trace.gauge("shard.topk_merge_ms",
+                                 float(doc["topk_merge_ms"]))
+        ann_stats = getattr(self.driver, "ann_stats", None)
+        doc = ann_stats() if ann_stats is not None else {}
+        if doc:
+            self.trace.gauge("ann.cells", float(doc.get("cells", 0)))
+            self.trace.gauge("ann.probed_cells",
+                             float(doc.get("probed_cells", 0)))
+            self.trace.gauge("ann.rescore_candidates",
+                             float(doc.get("rescore_candidates", 0)))
+            if doc.get("recall_probe") is not None:
+                self.trace.gauge("ann.recall_probe",
+                                 float(doc["recall_probe"]))
+                self.trace.gauge("ann.recall_probe_deficit",
+                                 round(1.0 - float(doc["recall_probe"]), 4))
 
     # -- lifecycle (server_helper::start, server_helper.hpp:221-262) -----------
     def start(self, port: Optional[int] = None) -> int:

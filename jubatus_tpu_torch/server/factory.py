@@ -4,7 +4,7 @@ Config is the reference's JSON config verbatim. All eleven engines map to a
 driver. The classifier splits by method family: NN / cosine / euclidean go
 to the instance-based driver, the linear methods (perceptron, PA, PA1, PA2,
 CW, AROW, NHERD) to the linear one. Features within an engine that the
-port has not reached raise ``NotYetPorted`` from the driver.
+port has not reached raise ``NotYetPorted``.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, Type
 
-from jubatus_tpu_torch import NotYetPorted  # noqa: F401
+from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.models.anomaly import AnomalyDriver
 from jubatus_tpu_torch.models.bandit import BanditDriver
 from jubatus_tpu_torch.models.burst import BurstDriver
@@ -55,9 +55,80 @@ def driver_class(engine: str, config: dict) -> Type:
     return cls
 
 
-def create_driver(engine: str, config: Any, device=None):
+#: engines with a sharded layout, by mechanism (the JAX package's lists):
+#: the feature-sharded linear engines are not yet ported (ROADMAP A11)
+FEATURE_SHARDED_ENGINES = ("classifier", "regression")
+ROW_SHARDED_ENGINES = ("nearest_neighbor", "recommender", "anomaly")
+
+
+def create_driver(engine: str, config: Any, device=None, mesh=None,
+                  shard_features: int = 0, ann: str = "off",
+                  ann_cells: int = 0, ann_nprobe: int = 8):
     """Instantiate the engine's driver from a JSON config (str or dict) on
-    ``device`` (cuda unless "cpu" is asked for)."""
+    ``device`` (cuda unless "cpu" is asked for).
+
+    ``mesh`` (``--shard-devices``, a ``parallel/mesh.py:ShardMesh``):
+    row-shard the instance engines' arenas and signature tables
+    (nearest_neighbor, recommender, anomaly, the NN classifier; hash
+    methods only, ``NNBackend.attach_mesh``). The feature-sharded linear
+    engines (``--shard-devices`` or ``--shard-features`` on classifier and
+    regression) raise ``NotYetPorted``.
+
+    ``ann`` (``--ann {off,ivf}``): arm the IVF tier on the instance
+    engines' NN backend, with ``ann_cells`` / ``ann_nprobe``
+    (``--ann-cells`` / ``--ann-nprobe``); "off" keeps every query on the
+    exact scan. The classifier and regression return before that check
+    and ignore the flag, as in the JAX package."""
     if isinstance(config, str):
         config = json.loads(config)
-    return driver_class(engine, config)(config, device=device)
+    cls = driver_class(engine, config)
+    if shard_features and engine not in FEATURE_SHARDED_ENGINES:
+        raise ValueError(
+            f"--shard-features applies to the feature-sharded linear "
+            f"engines ({', '.join(FEATURE_SHARDED_ENGINES)}), not "
+            f"{engine!r}; row-store engines "
+            f"({', '.join(ROW_SHARDED_ENGINES)}) shard rows via "
+            "--shard-devices N")
+    if cls is ClassifierNNDriver:
+        return _maybe_attach(cls(config, device=device), mesh)
+    if engine in FEATURE_SHARDED_ENGINES:
+        if mesh is not None or shard_features:
+            raise NotYetPorted(
+                f"feature-sharded {engine} (--shard-devices / "
+                "--shard-features) is not yet ported (ROADMAP A11)")
+        return cls(config, device=device)
+    if ann != "off" and engine not in ROW_SHARDED_ENGINES:
+        raise ValueError(
+            f"--ann applies to the instance engines "
+            f"({', '.join(ROW_SHARDED_ENGINES)}), not {engine!r}")
+    if engine in ROW_SHARDED_ENGINES:
+        driver = _maybe_attach(cls(config, device=device), mesh)
+        if ann != "off":
+            backend = getattr(driver, "backend", None)
+            if backend is None:
+                raise ValueError(
+                    "--ann: this method has no NN backend to index")
+            backend.configure_ann(ann, cells=ann_cells, nprobe=ann_nprobe)
+        return driver
+    if mesh is not None:
+        raise ValueError(
+            f"--shard-devices is not supported for engine {engine!r}; "
+            f"sharding-capable engines: "
+            f"{', '.join(FEATURE_SHARDED_ENGINES)} (feature-sharded "
+            "weight state; also --shard-features D_PER_SHARD) and "
+            f"{', '.join(ROW_SHARDED_ENGINES)} (row-sharded stores). "
+            "Spell the flag --shard-devices N (local device count) or "
+            "--shard-features D_PER_SHARD (per-device feature budget)")
+    return cls(config, device=device)
+
+
+def _maybe_attach(driver, mesh):
+    """Row-shard an instance driver's NN backend over the mesh (hash
+    methods only: NNBackend.attach_mesh validates)."""
+    if mesh is not None:
+        backend = getattr(driver, "backend", None)
+        if backend is None:
+            raise ValueError(
+                "--shard-devices: this method has no shardable backend")
+        backend.attach_mesh(mesh)
+    return driver

@@ -3,7 +3,9 @@ trace-id capture and the cross-node merge, which wait for the tracing
 plane).
 
 Subsystems that own a state transition — membership epoch bumps, mix
-rounds, breaker open/half-open/close, fault arms/fires — emit one typed
+rounds, breaker open/half-open/close, fault arms/fires, the IVF tier's
+cell re-splits and degradations (``ann`` / ``resplit``, ``degraded``) —
+emit one typed
 event into a bounded per-process **EventJournal**. Events are stamped with
 a **hybrid logical clock** timestamp: one sortable int, ``wall_ms << 20 |
 counter``, strictly monotonic per process. The mix plane's put_diff

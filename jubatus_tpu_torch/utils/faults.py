@@ -1,5 +1,5 @@
 """Fault injection registry (copy of ``jubatus_tpu/utils/faults.py``,
-trimmed to what the mix, migration and store planes fire).
+trimmed to what the mix, migration, store and IVF planes fire).
 
 Named sites in the mix plane call ``fire(site)`` or ``fire_mutate(site)``,
 and a test arms rules against them with ``armed(...)``. Rule syntax:
@@ -23,7 +23,9 @@ Sites of the port: ``mix.comm.get_diff``, ``mix.comm.put_diff``,
 ``mix.put_diff``, ``mix.diff.poison[.<node>]``,
 ``mix.async.submit.<node>``, ``mix.async.inbox.<node>``,
 ``migration.pull``, ``store.put``, ``store.get``, ``store.compact``,
-``breaker.allow.<host:port>``, and the RPC plane's
+``breaker.allow.<host:port>``, the IVF tier's ``ann.rebuild`` (an index
+build or a cell re-split; a fired error degrades the tier to the exact
+scan), and the RPC plane's
 ``rpc.dispatch.<method>`` (before the deadline gate),
 ``rpc.call.<method>.<host:port>`` (each client attempt) and
 ``rpc.connect.<host:port>``. ``fire`` is a no-op (one module flag read)

@@ -94,6 +94,11 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.cmd.jubavisor",
     "jubatus_tpu_torch.cmd.jubactl",
     "jubatus_tpu_torch.server.proxy",
+    "jubatus_tpu_torch.parallel.mesh",
+    "jubatus_tpu_torch.parallel.row_store",
+    "jubatus_tpu_torch.parallel.sharded_knn",
+    "jubatus_tpu_torch.parallel.sharded_ivf",
+    "jubatus_tpu_torch.ops.ivf",
 )
 
 

@@ -172,16 +172,22 @@ def test_distances_from_slots_matches_single_queries():
 
 
 def test_unported_layouts_raise():
+    """The sharded layout and the IVF tier are ported: they raise only
+    the JAX package's own errors (an unknown ann mode; a mesh under an
+    exact method), never NotYetPorted."""
+    from jubatus_tpu_torch.parallel.mesh import ShardMesh
+
     be = NNBackend("lsh", dim=1 << DIM_BITS, device="cpu")
-    with pytest.raises(NotImplementedError):
-        be.configure_ann("ivf")
-    with pytest.raises(NotImplementedError):
-        be.attach_mesh(object())
+    be.configure_ann("ivf")
+    be.attach_mesh(ShardMesh(["cpu"] * 2))
+    assert be.ann_stats()["mode"] == "ivf" and be.store.n_shards == 2
+    with pytest.raises(ValueError, match="unknown ann mode"):
+        be.configure_ann("hnsw")
     exact = NNBackend("inverted_index", dim=1 << DIM_BITS, device="cpu")
-    with pytest.raises(NotImplementedError):
-        exact.configure_ann("ivf")
-    with pytest.raises(NotImplementedError):
-        exact.attach_mesh(object())
+    exact.configure_ann("ivf")
+    assert exact.sig_table().shape == (exact.store.capacity, 64)
+    with pytest.raises(ValueError, match="hash methods"):
+        exact.attach_mesh(ShardMesh(["cpu"] * 2))
 
 
 def test_backend_live_mask_is_cached_per_store_version():
