@@ -174,9 +174,26 @@ each of which fails the run (non-zero exit, no result line) on error:
    ``put_rows`` and queried 200 times over RPC, its ``ann.*`` status
    read, saved; the other loads the file (centroids byte for byte, equal
    answers); and ``--shard-devices 2`` on one card exits with the JAX
-   server's message.
+   server's message;
+15. the feature-sharded linear engines on 4 logical shards of cuda:0
+   (``ShardMesh(["cuda:0"] * 4)``): AROW at phase 8's shape (D = 2^24,
+   B = 32768, K = 64, capacity 8) sharded against the flat card driver
+   fed the same batches (examples/s, the four tables within FS_TOL,
+   classify_hashed p50/p99 at B = 1 and 32768 for both, one sharded step
+   profiled and split into masks, partials, the reduction on the first
+   device, the decides and the scatters); at D = 2^20, B = 2048 the
+   card's sharded driver against the CPU port's; regression's
+   default.json on the shards against flat over two server-shaped flushes
+   of 8192 rows (one S1 launch each over the gathered working set; the
+   tables bit-equal to the flat card scan, the largest difference
+   printed; the split into unique / gather / upload / S1 / write-back);
+   arow.json and regression default.json served in this process on the
+   shards (10^4 rows in calls of 256, answers against a CPU driver,
+   beside phase 9's flat servers; a ``save`` loaded into a flat card
+   server: tables bit for bit, answers within FS_TOL); two sharded
+   arow.json members mixing over RPC, equal bit for bit after the round.
 
-Phases 3-7, 8, 9, 10, 11, 12, 13 and 14 are the main path: each path's launch counts are set to 0 just
+Phases 3-7, 8, 9, 10, 11, 12, 13, 14 and 15 are the main path: each path's launch counts are set to 0 just
 before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -4377,6 +4394,391 @@ def phase_ivf_server(seed: int) -> dict:
             bad.wait(timeout=20)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the feature-sharded linear engines on 4 logical shards of the card
+# ---------------------------------------------------------------------------
+FS_SHARDS = 4                 # logical shards of one card (ShardMesh)
+FS_DIM_BITS = 24              # AROW at phase 8's widest shape
+FS_CPU_DIM_BITS = 20          # the reduced shape held against the CPU port
+FS_CPU_B = 2048
+FS_CPU_STEPS = 2
+FS_REG_BATCHES = 2            # regression flushes of SCAN_TIME_B rows
+FS_SPLIT_REPS = 5             # timed repeats of the regression split
+FS_MIX_ROWS = 2_000           # rows of the mix round, half per member
+# sharded against flat (card or CPU): |d| <= FS_TOL + FS_TOL * |want|, the
+# rtol = atol of tests/test_torch_sharded_model.py; the cross-shard sums
+# add the K products in another order than the flat step
+FS_TOL = 3e-5
+FS_FIELDS = ("w", "dw", "prec", "dprec")
+
+
+def blocks_err(sm, got, want) -> dict:
+    """A sharded leaf (blocks, or a whole tensor) against the flat one
+    column range by column range on the device: the largest |d|, and the
+    largest |d| / (FS_TOL + FS_TOL * |want|) (<= 1 holds)."""
+    blocks = got if sm.is_blocks(got) else (got,)
+    off, worst, biggest = 0, 0.0, 0.0
+    for b in blocks:
+        w = want[..., off:off + b.shape[-1]].to(b.device)
+        d = (b - w).abs()
+        biggest = max(biggest, float(d.max()))
+        worst = max(worst, float((d / (FS_TOL + FS_TOL * w.abs())).max()))
+        off += b.shape[-1]
+    return dict(max_abs=biggest, err_over_limit=worst)
+
+
+def fs_state_errs(sm, got_state, want_state, what: str) -> dict:
+    errs = {name: blocks_err(sm, a, b)
+            for name, a, b in zip(FS_FIELDS, got_state, want_state)}
+    check(max(e["err_over_limit"] for e in errs.values()) <= 1.0,
+          f"{what}: sharded tables off the flat ones {errs}")
+    return errs
+
+
+def fs_answers_err(got, want) -> float:
+    """classify answers (label, score) lists: labels equal, scores within
+    the FS_TOL rule; returns the largest |d| / limit."""
+    check([[lab for lab, _ in r] for r in got] ==
+          [[lab for lab, _ in r] for r in want], "sharded labels differ")
+    g = np.array([[s for _, s in r] for r in got], dtype=np.float64)
+    w = np.array([[s for _, s in r] for r in want], dtype=np.float64)
+    check(np.isfinite(g).all(), "sharded scores not finite")
+    return float((np.abs(g - w) / (FS_TOL + FS_TOL * np.abs(w))).max())
+
+
+def phase_fs_arow(torch, sm, ShardMesh, ClassifierDriver, dev,
+                  seed: int) -> dict:
+    """AROW at the bench shape (L = 2 labels, capacity 8, K = 64, B =
+    CLF_B, D = 2^FS_DIM_BITS): a driver on FS_SHARDS logical shards of the
+    card and a flat one on the card take the same train_hashed batches
+    (examples/s, median of CLF_STEPS after CLF_WARMUP); the four tables
+    equal within FS_TOL; classify_hashed p50/p99 at B = 1 and B = CLF_B,
+    both drivers, answers within FS_TOL; one sharded step under
+    torch.profiler split into the shards' masks, partials, the reduction
+    on the first device, the decides and the shards' scatters, and one
+    flat step beside it."""
+    mesh = ShardMesh([dev] * FS_SHARDS)
+    drivers = {
+        "flat": ClassifierDriver(CLF_CONFIG, dim_bits=FS_DIM_BITS,
+                                 device=dev),
+        "sharded": ClassifierDriver(CLF_CONFIG, dim_bits=FS_DIM_BITS,
+                                    device=dev, mesh=mesh)}
+    rng = np.random.default_rng(seed + 151)
+    host = [bench_batch(rng, FS_DIM_BITS, CLF_B)
+            for _ in range(CLF_WARMUP + CLF_STEPS)]
+    names = np.array(["neg", "pos"])
+    out = dict(dim_bits=FS_DIM_BITS, B=CLF_B, K=CLF_K, L=CLF_L,
+               shards=FS_SHARDS, mesh=str(mesh))
+    for key, drv in drivers.items():
+        walls = []
+        for i, (idx, val, lab) in enumerate(host):
+            t0 = time.perf_counter()
+            check(drv.train_hashed(list(names[lab]), idx, val) == CLF_B,
+                  "train_hashed count")
+            torch.cuda.synchronize()
+            if i >= CLF_WARMUP:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        out[key] = dict(train_hashed_ms=statistics.median(walls),
+                        train_examples_per_s=CLF_B / statistics.median(walls)
+                        * 1e3, train_ms_all=walls)
+    flat, shard = drivers["flat"], drivers["sharded"]
+    check(len(shard.state.w) == FS_SHARDS
+          and shard.state.w[0].shape == (8, (1 << FS_DIM_BITS) // FS_SHARDS),
+          "the sharded state is not in FS_SHARDS blocks")
+    out["tables"] = fs_state_errs(sm, shard.state, flat.state,
+                                  f"AROW D=2^{FS_DIM_BITS}")
+    q_idx, q_val, _ = bench_batch(rng, FS_DIM_BITS, CLF_B)
+    answers = {}
+    for key, drv in drivers.items():
+        lat1 = [timed(drv.classify_hashed, q_idx[i:i + 1], q_val[i:i + 1])[1]
+                for i in range(CLF_QUERIES)]
+        lat_big = []
+        for _ in range(CLF_BIG_QUERIES):
+            big, ms = timed(drv.classify_hashed, q_idx, q_val)
+            lat_big.append(ms)
+        answers[key] = big
+        out[key].update(classify_b1=pcts(lat1), classify_big=pcts(lat_big))
+    out["classify_err_over_limit"] = fs_answers_err(answers["sharded"],
+                                                    answers["flat"])
+    check(out["classify_err_over_limit"] <= 1.0,
+          f"sharded classify off the flat: {out['classify_err_over_limit']}")
+    idx, val, lab = host[-1]
+    steps = [(sm, "_owned", "mask"), (sm, "_shard_partials", "partials"),
+             (sm, "_shard_confidence", "partials"), (sm, "psum", "reduce"),
+             (sm, "decide_updates", "decide"),
+             (sm, "_shard_scatter", "scatter")]
+    out["profile"] = profile_calls(
+        torch, [lambda: shard.train_hashed(list(names[lab]), idx, val)],
+        out["sharded"]["train_hashed_ms"], steps)
+    out["profile_flat"] = profile_calls(
+        torch, [lambda: flat.train_hashed(list(names[lab]), idx, val)],
+        out["flat"]["train_hashed_ms"], [])
+    return out
+
+
+def phase_fs_arow_cpu(torch, sm, ShardMesh, ClassifierDriver, dev,
+                      seed: int) -> dict:
+    """The reduced shape (D = 2^FS_CPU_DIM_BITS, B = FS_CPU_B): the card's
+    sharded driver against the CPU port's sharded driver, FS_CPU_STEPS
+    batches, tables and 256 answers within FS_TOL."""
+    card = ClassifierDriver(CLF_CONFIG, dim_bits=FS_CPU_DIM_BITS, device=dev,
+                            mesh=ShardMesh([dev] * FS_SHARDS))
+    cpu = ClassifierDriver(CLF_CONFIG, dim_bits=FS_CPU_DIM_BITS,
+                           device="cpu", mesh=ShardMesh(["cpu"] * FS_SHARDS))
+    rng = np.random.default_rng(seed + 152)
+    names = np.array(["neg", "pos"])
+    for _ in range(FS_CPU_STEPS):
+        idx, val, lab = bench_batch(rng, FS_CPU_DIM_BITS, FS_CPU_B)
+        for drv in (card, cpu):
+            drv.train_hashed(list(names[lab]), idx, val)
+    want = type(cpu.state)(*(torch.cat(a, -1) for a in cpu.state))
+    errs = fs_state_errs(sm, card.state, want,
+                         f"AROW D=2^{FS_CPU_DIM_BITS} card vs CPU")
+    q_idx, q_val, _ = bench_batch(rng, FS_CPU_DIM_BITS, 256)
+    err = fs_answers_err(card.classify_hashed(q_idx, q_val),
+                         cpu.classify_hashed(q_idx, q_val))
+    check(err <= 1.0, f"sharded classify, card vs CPU: {err}")
+    return dict(dim_bits=FS_CPU_DIM_BITS, B=FS_CPU_B, steps=FS_CPU_STEPS,
+                tables=errs, classify_err_over_limit=err)
+
+
+def phase_fs_regression(torch, sm, ShardMesh, RegressionDriver, Datum,
+                        sig_scan, dev, seed: int) -> dict:
+    """config/regression/default.json on FS_SHARDS logical shards against
+    the flat driver on the card: FS_REG_BATCHES server-shaped flushes of
+    SCAN_TIME_B rows (phase 2's ``scan_server_batch``, K = 16) through
+    train_hashed, each one S1 launch; the tables bit-equal to the flat
+    card scan's (the largest difference printed); then the sharded train
+    split into host unique / gather / upload / S1 / write-back (median of
+    FS_SPLIT_REPS, not counted as the path's launches)."""
+    from jubatus_tpu_torch.core.sparse import to_device
+    from jubatus_tpu_torch.ops import online_scan
+    from jubatus_tpu_torch.ops import regression as rops
+
+    mesh = ShardMesh([dev] * FS_SHARDS)
+    config = load_config("regression", "default.json")
+    flat = RegressionDriver(config, device=dev)
+    shard = RegressionDriver(config, device=dev, mesh=mesh)
+    rng = np.random.default_rng(seed + 153)
+    batches = [scan_server_batch(rng, Datum, RegressionDriver, SCAN_TIME_B)
+               for _ in range(FS_REG_BATCHES)]
+    times = {"flat": [], "sharded": []}
+    before = online_scan.pa_scan.launches
+    for idx, val, targets, _ in batches:
+        with uncounted(sig_scan):
+            _, ms = timed(lambda: (flat.train_hashed(targets, idx, val),
+                                   torch.cuda.synchronize()))
+        times["flat"].append(ms)
+        _, ms = timed(lambda: (shard.train_hashed(targets, idx, val),
+                               torch.cuda.synchronize()))
+        times["sharded"].append(ms)
+    launches = online_scan.pa_scan.launches - before
+    check(launches == FS_REG_BATCHES,
+          f"sharded regression: {launches} S1 launches for "
+          f"{FS_REG_BATCHES} flushes")
+    wf, ws = flat.pack()["w"], shard.pack()["w"]
+    check(np.isfinite(ws).all() and np.abs(ws).max() > 0,
+          "sharded regression: no finite update")
+    diff = float(np.abs(ws - wf).max())
+    # the same kernel over the same values in the same order: a lost bit
+    # is a fault of the gathered working set
+    check(np.array_equal(ws, wf),
+          f"sharded regression not bit-equal to the flat card scan (max "
+          f"difference {diff})")
+    idx, val, targets, _ = batches[0]
+    split = {k: [] for k in ("unique", "gather", "upload", "scan",
+                             "write_back")}
+    with uncounted(sig_scan):
+        for _ in range(FS_SPLIT_REPS):
+            t0 = time.perf_counter()
+            uniq, inv = sm.compact_indices(idx)
+            t1 = time.perf_counter()
+            work, plan = sm.working_set(shard.state, uniq)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            args = (to_device(inv, mesh.devices[0]),
+                    to_device(val, mesh.devices[0]),
+                    to_device(targets, mesh.devices[0]))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            rops.train_batch(work, *args, shard.sensitivity, shard.c,
+                             method=shard.method)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            sm.write_back(shard.state, plan, work, ("dw",))
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            for key, a, b in (("unique", t0, t1), ("gather", t1, t2),
+                              ("upload", t2, t3), ("scan", t3, t4),
+                              ("write_back", t4, t5)):
+                split[key].append((b - a) * 1e3)
+    return dict(config="config/regression/default.json", rows=SCAN_TIME_B,
+                K=int(idx.shape[1]), flushes=FS_REG_BATCHES,
+                distinct_keys=int(len(uniq)), s1_launches=launches,
+                variant=online_scan.choose_variant(int(idx.shape[1])),
+                bit_equal_flat_card=True, max_abs_diff_flat_card=diff,
+                train_ms={k: v for k, v in times.items()},
+                split_ms={k: statistics.median(v) for k, v in split.items()})
+
+
+def fs_status(cli, dev) -> dict:
+    st = next(iter(cli.call("get_status", "smoke").values()))
+    check(st.get("driver.device", "").startswith(dev.type),
+          f"server runs on {st.get('driver.device')!r}, not {dev}")
+    return st
+
+
+def phase_fs_servers(torch, ShardMesh, EngineServer, ServerArgs, Datum,
+                     Driver, engine: str, config_name: str, dev,
+                     flat_phase9: dict, seed: int) -> dict:
+    """config/<engine>/<config_name> served in this process on FS_SHARDS
+    logical shards of the card: SERVER_ROWS rows in LINEAR_BATCH-row train
+    calls over RPC from one client (each call one flush), LINEAR_QUERIES
+    classify / estimate calls against a CPU driver fed the same calls
+    (LINEAR_TOL), beside phase 9's flat server; then a ``save``, loaded
+    into a flat card server: its tables equal the saver's bit for bit and
+    its answers the saver's within FS_TOL."""
+    import tempfile
+
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    config = load_config(engine, config_name)
+    ref = Driver(config, device="cpu")
+    rng = np.random.default_rng(seed + 154)
+    rows = [linear_example(rng, Datum, engine, i) for i in range(SERVER_ROWS)]
+    batches = [rows[lo:lo + LINEAR_BATCH]
+               for lo in range(0, SERVER_ROWS, LINEAR_BATCH)]
+    qs = [server_datum(rng, Datum, SERVER_ROWS + i)
+          for i in range(LINEAR_QUERIES)]
+    query = "classify" if engine == "classifier" else "estimate"
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fs_", dir=OUT_DIR)
+    srv = EngineServer(engine, config, ServerArgs(engine=engine, datadir=tmp),
+                       device=dev, mesh=ShardMesh([dev] * FS_SHARDS))
+    port = srv.start(0)
+    try:
+        with RpcClient("127.0.0.1", port, timeout=120.0) as cli:
+            t0 = time.perf_counter()
+            for b in batches:
+                check(cli.call("train", "smoke", b) == len(b), "train count")
+            t_seq = time.perf_counter() - t0
+            for b in batches:
+                ref.train([(lab, d) for lab, d in b])
+            lat, got = [], []
+            for q in qs:
+                (ans,), ms = timed(cli.call, query, "smoke", [q])
+                lat.append(ms)
+                got.append(ans)
+            saved = cli.call("save", "smoke", "fs")
+            st = fs_status(cli, dev)
+        saver_pack = srv.driver.pack()
+    finally:
+        srv.stop()
+    want = ref.classify(qs) if engine == "classifier" else ref.estimate(qs)
+    if engine == "classifier":
+        check([[lab for lab, _ in r] for r in got] ==
+              [[lab for lab, _ in r] for r in want], "labels differ")
+        g = np.array([[s for _, s in r] for r in got], dtype=np.float64)
+        w = np.array([[s for _, s in r] for r in want], dtype=np.float64)
+    else:
+        g, w = (np.array(x, dtype=np.float64) for x in (got, want))
+    check(np.isfinite(g).all(), f"sharded {engine}: answers not finite")
+    limit = LINEAR_TOL * float(np.abs(w).max()) + 1e-4 * np.abs(w) + 1e-30
+    err = float((np.abs(g - w) / limit).max())
+    check(err <= 1.0, f"sharded {engine} {query}: off the CPU driver ({err})")
+    check(st["driver.shard.count"] == FS_SHARDS
+          and st["shard.count"] == FS_SHARDS,
+          f"sharded {engine}: shard gauges {st.get('driver.shard.count')}")
+    (path,) = saved.values()
+    flat = EngineServer(engine, config, ServerArgs(engine=engine), device=dev)
+    t0 = time.perf_counter()
+    flat.load_file(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    flat_pack = flat.driver.pack()
+    for key in ("w", "prec", "label_counts"):
+        if key in saver_pack:
+            check(np.array_equal(np.asarray(flat_pack[key]),
+                                 np.asarray(saver_pack[key])),
+                  f"{engine}: the flat server's loaded {key} differs")
+    loaded = (flat.driver.classify(qs) if engine == "classifier"
+              else flat.driver.estimate(qs))
+    if engine == "classifier":
+        load_err = fs_answers_err(loaded, got)
+    else:
+        a, b = np.array(loaded), np.array(got)
+        load_err = float((np.abs(a - b) / (FS_TOL + FS_TOL * np.abs(b))).max())
+    check(load_err <= 1.0, f"{engine}: the loaded flat server's answers "
+                           f"off the saver's ({load_err})")
+    return dict(engine=engine, config=f"config/{engine}/{config_name}",
+                shards=FS_SHARDS, rows=SERVER_ROWS, batch=LINEAR_BATCH,
+                sequential=dict(calls=len(batches), seconds=t_seq,
+                                rows_per_s=SERVER_ROWS / t_seq),
+                **{query: pcts(lat)},
+                flat_phase9=flat_phase9,
+                parity=dict(tol=LINEAR_TOL, err_over_limit=err),
+                save_load=dict(load_ms=load_ms, tables_bit_equal=True,
+                               answers_err_over_limit=load_err),
+                shard_gauges={k: st[k] for k in st
+                              if k.startswith("driver.shard.")},
+                launches=server_launches(st))
+
+
+def phase_fs_mix(torch, ShardMesh, EngineServer, ServerArgs, Datum, dev,
+                 seed: int) -> dict:
+    """Two arow.json members in this process, each on FS_SHARDS logical
+    shards, on one MemoryCoordinator: each trains half of FS_MIX_ROWS rows
+    over RPC, then ``do_mix`` on the first: both end with equal models
+    bit for bit; the round's wall time and the members' mix gauges."""
+    from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    store = _Store()
+    config = load_config("classifier", "arow.json")
+    rng = np.random.default_rng(seed + 155)
+    rows = [linear_example(rng, Datum, "classifier", i)
+            for i in range(FS_MIX_ROWS)]
+    servers = []
+    try:
+        for _ in range(2):
+            srv = EngineServer("classifier", config, ServerArgs(
+                engine="classifier", coordinator="(shared)", name="smoke",
+                listen_addr="127.0.0.1", interval_sec=1e9,
+                interval_count=1 << 30), device=dev,
+                coord=MemoryCoordinator(store),
+                mesh=ShardMesh([dev] * FS_SHARDS))
+            srv.start(0)
+            servers.append(srv)
+        clis = [RpcClient("127.0.0.1", s.args.rpc_port, timeout=120.0)
+                for s in servers]
+        try:
+            for k, cli in enumerate(clis):
+                half = rows[k::2]
+                for lo in range(0, len(half), LINEAR_BATCH):
+                    cli.call("train", "smoke", half[lo:lo + LINEAR_BATCH])
+            pre = [s.driver.pack()["w"] for s in servers]
+            check(not np.array_equal(pre[0], pre[1]),
+                  "the members trained alike before the mix")
+            ok, mix_ms = timed(clis[0].call, "do_mix", "smoke")
+            check(ok is True, "do_mix failed")
+            sts = [fs_status(c, dev) for c in clis]
+        finally:
+            for c in clis:
+                c.close()
+        packs = [s.driver.pack() for s in servers]
+    finally:
+        for s in servers:
+            s.stop()
+    for key in ("w", "prec", "label_counts"):
+        check(np.array_equal(np.asarray(packs[0][key]),
+                             np.asarray(packs[1][key])),
+              f"sharded mix: members' {key} differ after the round")
+    return dict(config="config/classifier/arow.json", shards=FS_SHARDS,
+                rows=FS_MIX_ROWS, do_mix_ms=mix_ms, bit_equal=True,
+                model_version=[st.get("mixer.model_version") for st in sts],
+                gauges=[{k: v for k, v in st.items()
+                         if k.startswith("mix.")} for st in sts])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4517,6 +4919,9 @@ def main(argv=None) -> int:
                 res = phase_linear_server(Datum, driver, engine, config,
                                           args.seed)
                 log(f"[{engine}_server] {json.dumps(res)} | {kind} | {smi}")
+                query = "classify" if engine == "classifier" else "estimate"
+                flat_servers[engine] = dict(sequential=res["sequential"],
+                                            **{query: res[query]})
                 for m in RECORDED:
                     total[m] += res["launches"][m]
             return {"server_launches": total}
@@ -4583,6 +4988,8 @@ def main(argv=None) -> int:
             return {"server_launches": total}
 
         lof_shapes = {}
+        #: phase 9's flat linear servers, printed beside phase 15's
+        flat_servers: dict = {}
         #: phase 3's backends and phase 5's exact recommender, for phase 14
         kept: dict = {}
         #: the gathered variant's timing rows, by mode (phase 14)
@@ -4641,6 +5048,38 @@ def main(argv=None) -> int:
             return {"server_launches": res["server_launches"]}
 
         run_path("ivf_sharded", ivf_shard_path)
+
+        def feature_sharded_path():
+            from jubatus_tpu_torch.parallel import sharded_model as sm
+            from jubatus_tpu_torch.parallel.mesh import ShardMesh
+            from jubatus_tpu_torch.server.args import ServerArgs
+
+            dev = torch.device("cuda", 0)
+            res = phase_fs_arow(torch, sm, ShardMesh, ClassifierDriver, dev,
+                                args.seed)
+            log(f"[fs_arow] {json.dumps(res)} | {kind} | {smi}")
+            torch.cuda.empty_cache()
+            res = phase_fs_arow_cpu(torch, sm, ShardMesh, ClassifierDriver,
+                                    dev, args.seed)
+            log(f"[fs_arow_cpu] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_fs_regression(torch, sm, ShardMesh, RegressionDriver,
+                                      Datum, sig_scan, dev, args.seed)
+            log(f"[fs_regression] {json.dumps(res)} | {kind} | {smi}")
+            for engine, driver, config in (
+                    ("classifier", ClassifierDriver, "arow.json"),
+                    ("regression", RegressionDriver, "default.json")):
+                res = phase_fs_servers(torch, ShardMesh, EngineServer,
+                                       ServerArgs, Datum, driver, engine,
+                                       config, dev,
+                                       flat_servers.get(engine, {}),
+                                       args.seed)
+                log(f"[fs_server] {json.dumps(res)} | {kind} | {smi}")
+            res = phase_fs_mix(torch, ShardMesh, EngineServer, ServerArgs,
+                               Datum, dev, args.seed)
+            log(f"[fs_mix] {json.dumps(res)} | {kind} | {smi}")
+            return {}
+
+        run_path("feature_sharded", feature_sharded_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -4669,6 +5108,9 @@ def main(argv=None) -> int:
             check(paths["ivf_sharded"][mode] > 0,
                   f"{mode} never launched on the IVF and sharded path "
                   "(phase 14)")
+        check(paths["feature_sharded"]["pa_scan"] > 0,
+              "online_scan.pa never launched on the feature-sharded path "
+              "(phase 15)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

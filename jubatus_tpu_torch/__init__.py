@@ -17,9 +17,10 @@ per-example scan is a CUDA kernel (``ops/online_scan.py``,
 (PageRank) on the device in PyTorch (``ops/clustering.py``,
 ``models/graph.py``); and stat, bandit, burst and weight, which hold host
 state only. The instance engines also serve row-sharded over several
-devices (``parallel/``) and through the IVF tier (``ops/ivf.py``). Features
-not ported yet (the feature-sharded linear engines, converter plugins)
-raise ``NotYetPorted``.
+devices (``parallel/``) and through the IVF tier (``ops/ivf.py``), the
+linear engines feature-sharded (``parallel/sharded_model.py``). Features
+not ported yet (converter plugins, the collective mix planes) raise
+``NotYetPorted``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

@@ -202,6 +202,9 @@ def show_status(coord: Coordinator, engine: str, name: str,
             guard_line = _fmt_guard(st)
             if guard_line:
                 print(f"    {guard_line}")
+            shard_line = _fmt_shard_layout(st)
+            if shard_line:
+                print(f"    {shard_line}")
             for k in sorted(st):
                 print(f"    {k}: {st[k]}")
     return rc
@@ -228,6 +231,33 @@ def _fmt_guard(st: Dict[str, Any]) -> str:
     if rolls:
         bits.append(f"rollbacks {rolls}")
     return "  ".join(bits)
+
+
+def _fmt_shard_layout(st: Dict[str, Any]) -> str:
+    """One-line shard-layout summary from the driver.shard.* gauges:
+    ``shards: N × rows/bytes per shard``; "" when the model is
+    unsharded."""
+    count = st.get("driver.shard.count")
+    if not count:
+        return ""
+    count = int(count)
+    rows = st.get("driver.shard.rows", 0)
+    nbytes = int(st.get("driver.shard.bytes_in_use", 0))
+    per = st.get("driver.shard.rows_per_shard")
+    if isinstance(per, (list, tuple)) and per:
+        rows_bit = "/".join(str(int(r)) for r in per[:8])
+        if len(per) > 8:
+            rows_bit += "/…"
+        rows_bit = f"rows {rows_bit}"
+    else:
+        rows_bit = f"rows {int(rows)}"
+    mb = nbytes / 2 ** 20
+    out = (f"shards: {count} × [{rows_bit}, "
+           f"{mb / max(count, 1):.1f} MB/shard]")
+    merge = st.get("driver.shard.topk_merge_ms")
+    if merge is not None:
+        out += f" topk_merge {float(merge):.1f} ms"
+    return out
 
 
 def show_breakers(coord: Coordinator, engine: str, name: str) -> int:
@@ -549,6 +579,18 @@ def _watch_node_row(node_name: str, entry: Dict[str, Any],
         depth = st.get("mixer.async_inbox_depth")
         if depth:
             mix_bits.append(f"inbox {int(depth)}")
+    # shard layout: N shards × live rows (row stores) or MB a shard
+    # (feature-sharded weight tables)
+    shards = st.get("driver.shard.count")
+    if shards:
+        nbytes = int(st.get("driver.shard.bytes_in_use", 0))
+        if st.get("driver.shard.rows_per_shard") is not None:
+            mix_bits.append(
+                f"sh {int(shards)}x{int(st.get('driver.shard.rows', 0))}r")
+        else:
+            mix_bits.append(
+                f"sh {int(shards)}x"
+                f"{nbytes / max(int(shards), 1) / 2 ** 20:.0f}MB")
     # elastic membership: the member's drain state machine and the rows
     # it moved
     drain = st.get("drain.state")

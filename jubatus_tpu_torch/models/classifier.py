@@ -18,8 +18,16 @@ on the one current stream, so a train launched later cannot overtake a
 classify launched before it.
 
 ``pack()`` hands over host numpy in the JAX driver's layout, so a model
-saved by either package loads in the other. Feature sharding (``mesh=``,
-``shard_features=``) is not yet ported.
+saved by either package loads in the other.
+
+Feature sharding (``mesh=``, a ``ShardMesh``, or ``shard_features=``, the
+per-device feature budget): every [L, D] table is split into column blocks
+over the mesh (``parallel/sharded_model.py``). The parallel train and the
+sparse classify run shard by shard with one cross-shard sum of the [B, L]
+logits; the sequential train and the uniform-schema plans run the flat op
+on the batch's gathered columns and write the diffs back. Diffs travel as
+the JAX package's per-shard chunks; ``pack()`` joins the blocks on the
+host, so the file has the unsharded layout.
 """
 
 from __future__ import annotations
@@ -30,24 +38,19 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from jubatus_tpu_torch import NotYetPorted, resolve_device
+from jubatus_tpu_torch import resolve_device
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.core.sparse import _bucket, to_device
 from jubatus_tpu_torch.framework.driver import DriverBase, locked
 from jubatus_tpu_torch.ops import classifier as ops
+from jubatus_tpu_torch.parallel import sharded_model as sm
 
 _INITIAL_CAPACITY = 8
 
 
 class ClassifierConfigError(ValueError):
     pass
-
-
-def _not_ported_sharding(mesh, shard_features) -> None:
-    if mesh is not None or shard_features:
-        raise NotYetPorted(
-            "feature sharding (mesh=, shard_features=) is not yet ported")
 
 
 class ClassifierDriver(DriverBase):
@@ -57,7 +60,6 @@ class ClassifierDriver(DriverBase):
                  train_mode: str = "parallel", mesh=None,
                  shard_features: int = 0, device=None):
         super().__init__()
-        _not_ported_sharding(mesh, shard_features)
         self.config = config
         self.config_json = json.dumps(config)
         #: "parallel" = batch-start snapshot per microbatch (the server's
@@ -69,21 +71,30 @@ class ClassifierDriver(DriverBase):
         self.method = method
         param = config.get("parameter") or {}
         self.param = float(param.get("regularization_weight", 1.0))
-        self.device = resolve_device(device)
+        self.converter = make_fv_converter(config.get("converter"),
+                                           dim_bits=dim_bits)
+        self._mesh, self.device = sm.driver_mesh(
+            mesh, shard_features, self.converter, ClassifierConfigError,
+            resolve_device(device))
         #: the parameter as a float32 tensor on the device, made once: a
         #: fresh host scalar per step would be a synchronous upload
         self._param = torch.tensor(np.float32(self.param), device=self.device)
-        self.converter = make_fv_converter(config.get("converter"),
-                                           dim_bits=dim_bits)
         self._confidence = method in ops.CONFIDENCE_METHODS
         self._init_model()
+
+    def _new_state(self) -> ops.ClassifierState:
+        """Fresh tables of ``capacity`` label rows; on a mesh each shard's
+        blocks are made on its own device."""
+        return sm.new_state(
+            self._mesh, lambda d, dev: ops.init_state(
+                self.capacity, d, self._confidence, device=dev),
+            self.converter.dim, self.device)
 
     def _init_model(self) -> None:
         self.labels: List[str] = []           # slot -> label name
         self.label_slots: Dict[str, int] = {}  # label name -> slot
         self.capacity = _INITIAL_CAPACITY
-        self.state = ops.init_state(self.capacity, self.converter.dim,
-                                    self._confidence, device=self.device)
+        self.state = self._new_state()
         self.label_counts = np.zeros(self.capacity, dtype=np.float32)
         self._dcounts = np.zeros(self.capacity, dtype=np.float32)
         self._mask_dev: Optional[torch.Tensor] = None
@@ -109,7 +120,9 @@ class ClassifierDriver(DriverBase):
             slot = free[0]
         else:
             self.capacity *= 2
-            self.state = ops.grow_labels(self.state, self.capacity)
+            cap = self.capacity
+            self.state = sm.map_shards(
+                lambda st: ops.grow_labels(st, cap), self.state)
             self.label_counts = np.pad(self.label_counts, (0, self.capacity // 2))
             self._dcounts = np.pad(self._dcounts, (0, self.capacity // 2))
             slot = len(self.labels)
@@ -137,12 +150,12 @@ class ClassifierDriver(DriverBase):
         if slot is None:
             return False
         # zero the slot so a future reuse starts clean
-        st = self.state
-        st.w[slot] = 0.0
-        st.dw[slot] = 0.0
-        if st.prec.shape != (1, 1):
-            st.prec[slot] = 1.0
-            st.dprec[slot] = 0.0
+        for st in sm.per_shard(self.state):
+            st.w[slot] = 0.0
+            st.dw[slot] = 0.0
+            if st.prec.shape != (1, 1):
+                st.prec[slot] = 1.0
+                st.dprec[slot] = 0.0
         self.label_counts[slot] = 0.0
         self._dcounts[slot] = 0.0
         self.labels[slot] = ""
@@ -185,11 +198,9 @@ class ClassifierDriver(DriverBase):
             val = np.pad(val, ((0, bsz - b), (0, 0)))
         slots_arr = np.zeros(bsz, dtype=np.int32)
         slots_arr[:b] = slots
-        dev = self.device
-        self.state = ops.train_batch(
-            self.state, to_device(idx, dev), to_device(val, dev),
-            to_device(slots_arr, dev), self._mask(), self._param,
-            method=self.method, mode=self.train_mode)
+        self.state = sm.classifier_train(
+            self._mesh, self.state, idx, val, slots_arr, self._mask(),
+            self._param, method=self.method, mode=self.train_mode)
         self.event_model_updated(b)
         return b
 
@@ -247,11 +258,11 @@ class ClassifierDriver(DriverBase):
         if bsz != b:  # zero rows are no-ops (x2 = 0 → alpha 0)
             val = np.pad(val, ((0, bsz - b), (0, 0)))
             slots = np.pad(slots, (0, bsz - b))
-        dev = self.device
-        self.state = ops.train_batch_schema(
-            self.state, to_device(uidx, dev), to_device(val, dev),
-            to_device(slots, dev), self._mask(), self._param,
-            method=self.method)
+        dval, dslots = to_device(val, self.device), to_device(slots, self.device)
+        # on a mesh, on the gathered columns of uidx, diffs written back
+        self.state = sm.on_columns(self.state, uidx, lambda st, u: (
+            ops.train_batch_schema(st, u, dval, dslots, self._mask(),
+                                   self._param, method=self.method)))
         self.event_model_updated(b)
         return b
 
@@ -276,11 +287,11 @@ class ClassifierDriver(DriverBase):
             base_val = np.pad(base_val, ((0, bsz - b), (0, 0)))
             slots = np.pad(slots, (0, bsz - b))
         dev = self.device
-        self.state = ops.train_batch_schema_combo(
-            self.state, to_device(uidx, dev), to_device(base_val, dev),
-            to_device(a_idx, dev), to_device(b_idx, dev),
-            to_device(mul_mask, dev), to_device(slots, dev), self._mask(),
-            self._param, method=self.method)
+        args = [to_device(a, dev)
+                for a in (base_val, a_idx, b_idx, mul_mask, slots)]
+        self.state = sm.on_columns(self.state, uidx, lambda st, u: (
+            ops.train_batch_schema_combo(st, u, *args, self._mask(),
+                                         self._param, method=self.method)))
         self.event_model_updated(b)
         return b
 
@@ -310,11 +321,15 @@ class ClassifierDriver(DriverBase):
         if b != n:
             base_val = np.pad(base_val, ((0, b - n), (0, 0)))
         dev = self.device
-        duidx, dval = to_device(uidx, dev), to_device(base_val, dev)
+        dval = to_device(base_val, dev)
         da, db = to_device(a_idx, dev), to_device(b_idx, dev)
         dm = to_device(mul_mask, dev)
-        return self._ranked(n, lambda: ops.scores_schema_combo(
-            self.state, duidx, dval, da, db, dm, self._mask()))
+
+        def launch():
+            st, duidx = sm.query_columns(self.state, uidx)
+            return ops.scores_schema_combo(st, duidx, dval, da, db, dm,
+                                           self._mask())
+        return self._ranked(n, launch)
 
     def classify_hashed_schema(self, uidx: np.ndarray,
                                val: np.ndarray) -> List[List[Tuple[str, float]]]:
@@ -325,10 +340,12 @@ class ClassifierDriver(DriverBase):
         b = _bucket(n, 16)
         if b != n:
             val = np.pad(val, ((0, b - n), (0, 0)))
-        dev = self.device
-        duidx, dval = to_device(uidx, dev), to_device(val, dev)
-        return self._ranked(n, lambda: ops.scores_schema(
-            self.state, duidx, dval, self._mask()))
+        dval = to_device(val, self.device)
+
+        def launch():
+            st, duidx = sm.query_columns(self.state, uidx)
+            return ops.scores_schema(st, duidx, dval, self._mask())
+        return self._ranked(n, launch)
 
     def classify(self, data: Sequence[Datum]) -> List[List[Tuple[str, float]]]:
         # not @locked: conversion touches no driver state, and
@@ -353,8 +370,14 @@ class ClassifierDriver(DriverBase):
             val = np.pad(val, ((0, b - n), (0, 0)))
         # uploads touch no driver state: stage them before the lock
         didx, dval = to_device(idx, self.device), to_device(val, self.device)
-        return self._ranked(n, lambda: ops.scores(self.state, didx, dval,
-                                                  self._mask()))
+        return self._ranked(n, lambda: sm.scores(
+            self._mesh, self.state, didx, dval, self._mask()))
+
+    def shard_stats(self) -> Dict[str, Any]:
+        """The feature-shard layout (the ``shard.*`` gauges): shard count,
+        label rows, bytes of every table and per shard. Empty when
+        unsharded."""
+        return sm.shard_stats(self._mesh, self.state, self.capacity)
 
     @locked
     def clear(self) -> None:
@@ -381,18 +404,19 @@ class ClassifierDriver(DriverBase):
             if old is not None:
                 perm[new_slot] = old
         live_h = perm >= 0
-        gather = to_device(np.where(live_h, perm, 0), self.device)
-        live_d = to_device(live_h, self.device)[:, None]
+        gather_h = np.where(live_h, perm, 0)
 
         def take_rows(a: torch.Tensor, fill: float) -> torch.Tensor:
             if a.shape == (1, 1):
                 return a
+            gather = to_device(gather_h, a.device)
+            live_d = to_device(live_h, a.device)[:, None]
             return torch.where(live_d, a.index_select(0, gather), fill)
 
-        st = self.state
-        self.state = ops.ClassifierState(
+        self.state = sm.map_shards(lambda st: ops.ClassifierState(
             w=take_rows(st.w, 0.0), dw=take_rows(st.dw, 0.0),
-            prec=take_rows(st.prec, 1.0), dprec=take_rows(st.dprec, 0.0))
+            prec=take_rows(st.prec, 1.0), dprec=take_rows(st.dprec, 0.0)),
+            self.state)
 
         def take_vec(v: np.ndarray) -> np.ndarray:
             out = np.zeros(new_cap, dtype=v.dtype)
@@ -419,8 +443,8 @@ class ClassifierDriver(DriverBase):
             "dim": self.converter.dim,
             "labels": self.labels,
             "capacity": self.capacity,
-            "w": (st.w + st.dw).cpu().numpy(),
-            "prec": (st.prec + st.dprec).cpu().numpy(),
+            "w": sm.host_sum(st.w, st.dw),
+            "prec": sm.host_sum(st.prec, st.dprec),
             "label_counts": self.label_counts + self._dcounts,
             "weights": self.converter.weights.pack(),
         }
@@ -441,10 +465,12 @@ class ClassifierDriver(DriverBase):
         self.labels = [s.decode() if isinstance(s, bytes) else s
                        for s in obj["labels"]]
         self.label_slots = {lab: i for i, lab in enumerate(self.labels) if lab}
-        w = to_device(np.array(obj["w"], dtype=np.float32), self.device)
-        prec = to_device(np.array(obj["prec"], dtype=np.float32), self.device)
-        self.state = ops.ClassifierState(w=w, dw=torch.zeros_like(w),
-                                         prec=prec, dprec=torch.zeros_like(prec))
+        w = np.asarray(obj["w"], dtype=np.float32)
+        prec = np.asarray(obj["prec"], dtype=np.float32)
+        # on a mesh the host arrays are split straight into the blocks
+        self.state = sm.place_host(self._mesh, ops.ClassifierState(
+            w=w, dw=np.zeros_like(w), prec=prec, dprec=np.zeros_like(prec)),
+            self.converter.dim, self.device)
         self.label_counts = np.asarray(obj["label_counts"],
                                        dtype=np.float32).copy()
         self._dcounts = np.zeros_like(self.label_counts)
@@ -456,14 +482,16 @@ class ClassifierDriver(DriverBase):
         st = super().get_status()
         st.update(method=self.method, num_labels=len(self.label_slots),
                   num_features=self.converter.dim, device=str(self.device))
+        st.update({f"shard.{k}": v for k, v in self.shard_stats().items()})
         return st
 
 
 class _ClassifierMixable:
     """The ops-level diff, trimmed to the live label rows, with the label
-    counts; host numpy on the way out. No custom ``mix``: the fold is the
-    host tree_sum (its trailing-row pad included), as in the JAX
-    package, so the guard screens it and the async fold weights it."""
+    counts; host numpy on the way out (a sharded table as per-shard
+    chunks). No custom ``mix``: the fold is the host tree_sum (its
+    trailing-row pad included), as in the JAX package, so the guard
+    screens it and the async fold weights it."""
 
     def __init__(self, driver: ClassifierDriver):
         self._d = driver
@@ -474,16 +502,17 @@ class _ClassifierMixable:
         # schema sync the slot assignment is the same on every replica,
         # while capacities (pow2-padded) may differ
         n = max(d.label_slots.values(), default=0) + 1
-        st = d.state
-        return {"dw": st.dw[:n].cpu().numpy(),
-                "dprec": st.dprec[:n].cpu().numpy(),
-                "count": 1.0,
+        # sharded tables travel as per-shard chunks keyed by start
+        # column; peers fold them chunk by chunk
+        return {"dw": sm.diff_leaf(d.state.dw, n),
+                "dprec": sm.diff_leaf(d.state.dprec, n), "count": 1.0,
                 "label_counts": d._dcounts[:n].copy()}
 
     def put_diff(self, diff) -> bool:
         d = self._d
         array_diff = {k: v for k, v in diff.items() if k != "label_counts"}
-        d.state = ops.put_diff(d.state, array_diff)
+        d.state = sm.put_diff(d.state, sm.assemble_diff(
+            d._mesh, array_diff, d.converter.dim))
         counts = diff.get("label_counts")
         if counts is not None:
             counts = np.asarray(counts)

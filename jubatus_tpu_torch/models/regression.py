@@ -8,7 +8,13 @@ device (``ops/regression.py``); a train batch is one launch of the
 per-example scan kernel on the card (``ops/online_scan.py``). Estimates
 dispatch under the driver lock and wait unlocked, as the classifier's
 queries do. ``pack()`` hands over host numpy in the JAX driver's layout.
-Feature sharding is not yet ported.
+
+Feature sharding (``mesh=`` or ``shard_features=``): the [D] row is split
+into column blocks over the mesh (``parallel/sharded_model.py``). A train
+batch gathers its distinct keys from their owners into one working set,
+runs the scan over it (one kernel launch on the card) and writes the
+touched diff columns back; estimates sum per-shard partial products.
+Diffs travel as the JAX package's per-shard chunks.
 """
 
 from __future__ import annotations
@@ -17,15 +23,15 @@ import json
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from jubatus_tpu_torch import resolve_device
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv import make_fv_converter
 from jubatus_tpu_torch.core.sparse import _bucket, to_device
 from jubatus_tpu_torch.framework.driver import DriverBase, locked
-from jubatus_tpu_torch.models.classifier import _not_ported_sharding
 from jubatus_tpu_torch.ops import regression as ops
+from jubatus_tpu_torch.parallel import sharded_model as sm
+from jubatus_tpu_torch.parallel.mix import tree_sum
 
 
 class RegressionConfigError(ValueError):
@@ -38,7 +44,6 @@ class RegressionDriver(DriverBase):
     def __init__(self, config: dict, dim_bits: int = 18, mesh=None,
                  shard_features: int = 0, device=None):
         super().__init__()
-        _not_ported_sharding(mesh, shard_features)
         self.config = config
         self.config_json = json.dumps(config)
         method = config.get("method")
@@ -48,10 +53,17 @@ class RegressionDriver(DriverBase):
         param = config.get("parameter") or {}
         self.sensitivity = float(param.get("sensitivity", 0.1))
         self.c = float(param.get("regularization_weight", 1.0))
-        self.device = resolve_device(device)
         self.converter = make_fv_converter(config.get("converter"),
                                            dim_bits=dim_bits)
-        self.state = ops.init_state(self.converter.dim, device=self.device)
+        self._mesh, self.device = sm.driver_mesh(
+            mesh, shard_features, self.converter, RegressionConfigError,
+            resolve_device(device))
+        self.state = self._new_state()
+
+    def _new_state(self) -> ops.RegressionState:
+        """A zero model; on a mesh each shard's blocks on its device."""
+        return sm.new_state(self._mesh, ops.init_state, self.converter.dim,
+                            self.device)
 
     def featurize_train(self, data: Sequence[Tuple[float, Datum]]):
         """Stage 1 of the pipelined microbatch: batch-convert without the
@@ -78,10 +90,9 @@ class RegressionDriver(DriverBase):
         n = len(targets)
         if n == 0:
             return 0
-        dev = self.device
-        self.state = ops.train_batch(
-            self.state, to_device(idx[:n], dev), to_device(val[:n], dev),
-            to_device(np.asarray(targets, dtype=np.float32), dev),
+        # on a mesh: the batch's keys gathered, one scan, dw written back
+        self.state = sm.regression_train_batch(
+            self._mesh, self.state, idx[:n], val[:n], targets,
             self.sensitivity, self.c, method=self.method)
         self.event_model_updated(n)
         return n
@@ -106,12 +117,13 @@ class RegressionDriver(DriverBase):
             val = np.pad(val, ((0, b - n), (0, 0)))
         didx, dval = to_device(idx, self.device), to_device(val, self.device)
         with self.lock:
-            pending = ops.estimate(self.state, didx, dval)
+            pending = sm.regression_estimate(self._mesh, self.state, didx,
+                                             dval)
         return [float(x) for x in pending[:n].cpu().numpy()]
 
     @locked
     def clear(self) -> None:
-        self.state = ops.init_state(self.converter.dim, device=self.device)
+        self.state = self._new_state()
         self.converter.weights.clear()
         self.update_count = 0
 
@@ -122,7 +134,7 @@ class RegressionDriver(DriverBase):
     @locked
     def pack(self) -> Any:
         return {"method": self.method, "dim": self.converter.dim,
-                "w": (self.state.w + self.state.dw).cpu().numpy(),
+                "w": sm.host_sum(self.state.w, self.state.dw),
                 "weights": self.converter.weights.pack()}
 
     @locked
@@ -137,21 +149,30 @@ class RegressionDriver(DriverBase):
             raise ValueError(
                 f"checkpoint feature dim {obj['dim']} != driver dim "
                 f"{self.converter.dim} (dim_bits mismatch)")
-        w = to_device(np.array(obj["w"], dtype=np.float32), self.device)
-        self.state = ops.RegressionState(w=w, dw=torch.zeros_like(w))
+        w = np.asarray(obj["w"], dtype=np.float32)
+        self.state = sm.place_host(
+            self._mesh, ops.RegressionState(w=w, dw=np.zeros_like(w)),
+            self.converter.dim, self.device)
         self.converter.weights.unpack(obj["weights"])
+
+    def shard_stats(self) -> Dict[str, Any]:
+        """The feature-shard layout (the ``shard.*`` gauges); empty when
+        unsharded."""
+        return sm.shard_stats(self._mesh, self.state, 1)
 
     def get_status(self) -> Dict[str, Any]:
         st = super().get_status()
         st.update(method=self.method, num_features=self.converter.dim,
                   device=str(self.device))
+        st.update({f"shard.{k}": v for k, v in self.shard_stats().items()})
         return st
 
 
 class _RegressionMixable:
-    """The ops-level diff as host numpy. ``mix`` is the elementwise sum
-    (``MIX_IS_SUM``), so the admission guard screens it and the async
-    fold weights it as the JAX package's summed diff."""
+    """The ops-level diff as host numpy (a sharded row as per-shard
+    chunks). ``mix`` is the elementwise sum (``MIX_IS_SUM``), so the
+    admission guard screens it and the async fold weights it as the JAX
+    package's summed diff."""
 
     MIX_IS_SUM = True
 
@@ -159,12 +180,14 @@ class _RegressionMixable:
         self._d = driver
 
     def get_diff(self):
-        return {"dw": self._d.state.dw.cpu().numpy(), "count": 1.0}
+        return {"dw": sm.diff_leaf(self._d.state.dw), "count": 1.0}
 
     @staticmethod
     def mix(lhs, rhs):
-        return {k: lhs[k] + rhs[k] for k in lhs}
+        return tree_sum([lhs, rhs])
 
     def put_diff(self, diff) -> bool:
-        self._d.state = ops.put_diff(self._d.state, diff)
+        d = self._d
+        d.state = sm.put_diff(d.state, sm.assemble_diff(d._mesh, diff,
+                                                        d.converter.dim))
         return True

@@ -1,5 +1,5 @@
-"""The 1-D shard mesh (the piece of ``jubatus_tpu/parallel/mesh.py`` that
-row-sharded serving needs).
+"""The 1-D shard mesh (the pieces of ``jubatus_tpu/parallel/mesh.py`` that
+row-sharded serving and the feature-sharded linear engines need).
 
 A ``ShardMesh`` is an ordered list of ``torch.device`` with one named axis,
 ``shard``: shard ``s`` of a row-sharded table lives on ``devices[s]``, and
@@ -9,6 +9,10 @@ The server builds one from the first N cards (``--shard-devices N``,
 the chip smoke use ``ShardMesh(["cpu"] * 4)`` or ``ShardMesh(["cuda:0"] *
 4)`` as logical shards on one device, the stand-in for the JAX tests'
 virtual CPU devices. No flag builds such a mesh.
+
+``feature_split`` is ``make_feature_sharding``'s divisibility check: the
+linear engines split their feature dim 2^k into equal column blocks, one a
+shard.
 
 The replica, host and grid meshes of the JAX package belong to the
 collective mix planes, which are not ported yet.
@@ -39,15 +43,28 @@ class ShardMesh:
                 f"axis={self.axis_names[0]!r})")
 
 
-def local_shard_mesh(n: int, device: DeviceLike = "cuda") -> ShardMesh:
+def local_shard_mesh(n: int, device: DeviceLike = "cuda", err_cls=ValueError,
+                     message: str = "--shard-devices {n} but only {have} "
+                     "local devices present") -> ShardMesh:
     """The mesh of ``--shard-devices n``: the first ``n`` local devices of
-    ``device``'s type (the CUDA cards this process sees; the CPU is one),
-    with the JAX server's error when there are fewer."""
+    ``device``'s type (the CUDA cards this process sees; the CPU is one).
+    With fewer, raises ``err_cls(message)``, ``message`` formatted with
+    ``n`` and ``have`` (the JAX server's text by default)."""
     dev = torch.device(device)
     have = torch.cuda.device_count() if dev.type == "cuda" else 1
     if have < n:
-        raise ValueError(f"--shard-devices {n} but only {have} local "
-                         "devices present")
+        raise err_cls(message.format(n=n, have=have))
     if dev.type == "cuda":
         return ShardMesh([torch.device("cuda", i) for i in range(n)])
     return ShardMesh([dev] * n)
+
+
+def feature_split(mesh: ShardMesh, dim_bits: int, err_cls=ValueError) -> int:
+    """Columns per shard when the feature dim 2^dim_bits is split over the
+    mesh; raises ``err_cls`` with the JAX package's message when the
+    shard count does not divide it."""
+    n = len(mesh.devices)
+    if (1 << dim_bits) % n:
+        raise err_cls(
+            f"feature dim 2^{dim_bits} not divisible by {n} shard devices")
+    return (1 << dim_bits) // n

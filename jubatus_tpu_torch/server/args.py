@@ -7,7 +7,7 @@ the mix plane with its coordinator (``-z/--coordinator``, ``-x/--mixer``,
 ``--coordinator-timeout``, ``--mix-quorum``, ``--mix-async``,
 ``--mix-staleness-bound``, ``--mix-guard``, ``--mix-norm-bound``), the
 snapshot ring (``--model-snapshot-interval``), elastic membership
-(``--no-auto-rebalance``, ``--drain-grace``), row-sharded serving
+(``--no-auto-rebalance``, ``--drain-grace``), sharded serving
 (``--shard-devices``, ``--shard-features``) and the IVF tier (``--ann``,
 ``--ann-cells``, ``--ann-nprobe``), the model store
 (``--store-dir``, ``--store-interval``, ``--store-compact-every``,
@@ -91,7 +91,8 @@ class ServerArgs:
     microbatch_max: int = 8192
     #: span the model over this many local devices (0/1 = one device)
     shard_devices: int = 0
-    #: linear engines: the per-device feature budget (not yet ported)
+    #: linear engines: the per-device feature budget (shard count =
+    #: feature dim / shard_features); exclusive with shard_devices
     shard_features: int = 0
     #: approximate-NN tier of the instance engines: off or ivf
     ann: str = "off"
@@ -233,16 +234,20 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
                         "(classifier, regression); 0 trains per RPC")
     p.add_argument("--shard-devices", type=int, default=0,
                    help="span the model over this many local devices (0/1 = "
-                        "single device): row-sharded arenas + signature "
-                        "tables for NN/recommender/anomaly hash methods "
-                        "(rows land in their CHT-owned shard; per-shard "
-                        "top-k merged on the first device); the "
-                        "feature-sharded linear engines are not yet ported")
+                        "single device): feature-sharded tables for linear "
+                        "classifier/regression (per-device weight state is "
+                        "D/N; one cross-shard sum of the logits a step), "
+                        "row-sharded arenas + signature tables for "
+                        "NN/recommender/anomaly hash methods (rows land in "
+                        "their CHT-owned shard; per-shard top-k merged on "
+                        "the first device)")
     p.add_argument("--shard-features", type=int, default=0,
                    metavar="D_PER_SHARD",
                    help="feature-shard the linear engines by per-device "
-                        "budget instead of device count (not yet ported). "
-                        "Mutually exclusive with --shard-devices")
+                        "budget instead of device count: shard count = "
+                        "feature dim / D_PER_SHARD (must divide; needs "
+                        "that many local devices). Mutually exclusive with "
+                        "--shard-devices")
     p.add_argument("--ann", choices=("off", "ivf"), default="off",
                    help="approximate-NN tier for the instance engines "
                         "(nearest_neighbor/recommender/anomaly): 'off' "

@@ -93,10 +93,11 @@ class EngineServer:
     def __init__(self, engine: str, config: Any,
                  args: Optional[ServerArgs] = None, device=None,
                  coord: Optional[Coordinator] = None, mesh=None) -> None:
-        """``mesh``: a ``ShardMesh`` to row-shard the model over, for
-        callers in process (tests, the chip smoke: logical shards on one
-        device); otherwise ``--shard-devices N`` builds one from the first
-        N local devices."""
+        """``mesh``: a ``ShardMesh`` to shard the model over (the instance
+        engines' rows, the linear engines' feature columns), for callers
+        in process (tests, the chip smoke: logical shards on one device);
+        otherwise ``--shard-devices N`` builds one from the first N local
+        devices."""
         self.engine = engine
         self.args = args or ServerArgs(engine=engine)
         self.args.check_ported()
@@ -741,9 +742,9 @@ class EngineServer:
         ``rollback.count``), the store and this node's warm boot
         (``store.*``, ``warmboot.*``), and in a fleet the mixer's state
         (``mixer.*``), the round's spans and counters (``trace.*``) and
-        its gauges (``mix.*``); on the instance engines the shard layout
-        and the IVF tier (``driver.shard.*``, ``driver.ann.*``, and the
-        ``shard.*`` / ``ann.*`` gauges)."""
+        its gauges (``mix.*``); on a sharded model the shard layout
+        (``driver.shard.*`` and the ``shard.*`` gauges), on the instance
+        engines the IVF tier (``driver.ann.*``, the ``ann.*`` gauges)."""
         st: Dict[str, Any] = {
             "timestamp": int(time.time()),  # wall-clock
             "uptime": int(time.time() - self.start_time),  # wall-clock

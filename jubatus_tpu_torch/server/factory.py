@@ -5,6 +5,10 @@ driver. The classifier splits by method family: NN / cosine / euclidean go
 to the instance-based driver, the linear methods (perceptron, PA, PA1, PA2,
 CW, AROW, NHERD) to the linear one. Features within an engine that the
 port has not reached raise ``NotYetPorted``.
+
+``--shard-devices`` routes by engine family, as in the JAX package:
+feature-sharded tables for the linear classifier and regression,
+row-sharded stores for the instance engines' hash methods.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, Type
 
-from jubatus_tpu_torch import NotYetPorted
+from jubatus_tpu_torch import NotYetPorted  # noqa: F401 (raised by drivers)
 from jubatus_tpu_torch.models.anomaly import AnomalyDriver
 from jubatus_tpu_torch.models.bandit import BanditDriver
 from jubatus_tpu_torch.models.burst import BurstDriver
@@ -55,8 +59,7 @@ def driver_class(engine: str, config: dict) -> Type:
     return cls
 
 
-#: engines with a sharded layout, by mechanism (the JAX package's lists):
-#: the feature-sharded linear engines are not yet ported (ROADMAP A11)
+#: engines with a sharded layout, by mechanism (the JAX package's lists)
 FEATURE_SHARDED_ENGINES = ("classifier", "regression")
 ROW_SHARDED_ENGINES = ("nearest_neighbor", "recommender", "anomaly")
 
@@ -68,11 +71,14 @@ def create_driver(engine: str, config: Any, device=None, mesh=None,
     ``device`` (cuda unless "cpu" is asked for).
 
     ``mesh`` (``--shard-devices``, a ``parallel/mesh.py:ShardMesh``):
-    row-shard the instance engines' arenas and signature tables
-    (nearest_neighbor, recommender, anomaly, the NN classifier; hash
-    methods only, ``NNBackend.attach_mesh``). The feature-sharded linear
-    engines (``--shard-devices`` or ``--shard-features`` on classifier and
-    regression) raise ``NotYetPorted``.
+    span the model over the mesh's devices: feature-sharded [.., D] tables
+    for the linear engines (classifier, regression;
+    ``parallel/sharded_model.py``), row-sharded arenas and signature
+    tables for the instance engines with hash methods (nearest_neighbor,
+    recommender, anomaly, the NN classifier; ``NNBackend.attach_mesh``).
+
+    ``shard_features`` (``--shard-features D_PER_SHARD``): linear engines
+    only; the shard count is the feature dim over the per-device budget.
 
     ``ann`` (``--ann {off,ivf}``): arm the IVF tier on the instance
     engines' NN backend, with ``ann_cells`` / ``ann_nprobe``
@@ -92,11 +98,8 @@ def create_driver(engine: str, config: Any, device=None, mesh=None,
     if cls is ClassifierNNDriver:
         return _maybe_attach(cls(config, device=device), mesh)
     if engine in FEATURE_SHARDED_ENGINES:
-        if mesh is not None or shard_features:
-            raise NotYetPorted(
-                f"feature-sharded {engine} (--shard-devices / "
-                "--shard-features) is not yet ported (ROADMAP A11)")
-        return cls(config, device=device)
+        return cls(config, mesh=mesh, shard_features=shard_features,
+                   device=device)
     if ann != "off" and engine not in ROW_SHARDED_ENGINES:
         raise ValueError(
             f"--ann applies to the instance engines "

@@ -138,10 +138,26 @@ def test_unknown_method_raises():
 
 
 def test_feature_sharding_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Feature sharding is ported: mesh= splits the tables into blocks
+    and the driver answers as the flat one; shard_features= derives the
+    shard count from the budget (the CPU is one local device, so only a
+    budget of the whole dim starts), with the JAX package's errors."""
+    from jubatus_tpu_torch.parallel.mesh import ShardMesh
+
+    flat, shard = trained_driver(), _drv(mesh=ShardMesh(["cpu"] * 4))
+    for _ in range(3):
+        shard.train(_data(Datum, ("spam", SPAM), ("ham", HAM)))
+    assert len(shard.state.w) == 4 and shard.get_labels() == flat.get_labels()
+    q = [Datum({"t": "cheap discount pills"})]
+    for (la, sa), (lb, sb) in zip(flat.classify(q)[0], shard.classify(q)[0]):
+        assert la == lb
+        np.testing.assert_allclose(sa, sb, rtol=1e-5, atol=1e-6)
+    assert _drv(shard_features=1 << 12).shard_stats() == {}
+    with pytest.raises(ValueError, match="feature sharding needs 4 local "
+                                         "devices, have 1"):
         _drv(shard_features=1 << 10)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _drv(mesh=object())
+    with pytest.raises(ValueError, match="does not divide"):
+        _drv(shard_features=1000)
 
 
 def test_pack_unpack_roundtrip():

@@ -98,6 +98,7 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.parallel.row_store",
     "jubatus_tpu_torch.parallel.sharded_knn",
     "jubatus_tpu_torch.parallel.sharded_ivf",
+    "jubatus_tpu_torch.parallel.sharded_model",
     "jubatus_tpu_torch.ops.ivf",
 )
 

@@ -290,10 +290,10 @@ def test_sharded_lof_ties_follow_columns(mesh, jmesh):
 
 
 def test_create_driver_errors_match_jax(mesh, jmesh):
-    """The factory's sharding and IVF errors are the JAX package's; the
-    feature-sharded linear engines are not yet ported."""
+    """The factory's sharding and IVF errors are the JAX package's; both
+    packages' factories hand a mesh to the feature-sharded linear engines
+    and build the same layout."""
     from jubatus_tpu.server.factory import create_driver as jcreate
-    from jubatus_tpu_torch import NotYetPorted
     from jubatus_tpu_torch.server.factory import create_driver
 
     cases = [
@@ -310,11 +310,20 @@ def test_create_driver_errors_match_jax(mesh, jmesh):
         with pytest.raises(ValueError) as want:
             jcreate(engine, conf, mesh=jmesh if m else None, **kw)
         assert str(got.value) == str(want.value)
-    for kw in (dict(mesh=mesh), dict(shard_features=1024)):
-        with pytest.raises(NotYetPorted, match="ROADMAP A11"):
-            create_driver("classifier", {"method": "AROW"}, device="cpu", **kw)
-        with pytest.raises(NotYetPorted, match="ROADMAP A11"):
-            create_driver("regression", {"method": "PA1"}, device="cpu", **kw)
+    for engine, conf in (("classifier", {"method": "AROW"}),
+                         ("regression", {"method": "PA1"})):
+        got = create_driver(engine, conf, device="cpu", mesh=mesh)
+        want = jcreate(engine, conf, mesh=jmesh)
+        assert type(got).__name__ == type(want).__name__
+        assert got.shard_stats() == want.shard_stats()
+        assert got.shard_stats()["count"] == 8
+        # 2^18 / 1024 = 256 shards: more local devices than either has
+        with pytest.raises(ValueError, match="feature sharding needs 256 "
+                                             "local devices, have 1"):
+            create_driver(engine, conf, device="cpu", shard_features=1024)
+        with pytest.raises(ValueError, match="feature sharding needs 256 "
+                                             "local devices, have 8"):
+            jcreate(engine, conf, shard_features=1024)
     nn = create_driver("classifier", {"method": "NN", "parameter": {
         "method": "lsh", "nearest_neighbor_num": 3}}, device="cpu",
         mesh=mesh)

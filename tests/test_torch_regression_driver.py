@@ -128,10 +128,21 @@ def test_empty_calls_and_clear():
 
 
 def test_unknown_method_and_sharding_raise():
+    """An unknown method raises; feature sharding is ported, and a budget
+    the CPU (one local device) cannot hold raises the JAX package's
+    message, as an indivisible split does."""
+    from jubatus_tpu_torch.parallel.mesh import ShardMesh
+
     with pytest.raises(ValueError):
         RegressionDriver({"method": "OLS"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="feature sharding needs 4 local "
+                                         "devices, have 1"):
         _drv(shard_features=1 << 10)
+    with pytest.raises(ValueError, match="feature dim 2\\^12 not divisible "
+                                         "by 3 shard devices"):
+        _drv(mesh=ShardMesh(["cpu"] * 3))
+    drv = _drv(mesh=ShardMesh(["cpu"] * 4))
+    assert len(drv.state.w) == 4 and drv.shard_stats()["count"] == 4
 
 
 @pytest.mark.parametrize("method", ["PA", "PA2"])
