@@ -124,7 +124,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    fold of both members' diffs against two CPU port servers driven the
    same way, then streaming turns (submits, folds, staleness, drops,
    stalls) until the replicas hold one model; an ``lsh.json`` server
-   filled with 2.5·10^5 rows through ``put_rows``, a second server's
+   filled with 1.25·10^5 rows through ``put_rows``, a second server's
    ``rebalance`` pull, its first query (signing every pulled row, K1),
    then the first server's drain and handoff, the new owner's answers
    equal to the source's each time; the AROW driver at phase 8's shape
@@ -140,8 +140,8 @@ each of which fails the run (non-zero exit, no result line) on error:
    config over lsh, regression default.json), one ``jubavisor``,
    ``jubactl -c start -N 2`` per engine and one routing proxy per engine
    (``python -m jubatus_tpu_torch.server.proxy``). nearest_neighbor: each
-   member filled with 2.5·10^5 rows on their CHT(1) owner by ``put_rows``
-   (5·10^5 in all), 2,000 ``set_row`` through the proxy,
+   member filled with 1.25·10^5 rows on their CHT(1) owner by ``put_rows``
+   (2.5·10^5 in all), 2,000 ``set_row`` through the proxy,
    200 each of ``neighbor_row_from_datum`` and ``similar_row_from_datum``
    through the proxy and directly to both members (every proxied answer
    equal to one member's exactly; p50/p99 both ways; the proxy's forwards
@@ -191,10 +191,26 @@ each of which fails the run (non-zero exit, no result line) on error:
    shards (10^4 rows in calls of 256, answers against a CPU driver,
    beside phase 9's flat servers; a ``save`` loaded into a flat card
    server: tables bit for bit, answers within FS_TOL); two sharded
-   arow.json members mixing over RPC, equal bit for bit after the round.
+   arow.json members mixing over RPC, equal bit for bit after the round;
+16. the collective mix plane (``--mixer collective_mixer``): ``psum_pytree``
+   at world size 1 over NCCL on the AROW diff at bench.py's shape (D =
+   2^24, the live rows of phase 8's capacity-8 driver, the weights' df on
+   the host) in modes off, bf16 and int8 (each round's time and phases;
+   off equal to the diff, bf16 to its cast, int8 within half a block
+   scale and bit-equal to the CPU port's round on a slice), four int8
+   rounds with and without error feedback against f32, and the int8
+   ship's and round's kernel launches per chunk (torch.profiler); two
+   ranks spawned on cuda:0 over gloo at the same width, modes off and
+   int8, their totals bit-equal (off the exact sum); four ``arow.json``
+   server processes on cuda:0 under ``--mix-topology 2x2 --mix-compress
+   int8`` (rank 0 publishes its rendezvous in the file coordinator), two
+   rounds, and two regression ``default.json`` processes with the wire
+   off, one round (their flushes launch S1): after each round every
+   member's saved model equal bit for bit, each member's flight record
+   with its phases, the master's fallback count 0.
 
-Phases 3-7, 8, 9, 10, 11, 12, 13, 14 and 15 are the main path: each path's launch counts are set to 0 just
-before it and read just after (a server's from its get_status); launches
+Phases 3-7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are the main path: each
+path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
 launches per path), the nvidia-smi line, and ``{"ok": true, "device":
@@ -2850,8 +2866,8 @@ PUSH_REPEATABLE = ("broadcast_mixer", "skip_mixer")
 PUSH_ROWS = 3_000             # arow.json rows, a third per member
 ASYNC_ROWS = 2_000            # arow.json rows, half per member
 ASYNC_STREAM_STEPS = 4        # train + do_mix on each member, in turns
-ELASTIC_ROWS = 250_000        # cut from phase 3's 10^6 to keep the run
-                              # inside its time limit
+ELASTIC_ROWS = 125_000        # cut from phase 3's 10^6 (2.5·10^5 until
+                              # PR 12) to keep the run inside its limit
 ELASTIC_FILL = 20_000         # rows per put_rows call of the fill
 ELASTIC_QUERIES = 5
 STORE_ROWS = 2_000            # regression rows before the warm boot
@@ -3450,8 +3466,8 @@ def phase_quarantine(Datum, seed: int) -> dict:
 # phase 13: the fleet — jubacoordd, jubaconfig, jubavisor, jubactl and one
 # routing proxy per engine, every process on the card
 # ---------------------------------------------------------------------------
-FLEET_NN_ROWS = 250_000       # put_rows per NN member (cut from 5·10^5:
-                              # the phase passed 150 s)
+FLEET_NN_ROWS = 125_000       # put_rows per NN member (cut from 5·10^5,
+                              # then 2.5·10^5 until PR 12: the run's limit)
 FLEET_NN_FILL = 20_000        # rows per put_rows call
 FLEET_SETS = 2_000            # set_row calls through the proxy
 FLEET_QUERIES = 200           # each NN query method through the proxy
@@ -4779,6 +4795,369 @@ def phase_fs_mix(torch, ShardMesh, EngineServer, ServerArgs, Datum, dev,
                          if k.startswith("mix.")} for st in sts])
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the collective mix plane
+# ---------------------------------------------------------------------------
+COL_MODES = ("off", "bf16", "int8")
+COL_TIMED = 3                 # timed world-1 rounds per mode (median)
+COL_EF_ROUNDS = 4             # int8 rounds with feedback against f32
+COL_CHECK_ELEMS = 1 << 20     # columns of dw held against the CPU port
+COL_FLEET_ROWS = 2_000        # arow.json rows a round over the 2x2 fleet
+COL_REG_ROWS = 2_000          # regression rows over the two members
+COL_FLEET_CHUNK_MB = 1.0      # the 2x2 fleet's chunk: its [L, 2^18]
+                              # tables (~1-3 MB) then ride the two tiers
+COL_WORLD_TIMEOUT = 180.0     # the two-rank world's bound (s)
+COL_GROUP_TIMEOUT = 120.0     # the process groups' collective timeout (s)
+
+
+def col_staged(ClassifierDriver, rng):
+    """Phase 8's AROW driver at D = 2^24 (capacity 8, one train_hashed step
+    of B = CLF_B) and the diff its collective mixer stages: the live label
+    rows of dw / dprec, the count and the label counts on the card, the
+    weights' df on the host."""
+    from jubatus_tpu_torch.framework.collective_mixer import _staged_diff
+
+    d = ClassifierDriver(CLF_CONFIG, dim_bits=24, device="cuda")
+    idx, val, lab = bench_batch(rng, 24)
+    d.train_hashed(list(np.array(["neg", "pos"])[lab]), idx, val)
+    return d, {name: _staged_diff(m) for name, m in d.get_mixables().items()}
+
+
+def kernel_count(prof) -> dict:
+    """Kernels in a torch.profiler trace: the device's kernel records
+    (memcpys and memsets apart) and the host's launch calls."""
+    device = launches = 0
+    for e in prof.events():
+        name = e.name.lower()
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            device += not name.startswith(("memcpy", "memset"))
+        elif name.startswith("cudalaunchkernel"):
+            launches += 1
+    return {"device_kernels": device, "launch_calls": launches}
+
+
+def phase_collective_world1(torch, ClassifierDriver, seed: int) -> dict:
+    """``psum_pytree`` at world size 1 over NCCL on the card, on the AROW
+    diff at bench.py's shape (D = 2^24): each wire mode's round (median of
+    COL_TIMED, phases, wire MB); each mode's total against the round trip
+    it must equal (off: the diff itself; bf16: its bf16 cast; int8: within
+    half a block scale, and bit-equal to the CPU port's round on the first
+    COL_CHECK_ELEMS columns); COL_EF_ROUNDS int8 rounds with and without
+    feedback against f32; the ship's and the whole round's kernel launches
+    per chunk under torch.profiler."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from jubatus_tpu_torch.parallel import collective as C
+    from jubatus_tpu_torch.parallel import multihost
+    from jubatus_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    td = datetime.timedelta(seconds=COL_GROUP_TIMEOUT)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, is_master=True,
+                          timeout=td)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=td)
+    try:
+        check(multihost.backend() == "nccl"
+              and multihost.wire_device() == dev,
+              f"world-1 group on {multihost.backend()}, not NCCL")
+        rng = np.random.default_rng(seed + 1600)
+        drv, diff = col_staged(ClassifierDriver, rng)
+        dw = diff["classifier"]["dw"]
+        out = {"shape": dict(L=int(dw.shape[0]), D=int(dw.shape[1]),
+                             B=CLF_B, K=CLF_K, capacity=8),
+               "backend": "nccl", "world": 1}
+        for mode in COL_MODES:
+            times, ph = [], {}
+            for _ in range(COL_TIMED):
+                ph = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tot = C.psum_pytree(diff, compress=mode, prefer_device=True,
+                                    phases=ph, device=dev,
+                                    feedback=C.ErrorFeedback()
+                                    if mode == "int8" else None)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            got = tot["classifier"]["dw"]
+            check(got.device == dev and got.shape == dw.shape
+                  and bool(torch.isfinite(got).all()),
+                  f"{mode}: total off the card, misshapen or not finite")
+            if mode == "off":
+                ok = all(torch.equal(a.cpu() if hasattr(a, "cpu")
+                                     else torch.as_tensor(np.asarray(a)),
+                                     b.cpu())
+                         for a, b in zip(tree_leaves(diff), tree_leaves(tot)))
+                check(ok, "off: a world-1 total is not the diff")
+                err = 0.0
+            elif mode == "bf16":
+                check(torch.equal(got, dw.to(torch.bfloat16).float()),
+                      "bf16: the total is not the diff's bf16 cast")
+                err = float((got - dw).abs().max())
+            else:
+                blocks = dw.reshape(-1, C.QUANT_BLOCK)
+                bound = blocks.abs().amax(1, keepdim=True) / 127.0 * 0.5
+                diffb = (got - dw).abs().reshape(-1, C.QUANT_BLOCK)
+                # the round requantizes the dequantized values: a scale
+                # may move by an ulp, so the bound carries a 1e-4 slack
+                check(bool((diffb <= bound * 1.0001 + 1e-9).all()),
+                      "int8: an element off by more than half its scale")
+                err = float(diffb.max())
+                sub = {"w": dw[:, :COL_CHECK_ELEMS].contiguous()}
+                card = C.psum_pytree(sub, compress="int8", chunk_mb=1.0,
+                                     prefer_device=True, device=dev)["w"]
+                cpu = C.psum_pytree({"w": sub["w"].cpu()}, compress="int8",
+                                    chunk_mb=1.0, device="cpu")["w"]
+                check(np.array_equal(card.cpu().numpy(), cpu),
+                      "int8: the card's round differs from the CPU port's")
+            out[mode] = dict(round_ms=statistics.median(times),
+                             round_ms_all=times, max_abs_err=err,
+                             phases={k: ph[k] for k in (
+                                 "ship_ms", "reduce_ms", "readback_ms",
+                                 "intra_ms", "inter_ms", "payload_mb",
+                                 "wire_mb", "wire_bytes_per_host", "chunks",
+                                 "chunk_mb", "overlap_ms_saved", "quant",
+                                 "topo")})
+        # int8 with and without feedback against f32 over fresh rounds
+        ef = C.ErrorFeedback()
+        s32 = torch.zeros_like(dw, dtype=torch.float64)
+        s8 = torch.zeros_like(s32)
+        s8n = torch.zeros_like(s32)
+        drift = []
+        for _ in range(COL_EF_ROUNDS):
+            idx, val, lab = bench_batch(rng, 24)
+            drv.train_hashed(list(np.array(["neg", "pos"])[lab]), idx, val)
+            round_diff = {"w": drv.get_mixables()["classifier"]
+                          .get_device_diff()["dw"]}
+            s32 += C.psum_pytree(round_diff, prefer_device=True,
+                                 device=dev)["w"].double()
+            s8 += C.psum_pytree(round_diff, compress="int8", feedback=ef,
+                                prefer_device=True, device=dev)["w"].double()
+            s8n += C.psum_pytree(round_diff, compress="int8",
+                                 prefer_device=True,
+                                 device=dev)["w"].double()
+            norm = float(s32.norm())
+            drift.append(dict(ef=float((s8 - s32).norm()) / norm,
+                              no_ef=float((s8n - s32).norm()) / norm))
+        out["int8_vs_f32"] = dict(rounds=COL_EF_ROUNDS, rel_l2=drift,
+                                  ef_norms=ef.norms())
+        check(drift[-1]["ef"] <= drift[-1]["no_ef"],
+              "int8: feedback drifted further than no feedback")
+        # launches: the ship of one chunk, and a whole int8 round
+        chunk = dw.reshape(-1)[: (8 << 20) // 4].clone()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            y = chunk + 0.0
+            q, s = C._block_quant(y, C.QUANT_BLOCK)
+            C._add_dequant(y, q, s, C.QUANT_BLOCK, -1.0)
+            torch.cuda.synchronize()
+        ship = kernel_count(prof)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ph = {}
+            C.psum_pytree(diff, compress="int8", prefer_device=True,
+                          phases=ph, device=dev,
+                          feedback=C.ErrorFeedback())
+            torch.cuda.synchronize()
+        total = kernel_count(prof)
+        out["int8_launches"] = dict(
+            ship_per_chunk=ship, round=total, chunks=ph["chunks"],
+            round_per_chunk={k: v / max(1, ph["chunks"])
+                             for k, v in total.items()})
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+_COL_RANK = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+from jubatus_tpu_torch.parallel import collective as C, multihost
+from jubatus_tpu_torch.utils.tree import tree_leaves
+rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+modes, dim_bits, timeout = sys.argv[4].split(","), int(sys.argv[5]), float(sys.argv[6])
+dev = torch.device("cuda", 0)
+assert multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                            num_processes=n, process_id=rank, device="cuda",
+                            timeout=timeout)
+assert multihost.backend() == "gloo", multihost.backend()
+
+def member(r):
+    g = torch.Generator(device=dev).manual_seed(1600 + r)
+    D = 1 << dim_bits
+    return {"classifier": {
+                "dw": torch.randn(2, D, generator=g, device=dev) * 0.01,
+                "dprec": torch.rand(2, D, generator=g, device=dev),
+                "count": torch.ones((), device=dev),
+                "label_counts": torch.tensor([3.0 + r, 5.0], device=dev)},
+            "weights": {"df": np.zeros(D, np.float32),
+                        "ndocs": np.float32(r)}}
+
+mine = member(rank)
+res = {}
+for mode in modes:
+    ph = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tot = C.psum_pytree(mine, compress=mode, prefer_device=True, phases=ph,
+                        device=dev, feedback=C.ErrorFeedback()
+                        if mode == "int8" else None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tot):
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    dw = tot["classifier"]["dw"]
+    want = sum(member(r)["classifier"]["dw"] for r in range(n))
+    exact = bool(torch.equal(dw, want)) if mode == "off" else None
+    res[mode] = dict(ms=ms, sha256=h.hexdigest(), exact_sum=exact,
+                     finite=bool(torch.isfinite(dw).all()),
+                     max_abs_err=float((dw - want).abs().max()),
+                     phases={k: ph[k] for k in ("ship_ms", "reduce_ms",
+                             "readback_ms", "payload_mb", "wire_mb",
+                             "chunks", "overlap_ms_saved")})
+print("RESULT " + json.dumps(res), flush=True)
+multihost.shutdown()
+"""
+
+
+def phase_collective_gloo(seed: int) -> dict:
+    """Two ranks spawned on cuda:0, one gloo world (NCCL cannot hold two
+    ranks on one card), each with a seeded diff at the AROW width (dw and
+    dprec [2, 2^24] on the card, df [2^24] on the host): one round in
+    modes off and int8. The ranks' totals must be bit-equal (hashes of
+    every leaf), off equal to the exact sum of the two diffs."""
+    from jubatus_tpu_torch.parallel import multihost
+
+    modes = ("off", "int8")
+    t0 = time.perf_counter()
+    outs, rcs = multihost.run_local_world(
+        _COL_RANK, 2, args=(",".join(modes), 24, COL_GROUP_TIMEOUT),
+        timeout=COL_WORLD_TIMEOUT, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    res = []
+    for r, (text, rc) in enumerate(zip(outs, rcs)):
+        if rc != 0 or "RESULT " not in text:
+            print(f"--- rank {r} output:\n{text[-4000:]}", file=sys.stderr)
+        check(rc == 0 and "RESULT " in text, f"gloo rank {r} exited {rc}")
+        res.append(json.loads(text.split("RESULT ")[1].splitlines()[0]))
+    for mode in modes:
+        check(res[0][mode]["sha256"] == res[1][mode]["sha256"],
+              f"{mode}: the ranks' totals differ")
+        check(all(r[mode]["finite"] for r in res), f"{mode}: not finite")
+    check(all(r["off"]["exact_sum"] for r in res),
+          "off: the total is not the exact sum of the two diffs")
+    return dict(ranks=2, backend="gloo", device="cuda:0", wall_s=wall,
+                bit_equal=True, per_rank=res)
+
+
+def col_fleet_rounds(engine: str, config: str, n: int, extra, rows_per,
+                     rounds: int, seed: int, Datum,
+                     chunk_mb: float = 0.0) -> dict:
+    """``n`` ``engine`` servers on the card under ``-x collective_mixer``
+    with ``--jax-processes n`` (rank 0 publishes its rendezvous in the
+    file coordinator, the others find it there), ``rounds`` times: each
+    member trains its share of ``rows_per`` rows, then ``do_mix`` on the
+    first. After each round every member is at that model version and
+    their saved models are equal bit for bit; the master's counters show
+    only collective rounds. ``chunk_mb`` (when set) is the fleet's
+    JUBATUS_TPU_MIX_CHUNK_MB, which every member must share: small enough
+    that the tables ride the chunked stream (and so the two tiers)."""
+    d = fleet_dir(f"collective_{engine}")
+    port = free_port()
+    procs = []
+    saved_env = os.environ.get("JUBATUS_TPU_MIX_CHUNK_MB")
+    if chunk_mb:
+        os.environ["JUBATUS_TPU_MIX_CHUNK_MB"] = str(chunk_mb)
+    for r in range(n):
+        flags = ["-z", f"file://{d}", "-n", "col", "-d", d, "-s", "1e9",
+                 "-i", str(1 << 30), "-x", "collective_mixer",
+                 "--jax-processes", str(n), "--jax-process-id", str(r),
+                 *extra]
+        if r == 0:
+            flags += ["--jax-coordinator", f"127.0.0.1:{port}"]
+        procs.append(start_server(engine, os.path.join(
+            ROOT, "config", engine, config), tag=f"_col{r}", extra=flags))
+    if saved_env is None:
+        os.environ.pop("JUBATUS_TPU_MIX_CHUNK_MB", None)
+    else:
+        os.environ["JUBATUS_TPU_MIX_CHUNK_MB"] = saved_env
+    rng = np.random.default_rng(seed + 1610)
+    launches = {m: 0 for m in RECORDED}
+    out = {"engine": engine, "config": f"config/{engine}/{config}",
+           "members": n, "flags": list(extra), "rounds": []}
+    with contextlib.ExitStack() as stack:
+        clis = [stack.enter_context(serving(engine, "", p)) for p in procs]
+        wait_fleet(d, engine, "col", n)
+        for k in range(rounds):
+            rows = [linear_example(rng, Datum, engine, i)
+                    for i in range(rows_per)]
+            for r, cli in enumerate(clis):
+                mine = rows[r::n]
+                for lo in range(0, len(mine), LINEAR_BATCH):
+                    cli.call("train", "smoke", mine[lo:lo + LINEAR_BATCH])
+            ok, mix_ms = timed(clis[0].call, "do_mix", "smoke")
+            check(ok is True, f"{engine} collective round {k + 1} failed")
+            sts = []
+            for cli in clis:
+                wait_for(lambda c=cli: server_status(c)[
+                    "mixer.model_version"] >= k + 1,
+                    f"{engine}: a member never applied round {k + 1}", 120)
+                sts.append(server_status(cli))
+            models = [saved_pack(c, f"col{k}") for c in clis]
+            for m in models[1:]:
+                model_close(m, models[0], 0.0,
+                            f"{engine} members after round {k + 1}")
+            recs = [[h for h in c.call("get_mix_history", "smoke")
+                     if h.get("mode") == "collective" and h.get("ok")]
+                    for c in clis]
+            check(all(recs), f"{engine}: a member logged no collective entry")
+            out["rounds"].append(dict(
+                do_mix_ms=mix_ms, bit_equal=True,
+                phases=[r[-1]["phases"] for r in recs]))
+        master = sts[0]
+        check(master["mixer.collective_rounds"] == rounds
+              and master["mixer.fallback_rounds"] == 0,
+              f"{engine}: {master['mixer.collective_rounds']} collective, "
+              f"{master['mixer.fallback_rounds']} fallback rounds")
+        if "--mix-topology" in extra:
+            check(all(p["topo"] != "flat" and p["chunks"] > 0
+                      for rd in out["rounds"] for p in rd["phases"]),
+                  f"{engine}: a round did not ride the two tiers")
+        check(master["mixer.mix_caps_backend"] == "gloo",
+              f"{engine}: the fleet's world is "
+              f"{master['mixer.mix_caps_backend']}, not gloo")
+        out.update(fallback_rounds=0, topology=master["mixer.mix_topology"],
+                   compress=master["mixer.mix_compress"],
+                   launches=[server_launches(st) for st in sts])
+        for st in sts:
+            add_launches(launches, st)
+    return dict(result=out, server_launches=launches)
+
+
+def phase_collective_fleets(Datum, seed: int) -> dict:
+    """Four arow.json servers on cuda:0 as a 2x2 topology with int8 on the
+    wire, two rounds; then two regression default.json servers with the
+    wire off, one round (their flushes launch S1)."""
+    arow = col_fleet_rounds(
+        "classifier", "arow.json", 4,
+        ["--mix-topology", "2x2", "--mix-compress", "int8"],
+        COL_FLEET_ROWS, 2, seed, Datum, chunk_mb=COL_FLEET_CHUNK_MB)
+    reg = col_fleet_rounds("regression", "default.json", 2,
+                           ["--mix-compress", "off"], COL_REG_ROWS, 1, seed,
+                           Datum)
+    launches = {m: arow["server_launches"][m] + reg["server_launches"][m]
+                for m in RECORDED}
+    return dict(arow=arow["result"], regression=reg["result"],
+                server_launches=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5080,6 +5459,19 @@ def main(argv=None) -> int:
             return {}
 
         run_path("feature_sharded", feature_sharded_path)
+
+        def collective_path():
+            res = phase_collective_world1(torch, ClassifierDriver, args.seed)
+            log(f"[collective] world1 {json.dumps(res)} | {kind} | {smi}")
+            res = phase_collective_gloo(args.seed)
+            log(f"[collective] gloo {json.dumps(res)} | {kind} | {smi}")
+            res = phase_collective_fleets(Datum, args.seed)
+            for key in ("arow", "regression"):
+                log(f"[collective_fleet] {json.dumps(res[key])} | {kind} | "
+                    f"{smi}")
+            return {"server_launches": res["server_launches"]}
+
+        run_path("collective", collective_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -5111,6 +5503,9 @@ def main(argv=None) -> int:
         check(paths["feature_sharded"]["pa_scan"] > 0,
               "online_scan.pa never launched on the feature-sharded path "
               "(phase 15)")
+        check(paths["collective"]["pa_scan"] > 0,
+              "online_scan.pa never launched on the collective path "
+              "(phase 16)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

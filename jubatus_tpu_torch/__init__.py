@@ -18,9 +18,10 @@ per-example scan is a CUDA kernel (``ops/online_scan.py``,
 ``models/graph.py``); and stat, bandit, burst and weight, which hold host
 state only. The instance engines also serve row-sharded over several
 devices (``parallel/``) and through the IVF tier (``ops/ivf.py``), the
-linear engines feature-sharded (``parallel/sharded_model.py``). Features
-not ported yet (converter plugins, the collective mix planes) raise
-``NotYetPorted``.
+linear engines feature-sharded (``parallel/sharded_model.py``). Fleets mix
+over RPC or, with ``--mixer collective_mixer``, as a collective across the
+ranks of one ``torch.distributed`` world (``parallel/collective.py``).
+Features not ported yet (converter plugins) raise ``NotYetPorted``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

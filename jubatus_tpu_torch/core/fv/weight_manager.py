@@ -16,6 +16,13 @@ from typing import Dict
 import numpy as np
 
 
+def _host(x) -> np.ndarray:
+    """A diff leaf as host numpy (the collective mixer hands tensors)."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 class WeightManager:
     """Tracks df counts and user weights over the hashed feature space."""
 
@@ -91,6 +98,10 @@ class WeightManager:
                            dtype=np.float64, count=ix.shape[0])
 
     # -- mixable protocol ---------------------------------------------------
+    #: mix() below is elementwise addition, so the collective mixer and
+    #: the guard's screens treat the diff as a plain sum
+    MIX_IS_SUM = True
+
     def get_diff(self):
         with self.lock:
             return {
@@ -104,9 +115,9 @@ class WeightManager:
 
     def put_diff(self, diff) -> bool:
         with self.lock:
-            self._df_master += np.asarray(diff["df"])
+            self._df_master += _host(diff["df"])
             # wire round-trips can deliver the scalar as a shape-(1,) array
-            self._ndocs_master += float(np.asarray(diff["ndocs"]).reshape(()))
+            self._ndocs_master += float(_host(diff["ndocs"]).reshape(()))
             self._df_diff[:] = 0.0
             self._ndocs_diff[0] = 0.0
         return True

@@ -319,6 +319,11 @@ class RpcLinearCommunication(LinearCommunication):
         with RpcClient(member.host, member.port, self.timeout) as c:
             return c.call("mix_get_model", self.name)
 
+    def collect(self, method: str, *args):
+        """Parallel fan-out of one RPC to all members (the collective
+        mixer's prepare and abort); returns (results, errors)."""
+        return self._mc.call_collect(method, self.name, *args)
+
     def close(self) -> None:
         if self._mc is not None:
             self._mc.close()
@@ -541,7 +546,11 @@ class RpcLinearMixer:
         # obsolete/recovery ladder is skipped on refusal: the model we
         # HOLD is good, and a peer pull could import the very poison we
         # just refused.
-        if self.guard.enabled and self._total_poisoned(msg):
+        # guard_screened: the collective entry already screened these
+        # totals where they live — a host re-screen would read a device
+        # payload back whole
+        if self.guard.enabled and not msg.get("guard_screened") and \
+                self._total_poisoned(msg):
             if self.guard.mode != "quarantine":
                 log.warning("mix guard (warn): non-finite folded total "
                             "applied anyway")

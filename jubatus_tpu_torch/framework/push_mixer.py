@@ -24,9 +24,9 @@ port member exchange as two members of one package do.
 
 ``create_mixer`` selects the mixer by the ``--mixer`` flag: the linear
 mixer (or, with ``--mix-async``, the async plane of
-framework/async_mixer.py), a push strategy, or the standalone no-op. The
-collective mixer is not ported: ``collective_mixer`` raises
-``NotYetPorted``.
+framework/async_mixer.py), the collective mixer
+(framework/collective_mixer.py), a push strategy, or the standalone
+no-op.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ import random
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
-from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.coord.base import NodeInfo
 from jubatus_tpu_torch.framework.linear_mixer import (
     PROTOCOL_VERSION,
@@ -331,7 +330,9 @@ def create_mixer(name: str, driver: Any, comm: LinearCommunication, *,
                  interval_sec: float = 16.0, interval_count: int = 512,
                  quorum_fraction: float = 0.5,
                  mix_async: bool = False, mix_staleness_bound: int = 8,
-                 mix_guard: str = "warn", mix_norm_bound: float = 10.0):
+                 mix_guard: str = "warn", mix_norm_bound: float = 10.0,
+                 mix_compress: str = "off", mix_bf16: bool = False,
+                 mix_topology: str = ""):
     """Mixer factory (≙ create_mixer, mixer_factory.cpp:41-97): selects by
     the --mixer flag. ``mix_async`` swaps the linear mixer for the
     asynchronous staleness-bounded plane (framework/async_mixer.py):
@@ -339,7 +340,8 @@ def create_mixer(name: str, driver: Any, comm: LinearCommunication, *,
     per-member weights decayed by ``mix_staleness_bound`` instead of
     gathering behind a round barrier. ``mix_guard``/``mix_norm_bound``
     configure the admission guard (framework/model_guard.py) every
-    strategy carries. ``collective_mixer`` raises ``NotYetPorted``."""
+    strategy carries; ``mix_compress`` (or the deprecated ``mix_bf16``)
+    and ``mix_topology`` the collective mixer's wire mode and tiers."""
     kwargs = dict(self_node=self_node, interval_sec=interval_sec,
                   interval_count=interval_count,
                   quorum_fraction=quorum_fraction,
@@ -361,9 +363,13 @@ def create_mixer(name: str, driver: Any, comm: LinearCommunication, *,
                 **kwargs)
         return RpcLinearMixer(driver, comm, **kwargs)
     if name == "collective_mixer":
-        raise NotYetPorted(
-            "--mixer collective_mixer: the collective mix plane is not "
-            "yet ported")
+        from jubatus_tpu_torch.framework.collective_mixer import \
+            CollectiveMixer
+
+        mode = mix_compress if mix_compress != "off" else \
+            ("bf16" if mix_bf16 else "off")
+        return CollectiveMixer(driver, comm, compress=mode,
+                               topology=mix_topology, **kwargs)
     if name in STRATEGIES:
         return RpcPushMixer(driver, comm, strategy=name, **kwargs)
     if name == "dummy_mixer":

@@ -508,6 +508,20 @@ class _ClassifierMixable:
                 "dprec": sm.diff_leaf(d.state.dprec, n), "count": 1.0,
                 "label_counts": d._dcounts[:n].copy()}
 
+    def get_device_diff(self):
+        """The diff the collective mixer stages: the same leaves as
+        ``get_diff`` as float32 tensors on the driver's device (copies),
+        as the JAX model's diff is device-resident, so a full-width round
+        pays no device→host→device trip."""
+        d = self._d
+        n = max(d.label_slots.values(), default=0) + 1
+        return {"dw": sm.device_diff_leaf(d.state.dw, n),
+                "dprec": sm.device_diff_leaf(d.state.dprec, n),
+                "count": torch.ones((), dtype=torch.float32,
+                                    device=d.device),
+                "label_counts": torch.from_numpy(
+                    d._dcounts[:n].copy()).to(d.device)}
+
     def put_diff(self, diff) -> bool:
         d = self._d
         array_diff = {k: v for k, v in diff.items() if k != "label_counts"}
@@ -515,7 +529,8 @@ class _ClassifierMixable:
             d._mesh, array_diff, d.converter.dim))
         counts = diff.get("label_counts")
         if counts is not None:
-            counts = np.asarray(counts)
+            counts = counts.cpu().numpy() if isinstance(
+                counts, torch.Tensor) else np.asarray(counts)
             d.label_counts[:len(counts)] += counts
             d._dcounts[:] = 0.0
         return True

@@ -23,6 +23,7 @@ import json
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from jubatus_tpu_torch import resolve_device
 from jubatus_tpu_torch.core.datum import Datum
@@ -181,6 +182,14 @@ class _RegressionMixable:
 
     def get_diff(self):
         return {"dw": sm.diff_leaf(self._d.state.dw), "count": 1.0}
+
+    def get_device_diff(self):
+        """The diff the collective mixer stages: ``get_diff``'s leaves as
+        float32 tensors on the driver's device (copies)."""
+        d = self._d
+        return {"dw": sm.device_diff_leaf(d.state.dw),
+                "count": torch.ones((), dtype=torch.float32,
+                                    device=d.device)}
 
     @staticmethod
     def mix(lhs, rhs):

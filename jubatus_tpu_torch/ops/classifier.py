@@ -412,7 +412,7 @@ def put_diff(state: ClassifierState, diff: Dict[str, Any]) -> ClassifierState:
     diffs ([n, D] with n <= L, applied to the leading rows), as host numpy
     or tensors."""
     w, dw, prec, dprec = state
-    n = torch.clamp_min(_f32(np.float32(diff["count"]), w.device), 1.0)
+    n = torch.clamp_min(_f32(diff["count"], w.device), 1.0)
     ddw = _on(diff["dw"], w)
     ddp = _on(diff["dprec"], prec)
     w[:ddw.shape[0]] += ddw / n

@@ -19,12 +19,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple
 
-import numpy as np
 import torch
 
 from jubatus_tpu_torch import resolve_device
 from jubatus_tpu_torch.ops import online_scan
-from jubatus_tpu_torch.ops.classifier import _on
+from jubatus_tpu_torch.ops.classifier import _f32, _on
 
 METHODS = online_scan.METHODS
 
@@ -68,8 +67,7 @@ def put_diff(state: RegressionState, diff: Dict[str, Any]) -> RegressionState:
     place; the diff may be host numpy or a tensor."""
     w, dw = state
     ddw = _on(diff["dw"], w)
-    n = torch.clamp_min(torch.tensor(np.float32(diff["count"]),
-                                     device=w.device), 1.0)
+    n = torch.clamp_min(_f32(diff["count"], w.device), 1.0)
     w += ddw / n
     dw.zero_()
     return RegressionState(w, dw)

@@ -1,5 +1,9 @@
 """The port's parallel planes (counterpart of ``jubatus_tpu.parallel``):
-the host fold of the RPC mix (``mix.tree_sum``), the 1-D shard mesh
-(``mesh``), the sharded row store and IVF cell arenas (``row_store``),
-and the row-sharded exact and IVF scans (``sharded_knn``,
-``sharded_ivf``)."""
+the mix engine (``mix``: the RPC mix's host fold, the in-process
+all-reduce and ``LocalMixGroup``), the meshes (``mesh``: the 1-D shard
+mesh, the replica, grid and two-tier host meshes), the process world
+(``multihost``), the collective data plane (``collective``), the replica
+× shard train step (``spmd``), the sharded row store and IVF cell arenas
+(``row_store``), the row-sharded exact and IVF scans (``sharded_knn``,
+``sharded_ivf``) and the feature-sharded linear engines
+(``sharded_model``)."""

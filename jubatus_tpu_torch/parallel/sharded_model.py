@@ -607,6 +607,34 @@ def diff_leaf(a, rows: Optional[int] = None):
     return a[:rows].to("cpu", copy=True).numpy()
 
 
+def device_diff_leaf(a, rows: Optional[int] = None):
+    """A local diff leaf for the collective mix: a copy on its device
+    (trimmed to ``rows`` label rows), a sharded one as per-shard chunks of
+    device copies keyed as ``shard_chunks`` keys them."""
+    if is_blocks(a):
+        out: Dict[str, torch.Tensor] = {}
+        start = 0
+        for b in a:
+            if rows is not None and b.dim() == 2 and rows < b.shape[0]:
+                b = b[:rows]
+            out[f"c{start}"] = b.clone()
+            start += b.shape[-1]
+        return out
+    return a[:rows].clone()
+
+
+def _f32_on(v: Any, dev: torch.device) -> torch.Tensor:
+    """A wire chunk (host numpy or a tensor) as float32 on ``dev``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.float32)
+    return to_device(np.asarray(v, dtype=np.float32), dev)
+
+
+def _host_np(v: Any) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
 def is_chunked(leaf: Any) -> bool:
     """Does this diff leaf carry the per-shard chunk wire shape?"""
     return isinstance(leaf, dict) and bool(leaf) and \
@@ -614,15 +642,17 @@ def is_chunked(leaf: Any) -> bool:
             for k in leaf)
 
 
-def _sorted_chunks(chunks: Dict[Any, Any]) -> List[Tuple[int, np.ndarray]]:
-    return sorted(((int(_key(k)[1:]), np.asarray(v))
+def _sorted_chunks(chunks: Dict[Any, Any]) -> List[Tuple[int, Any]]:
+    return sorted(((int(_key(k)[1:]), v if isinstance(v, torch.Tensor)
+                    else np.asarray(v))
                    for k, v in chunks.items()), key=lambda kv: kv[0])
 
 
 def concat_chunks(chunks: Dict[Any, Any]) -> np.ndarray:
     """Per-shard chunks joined into one host array, for a receiver that
     is not sharded."""
-    return np.concatenate([v for _, v in _sorted_chunks(chunks)], axis=-1)
+    return np.concatenate([_host_np(v) for _, v in _sorted_chunks(chunks)],
+                          axis=-1)
 
 
 def assemble_chunks(chunks: Dict[Any, Any], mesh: ShardMesh) -> Blocks:
@@ -644,8 +674,7 @@ def assemble_chunks(chunks: Dict[Any, Any], mesh: ShardMesh) -> Blocks:
                 f"shard layout mismatch: chunk starts at column {start}, "
                 f"expected {expect}")
         expect += v.shape[-1]
-    return tuple(to_device(np.asarray(v, dtype=np.float32), dev)
-                 for (_, v), dev in zip(items, devices))
+    return tuple(_f32_on(v, dev) for (_, v), dev in zip(items, devices))
 
 
 def assemble_diff(mesh: Optional[ShardMesh], diff: Dict[str, Any],
@@ -688,7 +717,7 @@ def put_diff(state, diff: Dict[str, Any]):
     if not is_blocks(state.w):
         flat = cops.put_diff if "prec" in state._fields else rops.put_diff
         return flat(state, diff)
-    count = np.float32(diff["count"])
+    count = diff["count"]  # a number, or a tensor from the collective
     pairs = [("w", "dw", count)]
     if "prec" in state._fields:
         pairs.append(("prec", "dprec", None))

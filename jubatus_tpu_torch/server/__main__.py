@@ -7,6 +7,15 @@
         clustering, graph, nearest_neighbor, recommender, regression, stat,
         weight)
     python -m jubatus_tpu_torch.server nearest_neighbor --config-test -f conf.json
+    python -m jubatus_tpu_torch.server classifier -f conf.json -z file://dir \
+        -n c1 -x collective_mixer --jax-processes 2 --jax-process-id 0 \
+        --jax-coordinator 127.0.0.1:8476     # one rank of a collective fleet
+
+With ``--jax-processes N > 1`` the server first joins the process world of
+the collective mixer (parallel/multihost.py) — the rendezvous at
+``--jax-coordinator``, or the address process 0 published in the
+coordinator — and only then builds its model. ``--config-test`` never
+joins it.
 
 SIGTERM and SIGINT stop the server: it stops accepting, shuts its open
 connections down and exits at once, through ``os._exit`` after flushing
@@ -29,8 +38,29 @@ from jubatus_tpu_torch.server.base import EngineServer
 
 def main(argv=None) -> int:
     args = parse_server_args(argv)
+    coord = None
+    if args.jax_processes > 1 and not args.config_test:
+        # the coordinator session stays open and goes to the server:
+        # process 0's published endpoint is an ephemeral owned by it
+        from jubatus_tpu_torch.coord import create_coordinator
+        from jubatus_tpu_torch.framework.collective_mixer import \
+            collective_timeout
+        from jubatus_tpu_torch.parallel import multihost
+
+        try:
+            coord = (create_coordinator(args.coordinator)
+                     if not args.is_standalone else None)
+            multihost.initialize(
+                coordinator_address=args.jax_coordinator or None,
+                num_processes=args.jax_processes,
+                process_id=args.jax_process_id,
+                coord=coord, device=args.device,
+                timeout=collective_timeout(args.interconnect_timeout))
+        except Exception as e:  # broad-ok — report and exit
+            print(f"process world error: {e}", file=sys.stderr)
+            return 1
     try:
-        server = EngineServer.from_args(args)
+        server = EngineServer.from_args(args, coord=coord)
     except Exception as e:  # broad-ok — report any config/device error and exit
         print(f"config error: {e}", file=sys.stderr)
         return 1

@@ -6,6 +6,10 @@ the mix plane with its coordinator (``-z/--coordinator``, ``-x/--mixer``,
 ``-s/--interval-sec``, ``-i/--interval-count``, ``--interconnect-timeout``,
 ``--coordinator-timeout``, ``--mix-quorum``, ``--mix-async``,
 ``--mix-staleness-bound``, ``--mix-guard``, ``--mix-norm-bound``), the
+collective mix plane's process world and wire (``--jax-coordinator``,
+``--jax-processes``, ``--jax-process-id``, ``--mix-compress``, the
+deprecated ``--mix-bf16``, ``--mix-topology``: the JAX package's names,
+kept although the runtime is ``torch.distributed``), the
 snapshot ring (``--model-snapshot-interval``), elastic membership
 (``--no-auto-rebalance``, ``--drain-grace``), sharded serving
 (``--shard-devices``, ``--shard-features``) and the IVF tier (``--ann``,
@@ -14,8 +18,7 @@ snapshot ring (``--model-snapshot-interval``), elastic membership
 ``--store-compress``, ``--no-store-warmboot``), the chaos drills'
 ``--fault`` rules, plus ``--device``, with
 the JAX package's defaults and checks. ``--mixer`` takes the JAX
-package's names; ``collective_mixer`` raises ``NotYetPorted``. No flag is
-accepted and then ignored.
+package's names. No flag is accepted and then ignored.
 """
 
 from __future__ import annotations
@@ -25,10 +28,9 @@ import dataclasses
 import socket
 from typing import Any, Dict, List, Optional
 
-from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.utils.faults import parse_rule
 
-#: the JAX package's --mixer names; the port has all but collective_mixer
+#: the JAX package's --mixer names
 MIXERS = ("linear_mixer", "collective_mixer", "random_mixer",
           "broadcast_mixer", "skip_mixer", "dummy_mixer")
 
@@ -52,6 +54,23 @@ class ServerArgs:
     #: memory coordinators have no session to time out (in both packages)
     coordinator_timeout: float = 10.0
     interconnect_timeout: float = 10.0
+    #: the process world of --mixer collective_mixer
+    #: (parallel/multihost.py): every replica process joins one
+    #: torch.distributed world so the mix's reduce spans them. Process 0's
+    #: host:port is the rendezvous; peers may omit it when the
+    #: coordination store publishes it.
+    jax_coordinator: str = ""       # host:port of process 0
+    jax_processes: int = 0          # world size; 0 = no distributed init
+    jax_process_id: int = -1
+    #: --mix-compress: the collective mixer's wire mode (off, bf16, int8
+    #: with error feedback); all members must agree or the round falls
+    #: back to the RPC mix
+    mix_compress: str = "off"
+    #: --mix-bf16: deprecated alias for --mix-compress bf16
+    mix_bf16: bool = False
+    #: --mix-topology: the collective mixer's tier shape ("" flat, auto,
+    #: HxM); the resolved NxM rides the prepare signature
+    mix_topology: str = ""
     #: minimum fraction of members whose diffs must arrive for a master
     #: round to proceed (framework/linear_mixer.py)
     mix_quorum: float = 0.5
@@ -125,14 +144,6 @@ class ServerArgs:
         except OSError:
             return "127.0.0.1"
 
-    def check_ported(self) -> None:
-        """Raise ``NotYetPorted`` for a flag value whose plane the port
-        lacks."""
-        if self.mixer == "collective_mixer":
-            raise NotYetPorted(
-                "--mixer collective_mixer: the collective mix plane is not "
-                "yet ported")
-
     def flags_status(self) -> Dict[str, Any]:
         """Flag dump for get_status."""
         return {f"argv.{f.name}": getattr(self, f.name)
@@ -162,14 +173,48 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
                         "empty = standalone")
     p.add_argument("-n", "--name", default="")
     p.add_argument("-x", "--mixer", default="linear_mixer", choices=MIXERS,
-                   help="mix strategy: linear_mixer, a push strategy "
-                        "(random_mixer, broadcast_mixer, skip_mixer) or "
-                        "dummy_mixer (collective_mixer is not yet ported)")
+                   help="mix strategy: linear_mixer, collective_mixer, a "
+                        "push strategy (random_mixer, broadcast_mixer, "
+                        "skip_mixer) or dummy_mixer")
     p.add_argument("-s", "--interval-sec", type=float, default=16.0)
     p.add_argument("-i", "--interval-count", type=int, default=512)
     p.add_argument("--coordinator-timeout", "--zookeeper-timeout",
                    dest="coordinator_timeout", type=float, default=10.0)
     p.add_argument("--interconnect-timeout", type=float, default=10.0)
+    p.add_argument("--jax-coordinator", default="",
+                   help="jax.distributed coordinator host:port (process "
+                        "0's reachable address) for --mixer "
+                        "collective_mixer")
+    p.add_argument("--jax-processes", type=int, default=0,
+                   help="jax.distributed world size (replica process "
+                        "count); 0 disables distributed jax init")
+    p.add_argument("--jax-process-id", type=int, default=-1,
+                   help="this process's rank in the jax world")
+    p.add_argument("--mix-compress", default="off",
+                   choices=["off", "bf16", "int8"],
+                   help="collective mixer wire mode: off = native "
+                        "dtypes; bf16 = cast f32 diffs to bf16 on "
+                        "device (half the bytes per round); int8 = "
+                        "block-quantized collective (~4x fewer wire "
+                        "bytes, one f32 scale per 256 elements) with an "
+                        "error-feedback residual carried between rounds "
+                        "so averaged weights stay unbiased. All members "
+                        "must agree or the round falls back to the RPC "
+                        "mix")
+    p.add_argument("--mix-bf16", action="store_true",
+                   help="deprecated alias for --mix-compress bf16 (an "
+                        "explicit --mix-compress wins when both are "
+                        "given)")
+    p.add_argument("--mix-topology", default="",
+                   help="hierarchical mix tier shape (collective mixer): "
+                        "'' = flat single-tier psum; 'auto' = derive N "
+                        "hosts x M local devices from the runtime and go "
+                        "hierarchical when M > 1; explicit 'HxM' groups "
+                        "the process world (co-located processes per "
+                        "host). Intra-host reduce first, one chunk copy "
+                        "per host on the inter-host wire; the resolved "
+                        "NxM rides the prepare signature so mismatched "
+                        "fleets fall back to the RPC mix")
     p.add_argument("--mix-quorum", type=float, default=0.5,
                    help="minimum fraction of members whose diffs must "
                         "arrive for a mix round to proceed")
@@ -316,6 +361,8 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
             parse_rule(rule)
         except ValueError as e:
             raise SystemExit(str(e))
+    if args.mix_bf16 and args.mix_compress == "off":
+        args.mix_compress = "bf16"  # deprecated alias resolves here
     if args.is_standalone and not args.configpath:
         raise SystemExit("standalone mode requires -f/--configpath")
     if not args.is_standalone and not args.name:

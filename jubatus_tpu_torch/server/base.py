@@ -11,7 +11,8 @@ Given a coordinator (``-z``: a directory, ``file://``, or the
 coordination service at ``tcp://host:port``), the server registers its
 membership, mixes with its fleet through the mixer ``--mixer`` names
 (framework/push_mixer.py ``create_mixer``: the RPC linear mixer, the
-asynchronous plane with ``--mix-async``, a push strategy, or none), which
+asynchronous plane with ``--mix-async``, the collective mixer over the
+process world ``--jax-processes`` joins, a push strategy, or none), which
 serves the ``mix_*`` RPCs, mints anomaly's and graph's ids through the
 coordinator and places each new row or node on its CHT(2) owners
 (server/service.py ``_replicated_write``), and keeps burst's keyword
@@ -43,9 +44,10 @@ The durability and elastic planes, as in the JAX server:
 The snapshot and upload hooks run on one small tick thread that waits on
 the server's stop event. Each of these planes packs or loads the model
 under the driver's lock on the driver's device, where the JAX server
-holds its lock. Not carried over: the collective mixer, the incident
-bundles a rollback triggers (the event is emitted), and the observability
-planes.
+holds its lock. Not carried over: the incident bundles a rollback
+triggers (the event is emitted), and the observability planes;
+``health.status`` / ``health.reasons`` in get_status carry the mix
+plane's part of the JAX server's degraded reasons.
 """
 
 from __future__ import annotations
@@ -100,7 +102,6 @@ class EngineServer:
         devices."""
         self.engine = engine
         self.args = args or ServerArgs(engine=engine)
-        self.args.check_ported()
         device = device if device is not None else self.args.device
         if mesh is None and self.args.shard_devices > 1:
             mesh = local_shard_mesh(self.args.shard_devices, device)
@@ -180,7 +181,10 @@ class EngineServer:
                 mix_async=self.args.mix_async,
                 mix_staleness_bound=self.args.mix_staleness_bound,
                 mix_guard=self.args.mix_guard,
-                mix_norm_bound=self.args.mix_norm_bound)
+                mix_norm_bound=self.args.mix_norm_bound,
+                mix_compress=self.args.mix_compress,
+                mix_bf16=self.args.mix_bf16,
+                mix_topology=self.args.mix_topology)
             self.mixer.set_trace_registry(self.trace)
             # a put_diff refusing a non-finite folded total rolls back
             if hasattr(self.mixer, "on_poisoned_total"):
@@ -782,6 +786,9 @@ class EngineServer:
         if self.mixer is not None:
             st.update({f"mixer.{k}": v
                        for k, v in self.mixer.get_status().items()})
+        reasons = self._degraded_reasons()
+        st["health.status"] = "degraded" if reasons else "ok"
+        st["health.reasons"] = reasons
         st.update(self.trace.trace_status())
         self._publish_index_gauges()
         st.update(self.trace.gauges())
@@ -791,6 +798,34 @@ class EngineServer:
             host = self.args.listen_addr or "127.0.0.1"
             node = f"{host}_{self.rpc.port or self.args.rpc_port}"
         return {node: st}
+
+    def _degraded_reasons(self) -> list:
+        """The mix plane's degraded reasons (the JAX server's list, less
+        the planes the port has not reached): open mix breakers, a
+        quorum-degraded last round, an obsolete model, a destroyed
+        collective process group, a drain."""
+        reasons: list = []
+        m = self.mixer
+        if m is not None:
+            breakers = getattr(getattr(m, "comm", None), "breakers", None)
+            if breakers is not None:
+                open_backends = [k for k, b in breakers.snapshot().items()
+                                 if b["state"] == "open"]
+                if open_backends:
+                    reasons.append({"kind": "mix_breaker_open",
+                                    "count": len(open_backends),
+                                    "backends": sorted(open_backends)})
+            if getattr(m, "last_round_degraded", False):
+                reasons.append({"kind": "mix_quorum_degraded"})
+            if getattr(m, "_obsolete", False):
+                reasons.append({"kind": "model_obsolete",
+                                "staleness": getattr(m, "self_staleness", 0)})
+            if getattr(m, "collective_dead", False):
+                reasons.append({"kind": "collective_dead"})
+        if self.drain_ctl.state != "active":
+            reasons.append({"kind": "draining",
+                            "state": self.drain_ctl.state})
+        return reasons
 
     def _publish_index_gauges(self) -> None:
         """The shard-layout gauges (count, live rows, arena bytes, the last

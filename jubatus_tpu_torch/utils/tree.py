@@ -49,3 +49,41 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
                for i, x in enumerate(tree)]
         return type(tree)(out) if isinstance(tree, tuple) else out
     return fn(tree, *rest)
+
+
+def tree_flatten(tree: Any):
+    """``(leaves, spec)``: the leaves in ``tree_leaves`` order and a spec
+    of the structure that ``tree_unflatten`` rebuilds it from. ``str(spec)``
+    is stable, so it can key a plan on the structure."""
+
+    def spec_of(node: Any):
+        if node is None:
+            return ("none",)
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(spec_of(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            kind = "tuple" if isinstance(node, tuple) else "list"
+            return (kind, tuple(spec_of(x) for x in node))
+        return ("*",)
+
+    return tree_leaves(tree), spec_of(tree)
+
+
+def tree_unflatten(spec: Any, leaves: List[Any]) -> Any:
+    """The tree of structure ``spec`` (from ``tree_flatten``) holding
+    ``leaves`` in order."""
+    it = iter(leaves)
+
+    def build(s: Any) -> Any:
+        kind = s[0]
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(sub) for k, sub in zip(s[1], s[2])}
+        if kind in ("list", "tuple"):
+            out = [build(sub) for sub in s[1]]
+            return tuple(out) if kind == "tuple" else out
+        return next(it)
+
+    return build(spec)

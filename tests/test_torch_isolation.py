@@ -100,6 +100,10 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.parallel.sharded_ivf",
     "jubatus_tpu_torch.parallel.sharded_model",
     "jubatus_tpu_torch.ops.ivf",
+    "jubatus_tpu_torch.parallel.multihost",
+    "jubatus_tpu_torch.parallel.collective",
+    "jubatus_tpu_torch.parallel.spmd",
+    "jubatus_tpu_torch.framework.collective_mixer",
 )
 
 

@@ -652,12 +652,25 @@ def test_mixed_fleet_stat_answers_as_a_jax_fleet(master, tmp_path):
     {"mixer": "collective_mixer", "mix_guard": "quarantine"},
     {"mixer": "collective_mixer", "coordinator": "(shared)", "name": "c"}])
 def test_unported_mix_flags_raise_not_yet_ported(flags):
-    """The collective mixer is the one --mixer value the port lacks: it
-    raises NotYetPorted whatever flags ride with it (the push strategies
-    and quarantine, once refused here too, are ported)."""
-    with pytest.raises(NotYetPorted):
-        EngineServer("stat", {"window_size": 8},
-                     ServerArgs(engine="stat", **flags), device="cpu")
+    """Every --mixer value is ported now, the collective mixer last (it
+    raised NotYetPorted until then): a server builds with it whatever
+    flags ride along, and in a fleet it holds a CollectiveMixer carrying
+    the guard."""
+    from jubatus_tpu_torch.framework.collective_mixer import CollectiveMixer
+
+    srv = EngineServer("stat", {"window_size": 8},
+                       ServerArgs(engine="stat", **flags), device="cpu",
+                       coord=MemoryCoordinator(_Store())
+                       if "coordinator" in flags else None)
+    try:
+        if "coordinator" not in flags:
+            assert srv.mixer is None
+            return
+        assert isinstance(srv.mixer, CollectiveMixer)
+        assert srv.mixer.guard.mode == flags.get("mix_guard", "warn")
+    finally:
+        if srv.coord is not None:
+            srv.coord.close()
 
 
 def test_unported_coordinator_locators_raise_not_yet_ported(tmp_path):

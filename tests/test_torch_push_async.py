@@ -27,7 +27,6 @@ from jubatus_tpu.framework import async_mixer as jax_async_mixer
 from jubatus_tpu.parallel.mix import tree_sum as jax_tree_sum
 from jubatus_tpu.server import EngineServer as JEngineServer
 from jubatus_tpu.server.args import ServerArgs as JServerArgs
-from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.coord.base import NodeInfo
 from jubatus_tpu_torch.coord.file import FileCoordinator
 from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
@@ -137,8 +136,15 @@ def test_factory_selects():
     assert isinstance(create_mixer("dummy_mixer", _D(), _C()), DummyMixer)
     with pytest.raises(ValueError, match="unknown mixer"):
         create_mixer("nope", _D(), _C())
-    with pytest.raises(NotYetPorted):
-        create_mixer("collective_mixer", _D(), _C())
+    from jubatus_tpu_torch.framework.collective_mixer import \
+        CollectiveMixer
+
+    cm = create_mixer("collective_mixer", _D(), _C(), mix_bf16=True,
+                      mix_topology="2x2")
+    assert isinstance(cm, CollectiveMixer)
+    assert cm.compress == "bf16" and cm.topology == "2x2"
+    assert create_mixer("collective_mixer", _D(), _C(),
+                        mix_compress="int8").compress == "int8"
 
 
 # -- gossip rounds over real servers ---------------------------------------------
@@ -386,10 +392,14 @@ def test_server_args_flags():
     with pytest.raises(SystemExit):
         parse_server_args(["classifier", "-f", "/dev/null",
                            "--mix-staleness-bound", "-1"])
-    with pytest.raises(NotYetPorted):
-        EngineServer("classifier", CONF, parse_server_args(
-            ["classifier", "-f", "/dev/null", "-x", "collective_mixer",
-             "--device", "cpu"]))
+    # the collective mixer is ported: a standalone server with it builds
+    # (standalone mixes with nobody, so it holds no mixer)
+    args = parse_server_args(["classifier", "-f", "/dev/null", "-x",
+                              "collective_mixer", "--device", "cpu",
+                              "--mix-compress", "int8"])
+    assert args.mixer == "collective_mixer" and args.mix_compress == "int8"
+    srv = EngineServer("classifier", CONF, args)
+    assert srv.mixer is None
 
 
 def test_async_status_rpc_and_idempotency():
