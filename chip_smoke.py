@@ -127,9 +127,10 @@ each of which fails the run (non-zero exit, no result line) on error:
    filled with 1.25·10^5 rows through ``put_rows``, a second server's
    ``rebalance`` pull, its first query (signing every pulled row, K1),
    then the first server's drain and handoff, the new owner's answers
-   equal to the source's each time; the AROW driver at phase 8's shape
-   in a model store at D = 2^20 and 2^24 (full and diff records off and
-   int8, compaction, materialize, the snapshot's lock hold, rollback); a
+   equal to the source's each time; the AROW driver (capacity 8, B =
+   32768) in a model store at D = 2^20 and 2^24 (full and diff records
+   off and int8, compaction, materialize, the snapshot's lock hold,
+   rollback); a
    regression server stopped and restarted warm from ``--store-dir``
    (answers equal, its flushes launch S1); two ``arow.json`` servers
    under ``--mix-guard quarantine``, one armed with ``--fault
@@ -207,14 +208,44 @@ each of which fails the run (non-zero exit, no result line) on error:
    rounds, and two regression ``default.json`` processes with the wire
    off, one round (their flushes launch S1): after each round every
    member's saved model equal bit for bit, each member's flight record
-   with its phases, the master's fallback count 0.
+   with its phases, the master's fallback count 0;
+17. sharded checkpoints and the forensics plane: AROW at phase 15's shape
+   (D = 2^24, capacity 8) on 4 logical shards of cuda:0 after two
+   train_hashed steps of phase 8's batch, ``save_sharded`` (dcp) timed and
+   split into staging, write and sidecar with its bytes on disk, restored
+   at 4, 2 and 1 shards (every field ``torch.equal`` to the source), read
+   back with ``checkpoint_metadata`` and ``jubadump -i``, beside
+   ``save_model`` / ``load_model`` of the same state; then servers started
+   with ``-c 2 --metrics-port 0 --telemetry-interval 1 --profile-dir``: two
+   nearest_neighbor lsh.json (the stack sampler at 67 Hz and off, each
+   with phase 4's 10^4 rows; query p50/p99 in turns) and a regression
+   default.json; ``profile_device``, twice on each (a process's first
+   capture and a later one), under a querying (training) client
+   must name K1 (S1) in its artifact, no more often than the server's
+   launch count rose, its wall split into start / window / stop / export,
+   and ``get_status`` must answer while it is in flight (a capture holds
+   no RPC worker); each server's ``runtime.torch_device_bytes_in_use``,
+   /metrics (``rpc.<method>`` buckets, runtime gauges), /healthz, slow log
+   and folded profile; the telemetry sample's cost in this process.
 
-Phases 3-7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are the main path: each
+Phases 3-7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 are the main path: each
 path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
 launches per path), the nvidia-smi line, and ``{"ok": true, "device":
 ...}``. The sizes are fixed; ``--seed`` picks the random data.
+
+``python3 chip_smoke.py --forensics-ab N [--parent DIR]`` drives none of
+the main path and prints no result line: it measures what the forensics
+plane costs the servers. After the build it runs, N rounds over, phase 9's
+two linear servers and phase 13's fleet under each arm of AB_ARMS (the
+servers' defaults; the stack sampler off; the sampler and the runtime
+telemetry off) and, with ``--parent``, the same two phases of the checkout
+in DIR (its own chip_smoke.py, in a process of its own), the arms in
+order in even rounds and reversed in odd ones. One ``[forensics_ab]``
+line per arm and round, then the medians by arm; then phase 17's servers
+with two device captures each (the first capture of a process against a
+later one).
 """
 
 from __future__ import annotations
@@ -224,6 +255,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -1797,13 +1829,14 @@ def linear_example(rng, Datum, engine: str, i: int):
 
 
 def phase_linear_server(Datum, Driver, engine: str, config_name: str,
-                        seed: int) -> dict:
+                        seed: int, extra=()) -> dict:
     """config/<engine>/<config_name> on the card. First SERVER_ROWS rows
     in LINEAR_BATCH-row train calls from LINEAR_THREADS clients at once
     (the coalescer merges them; each call must return its own count); then
     ``clear`` and the same rows from one client, so each call is one flush
     and a CPU driver fed the same batches holds the same model; then
-    LINEAR_QUERIES classify / estimate calls against it."""
+    LINEAR_QUERIES classify / estimate calls against it. ``extra``: more
+    server flags."""
     path = os.path.join(ROOT, "config", engine, config_name)
     config = load_config(engine, config_name)
     ref = Driver(config, device="cpu")
@@ -1814,7 +1847,8 @@ def phase_linear_server(Datum, Driver, engine: str, config_name: str,
     query = "classify" if engine == "classifier" else "estimate"
     from jubatus_tpu_torch.rpc.client import RpcClient
 
-    with serving(engine, path) as cli:
+    with serving(engine, path, start_server(engine, path,
+                                            extra=extra)) as cli:
         st0 = server_status(cli)
         counts, errors = [], []
 
@@ -3545,7 +3579,7 @@ def one_of(got, answers, what: str) -> int:
                      f"direct answer")
 
 
-def phase_fleet(Datum, seed: int) -> dict:
+def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
     """A port ``jubacoordd`` (``--journal``), three configs written with
     ``jubaconfig`` (nearest_neighbor lsh.json, the LOF config of phase 6
     over lsh, regression default.json), one ``jubavisor`` on the card,
@@ -3561,7 +3595,8 @@ def phase_fleet(Datum, seed: int) -> dict:
     ``clear`` all_and), then ``jubactl -c drain`` of one NN member under a
     writer through the proxy (no client error, every row handed off),
     ``rebalance``, ``rollback``, ``status --all``, ``watch --once`` and
-    ``stop``: the visor is left with no children."""
+    ``stop``: the visor is left with no children. ``member_flags``: more
+    server flags for every member (the visor's ``--server-flags``)."""
     import threading
 
     from jubatus_tpu_torch.cmd import jubaconfig, jubactl
@@ -3605,7 +3640,9 @@ def phase_fleet(Datum, seed: int) -> dict:
         visor = spawn("jubavisor", "jubatus_tpu_torch.cmd.jubavisor", "-z",
                       locator, "-p", str(vport), "-m", "8", "-b",
                       "127.0.0.1", "-l", os.path.join(d, "children.log"),
-                      "--device", "cuda")
+                      "--device", "cuda",
+                      *(("--server-flags", member_flags) if member_flags
+                        else ()))
         procs.append(visor)
         wait_for(lambda: view.list(membership.SUPERVISOR_BASE),
                  "the visor never registered", FLEET_WAIT_S)
@@ -3872,6 +3909,9 @@ def phase_fleet(Datum, seed: int) -> dict:
         launches = {m: 0 for m in RECORDED}
         for st in final.values():
             add_launches(launches, st)
+        # the members' stack samplers: their own wall, summed
+        out["members_sampler_ms"] = sum(
+            st.get("profiler.sample_ms_total", 0.0) for st in final.values())
         for c in pcli.values():
             c.close()
         for engine, name in FLEET_ENGINES:
@@ -5158,9 +5198,543 @@ def phase_collective_fleets(Datum, seed: int) -> dict:
                 server_launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: sharded checkpoints and the forensics plane
+# ---------------------------------------------------------------------------
+CK_SHARDS = (4, 2, 1)         # restore layouts of the 2^24 checkpoint
+FX_ROWS = SERVER_ROWS         # phase 4's 10^4 set_row per NN server
+FX_FILL_THREADS = 4
+FX_QUERIES = 200              # NN queries per server for p50/p99
+FX_CAPTURE_S = 2.0            # profile_device seconds
+FX_CAPTURES = 2               # captures per server: a process's first
+                              # pays the profiler's set-up, a later one not
+FX_TRAIN_ROWS = 256           # regression rows per train call
+FX_WARM_TRAINS = 96           # train calls before the capture: past the
+#                               slow log's first threshold refresh (64)
+FX_SLOW_MIN = 8               # --slowlog-min-count of the phase's servers
+FX_SLOW_Q = 0.9               # --slowlog-quantile: a tenth of the calls
+FX_SAMPLES = 20               # timed telemetry samples (median)
+
+
+def ck_template(torch, ClassifierState, rows: int, dim: int, n: int, dev):
+    """A restore template allocating nothing: AROW's four [rows, dim]
+    tables as n column blocks of ``device="meta"`` tensors carrying their
+    target device (``sharded_checkpoint.abstract_like``'s form)."""
+    def leaf():
+        blocks = []
+        for _ in range(n):
+            m = torch.empty((rows, dim // n), dtype=torch.float32,
+                            device="meta")
+            m.target_device = dev
+            blocks.append(m)
+        return tuple(blocks) if n > 1 else blocks[0]
+
+    return ClassifierState(*(leaf() for _ in range(4)))
+
+
+def joined(torch, leaf):
+    return torch.cat(leaf, dim=-1) if isinstance(leaf, tuple) else leaf
+
+
+def phase_checkpoint(torch, ClassifierDriver, dev, seed: int) -> dict:
+    """AROW at phase 15's shape (D = 2^FS_DIM_BITS, capacity 8) on
+    FS_SHARDS logical shards of the card after two train_hashed steps of
+    phase 8's batch: ``save_sharded`` timed and split (staging, write,
+    sidecar) with its bytes on disk; restored at 4, 2 and 1 shards on the
+    card, every field ``torch.equal`` to the source; read back with
+    ``checkpoint_metadata`` and ``jubadump -i`` (a process); then the same
+    state through the envelope path (``save_model`` / ``load_model``),
+    timed beside it."""
+    from jubatus_tpu_torch.framework import save_load as SL
+    from jubatus_tpu_torch.framework import sharded_checkpoint as SC
+    from jubatus_tpu_torch.ops.classifier import ClassifierState
+    from jubatus_tpu_torch.parallel.mesh import ShardMesh
+    from jubatus_tpu_torch.utils.disk import tree_bytes
+
+    dim = 1 << FS_DIM_BITS
+    drv = ClassifierDriver(CLF_CONFIG, dim_bits=FS_DIM_BITS, device=dev,
+                           mesh=ShardMesh([dev] * FS_SHARDS))
+    rng = np.random.default_rng(seed + 170)
+    names = np.array(["neg", "pos"])
+    for _ in range(2):
+        idx, val, lab = bench_batch(rng, FS_DIM_BITS)
+        drv.train_hashed(list(names[lab]), idx, val)
+    torch.cuda.synchronize()
+    state = drv.state
+    rows = int(state.w[0].shape[0])
+    config = json.dumps(CLF_CONFIG)
+    path = os.path.join(OUT_DIR, "ckpt_arow24")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401 — timed apart
+    import_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    split = SC.save_sharded(path, state, engine_type="classifier",
+                            model_id="smoke", config=config)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    disk = tree_bytes(path)
+    state_bytes = sum(b.numel() * b.element_size()
+                      for f in state for b in f)
+    out = dict(dim_bits=FS_DIM_BITS, capacity=rows, shards=FS_SHARDS,
+               state_bytes=state_bytes, disk_bytes=disk,
+               dcp_import_ms=import_ms,
+               save_sharded_ms=save_ms, save_split_ms=split,
+               write_gb_per_s=state_bytes / (split["write_ms"] / 1e3) / 1e9)
+    restores = {}
+    for n in CK_SHARDS:
+        tmpl = ck_template(torch, ClassifierState, rows, dim, n, dev)
+        t0 = time.perf_counter()
+        system, got = SC.load_sharded(path, tmpl, expected_type="classifier",
+                                      expected_config=config)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(system["shard_layout"] == {"shard": FS_SHARDS},
+              f"sidecar layout {system['shard_layout']}")
+        for name, a, b in zip(ClassifierState._fields, state, got):
+            blocks = b if isinstance(b, tuple) else (b,)
+            check(len(blocks) == n and all(x.device == dev for x in blocks),
+                  f"restore at {n}: {name} not in {n} blocks on {dev}")
+            check(torch.equal(joined(torch, a), joined(torch, b)),
+                  f"restore at {n} shards: {name} differs from the source")
+        restores[n] = dict(load_ms=ms)
+        del got
+        torch.cuda.empty_cache()
+    out["restores"] = restores
+    md = SC.checkpoint_metadata(path)
+    check(md["arrays"]["w"] == {"shape": [rows, dim], "dtype": "float32",
+                                "partition_spec": ["None", "shard"]},
+          f"checkpoint_metadata w: {md['arrays']['w']}")
+    import io
+
+    from jubatus_tpu_torch.cmd import jubadump
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = jubadump.main(["-i", path])
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"jubadump -i exited {rc}")
+    dumped = json.loads(text.getvalue())
+    check(dumped["arrays"] == md["arrays"]
+          and dumped["system"]["config"] == CLF_CONFIG,
+          "jubadump -i disagrees with checkpoint_metadata")
+    out.update(jubadump_ms=dump_ms, arrays_w=md["arrays"]["w"])
+    shutil.rmtree(path)
+    envelope = path + ".jubatus"
+    _, env_save = timed(lambda: SL.save_model(envelope, drv, model_id="smoke",
+                                              config=config))
+    env_bytes = os.path.getsize(envelope)
+    again = ClassifierDriver(CLF_CONFIG, dim_bits=FS_DIM_BITS, device=dev,
+                             mesh=ShardMesh([dev] * FS_SHARDS))
+    _, env_load = timed(lambda: (SL.load_model(envelope, again,
+                                               expected_config=config),
+                                 torch.cuda.synchronize()))
+    check(torch.equal(joined(torch, again.state.w),
+                      joined(torch, state.w) + joined(torch, state.dw)),
+          "the envelope path's loaded w differs")
+    os.remove(envelope)
+    out["envelope"] = dict(save_model_ms=env_save, load_model_ms=env_load,
+                           file_bytes=env_bytes)
+    del again, drv, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_kernels(path: str, needle: str) -> dict:
+    """Kernel records in a capture's Chrome trace whose name holds
+    ``needle``: their count and names, and every kernel record's count."""
+    from jubatus_tpu_torch.utils.profiler import TRACE_FILE
+
+    with open(os.path.join(path, TRACE_FILE)) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    hits = [e["name"] for e in kernels if needle in e.get("name", "")]
+    return dict(kernel_records=len(kernels), hits=len(hits),
+                names=sorted(set(h[:80] for h in hits)))
+
+
+def parse_prometheus(text: str) -> list:
+    """(name, labels, value) of every sample line (exemplars allowed);
+    fails on a line that does not parse."""
+    import re
+
+    pat = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                     r'([0-9eE.+-]+|NaN|\+Inf)( # \{[^}]*\} \S+ \S+)?$')
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = pat.match(line)
+        check(m is not None, f"unparseable /metrics line: {line[:120]!r}")
+        out.append((m.group(1), m.group(2) or "", float(m.group(3))))
+    return out
+
+
+def forensics_checks(cli, mport: int, method: str, sampled: bool) -> dict:
+    """get_status's runtime keys, /metrics (rpc.<method> buckets and the
+    runtime gauges), /healthz, get_slow_log and get_profile of one server
+    (folded stacks when ``sampled``, none with the sampler off)."""
+    import urllib.request
+
+    st = server_status(cli)
+    check(st.get("runtime.torch_device_bytes_in_use", 0) > 0,
+          f"runtime.torch_device_bytes_in_use "
+          f"{st.get('runtime.torch_device_bytes_in_use')}")
+    with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                timeout=30) as resp:
+        samples = parse_prometheus(resp.read().decode())
+    spans = {lab for n, lab, _ in samples
+             if n == "jubatus_span_duration_seconds_bucket"}
+    check(any(f'span="rpc.{method}"' in lab for lab in spans),
+          f"/metrics has no rpc.{method} buckets")
+    gauges = {lab for n, lab, _ in samples if n == "jubatus_runtime_gauge"}
+    check(any('key="torch_device_bytes_in_use"' in g for g in gauges),
+          "/metrics has no torch_device_bytes_in_use gauge")
+    with urllib.request.urlopen(f"http://127.0.0.1:{mport}/healthz",
+                                timeout=30) as resp:
+        health = json.loads(resp.read().decode())
+    check(health["status"] == "ok", f"/healthz {health}")
+    (slow,) = cli.call("get_slow_log", "smoke").values()
+    check(len(slow) > 0,
+          f"get_slow_log of the {st['type']} server holds no captures "
+          f"({[(k, v) for k, v in st.items() if k.endswith('.count')]})")
+    (prof,) = cli.call("get_profile", "smoke", 60.0).values()
+    check((sum(prof["folded"].values()) > 0) == sampled
+          and prof["stats"]["enabled"] == sampled,
+          f"get_profile folded {sum(prof['folded'].values())} samples, "
+          f"sampler enabled {prof['stats']['enabled']}")
+    return dict(runtime={k[len("runtime."):]: st[k] for k in st
+                         if k.startswith("runtime.torch_")
+                         or k.startswith("runtime.kernel_build")},
+                metrics_samples=len(samples), slow_captures=len(slow),
+                profile_stacks=len(prof["folded"]),
+                profile_samples=prof["stats"]["samples"],
+                overhead_ms_per_s=st.get("profiler.overhead_ms_per_s"))
+
+
+def capture_under_load(cli, port: int, key: str, load, needle: str) -> dict:
+    """``profile_device(FX_CAPTURE_S)`` while ``load`` runs in a thread:
+    the artifact must name the kernel (``needle``) at least once and no
+    more often than the server's launch count ``key`` rose over the
+    window; ``get_status`` must answer while the capture is in flight (the
+    capture holds no RPC worker), every 0.25 s, each timed."""
+    import threading
+
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    stop = threading.Event()
+    errors: list = []
+
+    def pump():
+        try:
+            with RpcClient("127.0.0.1", port, timeout=120.0) as loader:
+                while not stop.is_set():
+                    load(loader)
+        except Exception as e:  # broad-ok — reported below
+            errors.append(e)
+
+    def capture():
+        try:
+            with RpcClient("127.0.0.1", port, timeout=300.0) as c:
+                t0 = time.perf_counter()
+                (got["doc"],) = c.call("profile_device", "smoke",
+                                       FX_CAPTURE_S).values()
+                got["wall"] = time.perf_counter() - t0
+        except Exception as e:  # broad-ok — reported below
+            errors.append(e)
+
+    got: dict = {}
+    status_ms: list = []
+    before = int(server_status(cli)[key])
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    try:
+        ct = threading.Thread(target=capture, daemon=True)
+        ct.start()
+        while ct.is_alive():
+            _, ms = timed(cli.call, "get_status", "smoke")
+            if ct.is_alive():
+                status_ms.append(ms)
+            time.sleep(0.25)
+        ct.join()
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    check(not errors, f"load or capture failed: {errors[:1]}")
+    doc, wall = got["doc"], got["wall"]
+    check("error" not in doc, f"profile_device: {doc.get('error')}")
+    check(len(status_ms) > 0,
+          "no get_status answered while the capture was in flight")
+    after = int(server_status(cli)[key])
+    found = trace_kernels(doc["artifact"], needle)
+    rose = after - before
+    check(found["hits"] >= 1,
+          f"the capture names no {needle} kernel ({found})")
+    check(found["hits"] <= rose,
+          f"the capture names {needle} {found['hits']} times, the launch "
+          f"count rose {rose}")
+    return dict(seconds=doc["seconds"], bytes=doc["bytes"],
+                rpc_wall_s=wall, timing_ms=doc["timing_ms"],
+                status_during_capture=dict(calls=len(status_ms),
+                                           **pcts(status_ms)),
+                activities=doc.get("activities"),
+                trace_hits=found["hits"], launches_rose=rose,
+                kernel_records=found["kernel_records"],
+                names=found["names"])
+
+
+def nn_fill(port: int, Datum, seed: int) -> None:
+    """FX_ROWS set_row calls (phase 4's rows) from FX_FILL_THREADS
+    clients."""
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    rng = np.random.default_rng(seed)
+    rows = [(f"row{i}", server_datum(rng, Datum, i)) for i in range(FX_ROWS)]
+
+    def part(k):
+        with RpcClient("127.0.0.1", port, timeout=120.0) as c:
+            for rid, d in rows[k::FX_FILL_THREADS]:
+                check(c.call("set_row", "smoke", rid, d) is True,
+                      "set_row failed")
+
+    with concurrent.futures.ThreadPoolExecutor(FX_FILL_THREADS) as pool:
+        for fut in [pool.submit(part, k) for k in range(FX_FILL_THREADS)]:
+            fut.result()
+
+
+def phase_forensics(torch, Datum, seed: int) -> dict:
+    """Servers on the card with ``-c 2 --metrics-port 0
+    --telemetry-interval 1 --profile-dir <dir>``: two nearest_neighbor
+    lsh.json servers (the stack sampler at its default 67 Hz and off)
+    filled with phase 4's 10^4 rows, and a regression default.json
+    server. On the sampled NN server a client keeps querying while
+    ``profile_device`` captures FX_CAPTURE_S
+    (K1 named in the artifact), likewise the regression server under a
+    training client (S1); each server's runtime keys, /metrics, /healthz,
+    slow log and folded profile. FX_QUERIES queries in turns on the two
+    NN servers give the sampler's cost on the query p50/p99; the telemetry
+    sample's cost is timed in this process. Each capture is taken
+    FX_CAPTURES times (``*_recaptures``: those after the process's
+    first)."""
+    from jubatus_tpu_torch.utils.runtime_telemetry import RuntimeTelemetry
+    from jubatus_tpu_torch.utils.tracing import Registry
+
+    prof_dir = os.path.join(OUT_DIR, "profiles")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    common = ("-c", "2",   # the server's default RPC workers
+              "--metrics-port", "0", "--telemetry-interval", "1",
+              "--slowlog-min-count", str(FX_SLOW_MIN),
+              "--slowlog-quantile", str(FX_SLOW_Q))
+    nn = os.path.join(ROOT, "config", "nearest_neighbor", "lsh.json")
+    reg = os.path.join(ROOT, "config", "regression", "default.json")
+    t_start = time.perf_counter()
+    started = {
+        "nn": start_server("nearest_neighbor", nn, "_p17", common + (
+            "--profile-dir", os.path.join(prof_dir, "nn"))),
+        "nn_hz0": start_server("nearest_neighbor", nn, "_p17_hz0", common + (
+            "--profile-dir", os.path.join(prof_dir, "nn_hz0"),
+            "--profile-hz", "0")),
+        "regression": start_server("regression", reg, "_p17", common + (
+            "--profile-dir", os.path.join(prof_dir, "regression"))),
+    }
+    out: dict = {}
+    launches = {m: 0 for m in RECORDED}
+    engines = {"nn": "nearest_neighbor", "nn_hz0": "nearest_neighbor",
+               "regression": "regression"}
+    ports = {k: v[1] for k, v in started.items()}
+    with contextlib.ExitStack() as stack:
+        clis = {k: stack.enter_context(serving(engines[k], "", started=v))
+                for k, v in started.items()}
+        out["start_s"] = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(nn_fill, ports[k], Datum, seed)
+                        for k in ("nn", "nn_hz0")]:
+                fut.result()
+        out["fill_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 171)
+        queries = [server_datum(rng, Datum, FX_ROWS + i)
+                   for i in range(FX_QUERIES)]
+        lat = {"nn": [], "nn_hz0": []}
+        for q in queries:   # in turns: the two servers see the same drift
+            for k in ("nn", "nn_hz0"):
+                t1 = time.perf_counter()
+                got = clis[k].call("neighbor_row_from_datum", "smoke", q, 10)
+                lat[k].append((time.perf_counter() - t1) * 1e3)
+                check(len(got) == 10, f"{k}: {len(got)} neighbors")
+        out["query_hz67"] = pcts(lat["nn"])
+        out["query_hz0"] = pcts(lat["nn_hz0"])
+        nth = iter(range(1 << 30))
+        nn_caps = [capture_under_load(
+            clis["nn"], ports["nn"], "kernel.sig_scan.hamming.launches",
+            lambda c: c.call("neighbor_row_from_datum", "smoke",
+                             queries[next(nth) % FX_QUERIES], 10),
+            "sig_scan") for _ in range(FX_CAPTURES)]
+        out["nn_capture"] = nn_caps[0]
+        rows = [linear_example(rng, Datum, "regression", i)
+                for i in range(8 * FX_TRAIN_ROWS)]
+
+        def train(c):
+            j = next(nth) % 8
+            c.call("train", "smoke",
+                   rows[j * FX_TRAIN_ROWS:(j + 1) * FX_TRAIN_ROWS])
+
+        for _ in range(FX_WARM_TRAINS):
+            train(clis["regression"])
+        reg_caps = [capture_under_load(
+            clis["regression"], ports["regression"],
+            "kernel.online_scan.launches", train, "pa_scan")
+            for _ in range(FX_CAPTURES)]
+        out["regression_capture"] = reg_caps[0]
+        out["nn_recaptures"] = nn_caps[1:]
+        out["regression_recaptures"] = reg_caps[1:]
+        for k, method in (("nn", "neighbor_row_from_datum"),
+                          ("nn_hz0", "neighbor_row_from_datum"),
+                          ("regression", "train")):
+            mport = int(server_status(clis[k])["argv.metrics_port"])
+            check(mport > 0, f"{k}: metrics port {mport}")
+            out[f"{k}_forensics"] = forensics_checks(clis[k], mport, method,
+                                                     k != "nn_hz0")
+            for m, n in server_launches(server_status(clis[k])).items():
+                launches[m] += n
+        out["served_s"] = time.perf_counter() - t_start
+    held = torch.ones(1 << 20, device="cuda")  # CUDA in use here too
+    rt = RuntimeTelemetry(Registry())
+    costs = [timed(rt.sample)[1] for _ in range(FX_SAMPLES)]
+    check(rt.sample().get("torch_device_bytes_in_use", 0) > 0,
+          "this process's telemetry sample reads no device bytes")
+    del held
+    out["telemetry_sample_ms"] = statistics.median(costs)
+    out["server_launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --forensics-ab: what the forensics plane costs phase 9's and phase 13's
+# servers
+# ---------------------------------------------------------------------------
+#: server flags of each arm (phase 13's members get them through the
+#: visor's --server-flags)
+AB_ARMS = {"default": (),
+           "sampler_off": ("--profile-hz", "0"),
+           "off": ("--profile-hz", "0", "--telemetry-interval", "0")}
+#: the parent arm: phase 9's linear servers and phase 13 from the checkout
+#: in the working directory, with its own chip_smoke.py and package
+PARENT_AB = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from jubatus_tpu_torch.core.datum import Datum
+from jubatus_tpu_torch.models.classifier import ClassifierDriver
+from jubatus_tpu_torch.models.regression import RegressionDriver
+from jubatus_tpu_torch.ops import online_scan, sig_scan
+sig_scan.library(); online_scan.library()
+seed = int(sys.argv[1])
+out = {engine: cs.phase_linear_server(Datum, drv, engine, cfg, seed)
+       for engine, drv, cfg in (("classifier", ClassifierDriver, "arow.json"),
+                                ("regression", RegressionDriver,
+                                 "default.json"))}
+out["fleet"] = cs.phase_fleet(Datum, seed)
+print("AB_RESULT " + json.dumps(out))
+"""
+
+
+def ab_summary(lin: dict, fleet: dict) -> dict:
+    """The numbers an arm is compared on: phase 9's rows/s and p50/p99,
+    phase 13's boot, fill, queries, regression, estimate and drain."""
+    out = {}
+    for engine, r in lin.items():
+        q = "classify" if engine == "classifier" else "estimate"
+        out[engine] = dict(conc_rows_per_s=r["concurrent"]["rows_per_s"],
+                           seq_rows_per_s=r["sequential"]["rows_per_s"],
+                           p50_ms=r[q]["p50_ms"], p99_ms=r[q]["p99_ms"])
+    nn = fleet["nearest_neighbor"]
+    q = nn["queries"]["neighbor_row_from_datum"]
+    reg = fleet["regression"]
+    out["fleet"] = dict(
+        boot_s=fleet["boot_s"], fill_rows_per_s=nn["fill_rows_per_s"],
+        set_row_p50_ms=nn["set_row"]["p50_ms"],
+        nn_proxy_p50_ms=q["proxy"]["p50_ms"],
+        nn_proxy_p99_ms=q["proxy"]["p99_ms"],
+        nn_direct_p50_ms=q["direct"]["p50_ms"],
+        add_p50_ms=fleet["anomaly"]["add"]["p50_ms"],
+        reg_rows_per_s=reg["rows_per_s"],
+        reg_train_p50_ms=reg["train"]["p50_ms"],
+        estimate_p50_ms=reg["estimate"]["p50_ms"],
+        estimate_p99_ms=reg["estimate"]["p99_ms"],
+        drain_rows_per_s=fleet["drain"]["rows_per_s"],
+        members_sampler_ms=fleet.get("members_sampler_ms"))
+    return out
+
+
+def median_tree(docs: list):
+    """Element-wise median of equally shaped nested dicts (None skipped)."""
+    if isinstance(docs[0], dict):
+        return {k: median_tree([d[k] for d in docs]) for k in docs[0]}
+    vals = [d for d in docs if d is not None]
+    return statistics.median(vals) if vals else None
+
+
+def run_forensics_ab(torch, Datum, ClassifierDriver, RegressionDriver,
+                     rounds: int, parent: str, seed: int, kind: str,
+                     smi: str) -> None:
+    arms = list(AB_ARMS) + (["parent"] if parent else [])
+    results: dict = {arm: [] for arm in arms}
+    for r in range(rounds):
+        for arm in (arms if r % 2 == 0 else arms[::-1]):
+            t0 = time.perf_counter()
+            if arm == "parent":
+                proc = subprocess.run(
+                    [sys.executable, "-c", PARENT_AB, str(seed)],
+                    cwd=parent, capture_output=True, text=True, timeout=900)
+                check(proc.returncode == 0,
+                      f"the parent's phases failed: {proc.stderr[-3000:]}")
+                (line,) = [x for x in proc.stdout.splitlines()
+                           if x.startswith("AB_RESULT ")]
+                res = json.loads(line[len("AB_RESULT "):])
+                fleet = res.pop("fleet")
+                summary = ab_summary(res, fleet)
+            else:
+                flags = AB_ARMS[arm]
+                lin = {engine: phase_linear_server(Datum, drv, engine, cfg,
+                                                   seed, extra=flags)
+                       for engine, drv, cfg in (
+                           ("classifier", ClassifierDriver, "arow.json"),
+                           ("regression", RegressionDriver,
+                            "default.json"))}
+                summary = ab_summary(lin, phase_fleet(
+                    Datum, seed, member_flags=" ".join(flags)))
+            summary["seconds"] = time.perf_counter() - t0
+            results[arm].append(summary)
+            log(f"[forensics_ab] round {r} arm {arm} {json.dumps(summary)} "
+                f"| {kind} | {smi}")
+    medians = {arm: median_tree(v) for arm, v in results.items()}
+    log(f"[forensics_ab] medians {json.dumps(medians)} | {kind} | {smi}")
+    log_forensics(torch, Datum, seed, kind, smi)
+
+
+def log_forensics(torch, Datum, seed: int, kind: str, smi: str) -> dict:
+    """Phase 17's servers (``phase_forensics``), printed as ``[forensics]``
+    lines: each capture on a line of its own."""
+    res = phase_forensics(torch, Datum, seed)
+    for key in ("nn_capture", "regression_capture", "nn_recaptures",
+                "regression_recaptures"):
+        log(f"[forensics] {key} {json.dumps(res.pop(key))} | {kind} | {smi}")
+    log(f"[forensics] {json.dumps(res)} | {kind} | {smi}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--forensics-ab", type=int, default=0, metavar="N",
+                    help="measure the forensics plane's cost on phase 9's "
+                         "and phase 13's servers over N rounds (no main "
+                         "path, no result line)")
+    ap.add_argument("--parent", default="",
+                    help="with --forensics-ab: a checkout whose phases 9 "
+                         "and 13 run as one more arm")
     args = ap.parse_args(argv)
 
     import torch
@@ -5207,6 +5781,12 @@ def main(argv=None) -> int:
                 log(f"[build] {line.strip()[:120]}")
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
+        if args.forensics_ab:
+            run_forensics_ab(torch, Datum, ClassifierDriver,
+                             RegressionDriver, args.forensics_ab,
+                             os.path.abspath(args.parent) if args.parent
+                             else "", args.seed, kind, smi)
+            return 0
         # -- phase 2: kernels vs plain, edge shapes first
         edges = phase_edges(torch, sig_scan, args.seed)
         log(f"[edges] {json.dumps(edges)}")
@@ -5472,6 +6052,15 @@ def main(argv=None) -> int:
             return {"server_launches": res["server_launches"]}
 
         run_path("collective", collective_path)
+
+        def checkpoint_forensics_path():
+            dev = torch.device("cuda", 0)
+            res = phase_checkpoint(torch, ClassifierDriver, dev, args.seed)
+            log(f"[checkpoint] {json.dumps(res)} | {kind} | {smi}")
+            res = log_forensics(torch, Datum, args.seed, kind, smi)
+            return {"server_launches": res["server_launches"]}
+
+        run_path("checkpoint_forensics", checkpoint_forensics_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -5506,6 +6095,10 @@ def main(argv=None) -> int:
         check(paths["collective"]["pa_scan"] > 0,
               "online_scan.pa never launched on the collective path "
               "(phase 16)")
+        for mode in ("hamming", "pa_scan"):
+            check(paths["checkpoint_forensics"][mode] > 0,
+                  f"{mode} never launched on the checkpoint and forensics "
+                  "path (phase 17)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

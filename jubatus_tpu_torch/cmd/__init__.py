@@ -9,12 +9,14 @@ jubavisor/, SURVEY.md §2.6).
 - ``jubavisor``  — per-host process supervisor daemon, RPC-controlled
                    (jubavisor/jubavisor.{hpp,cpp}); its children are the
                    port's servers.
+- ``jubadump``   — model files and sharded checkpoints to JSON, and a
+                   live server's mix history, slow log and stack profile.
 
 Each module exposes ``main(argv)`` and runs via
 ``python -m jubatus_tpu_torch.cmd.<tool>``. The coordinator location comes
 from ``-z`` or the ``JUBATUS_COORDINATOR``/``ZK`` environment variables (the
 reference honors ``ZK``, jubactl.cpp:121-127). Not carried over: the
-offline converter ``jubaconv`` and the model dumper ``jubadump``.
+offline converter ``jubaconv``.
 """
 
 from __future__ import annotations

@@ -3,6 +3,7 @@
 
     python -m jubatus_tpu_torch.cmd.jubavisor -z tcp://host:2199 [-p 9198]
         [-m MAX] [-l LOGFILE] [-b HOST] [--device cpu]
+        [--server-flags "--profile-hz 0 ..."]
 
 An RPC-controlled process manager: ``jubactl -c start`` asks every
 registered jubavisor to spawn N engine servers; ``stop`` kills them.
@@ -24,12 +25,16 @@ at exit (atexit_ kill-all). Registers ephemerally under
 /jubatus/supervisors so jubactl can find it (membership.cpp). Of the argv
 map, the keys of the flags the port's server has are forwarded
 (``_FLAG_MAP``); ``timeout`` and ``logdir``, which it has not, are not.
+``--server-flags`` (port only) appends the same extra server flags to
+every child's command line, for the flags no jubactl argv key carries
+(the forensics plane's ``--profile-hz``, ``--telemetry-interval``, ...).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import shlex
 import signal
 import subprocess
 import sys
@@ -77,12 +82,14 @@ class _Child:
 class Jubavisor:
     def __init__(self, coordinator: str, port: int = 9198, max_children: int = 10,
                  logfile: str = "", host: str = "127.0.0.1",
-                 device: str = "cuda") -> None:
+                 device: str = "cuda",
+                 server_flags: Optional[List[str]] = None) -> None:
         self.coordinator = coordinator
         self.host = host
         self.port = port
         self.logfile = logfile
         self.device = device
+        self.server_flags = list(server_flags or ())
         self.coord = create_coordinator(coordinator)
         self.rpc = RpcServer()
         self.rpc.register("start", self.start_procs, arity=3)
@@ -116,6 +123,7 @@ class Jubavisor:
                 for key, flag in _FLAG_MAP.items():
                     if key in argv and argv[key] not in ("", None):
                         cmd += [flag, str(argv[key])]
+                cmd += self.server_flags
                 out = (open(self.logfile, "ab") if self.logfile
                        else subprocess.DEVNULL)
                 try:
@@ -215,6 +223,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device of every child server (its --device); "
                         "cuda unless cpu is asked for")
+    p.add_argument("--server-flags", default="",
+                   help="extra flags appended to every child server's "
+                        "command line, one shell-quoted string")
     ns = p.parse_args(argv)
     spec = resolve_coordinator(ns.coordinator)
     if not spec:
@@ -224,7 +235,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s [jubavisor] %(message)s")
     visor = Jubavisor(spec, ns.rpc_port, ns.max, ns.logfile, host=ns.host,
-                      device=ns.device)
+                      device=ns.device,
+                      server_flags=shlex.split(ns.server_flags))
     signal.signal(signal.SIGTERM, lambda *_: visor.stop())
     signal.signal(signal.SIGINT, lambda *_: visor.stop())
     port = visor.start()

@@ -6,10 +6,12 @@ server_util.cpp:223-228): a background thread wakes at most every 0.5 s and
 fires a mix when update_count >= interval_count (512) OR elapsed >=
 interval_sec (16 s) with at least one update. The mix itself is a supplied
 callable (the RPC linear mixer's round). Each round lands as one record in
-the mixer's flight recorder. The async plane sets ``fire_idle``: its fold
-tick fires on the interval whether or not this process trained. Not
-carried over: the per-round trace context, which waits for the port's
-tracing plane, and the tuner's ``set_interval``.
+the mixer's flight recorder. Every round roots a fresh trace context: the
+``mix.round`` span, the master's phase spans and the members' ``mix_*``
+dispatch spans (which inherit it through the RPC fan-out) land in the span
+stores under one trace_id, stamped into the flight record. The async plane
+sets ``fire_idle``: its fold tick fires on the interval whether or not
+this process trained. Not carried over: the tuner's ``set_interval``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
-from jubatus_tpu_torch.utils import events
+from jubatus_tpu_torch.utils import events, tracing
 from jubatus_tpu_torch.utils.tracing import Registry, default_registry
 
 log = logging.getLogger(__name__)
@@ -148,8 +150,9 @@ class IntervalMixer:
         """Execute one mix round WITHOUT holding the condition lock: updated()
         callers (the train hot path) must never block behind a round.
         _mix_serialize keeps concurrent mix_now/loop rounds from
-        overlapping."""
-        with self._mix_serialize:
+        overlapping. The round runs under a fresh root trace context."""
+        ctx = tracing.new_root()
+        with self._mix_serialize, tracing.use_trace(ctx):
             with self._cond:
                 self._counter = 0
             # round start/end bracket the event timeline; the end event's
@@ -167,6 +170,7 @@ class IntervalMixer:
                     "error", ok=False,
                     reason=f"{type(e).__name__}: {e}",
                     duration_ms=sp.seconds * 1e3,
+                    trace_id=ctx.trace_id,
                     event_hlc=evt["hlc"] if evt else None)
                 raise
             with self._cond:
@@ -181,7 +185,7 @@ class IntervalMixer:
                 phases = extra.pop("phases", None)
                 rid = extra.pop("round_id", "")
                 for k in ("ok", "reason", "duration_ms", "ts", "node",
-                          "seq", "hlc", "event_hlc"):
+                          "seq", "trace_id", "hlc", "event_hlc"):
                     extra.pop(k, None)  # reserved record fields
                 evt = self.trace.events.emit(
                     "mix", "round", mode=mode, round_id=rid or None,
@@ -191,6 +195,7 @@ class IntervalMixer:
                 self.flight.record(
                     mode, ok=True, round_id=rid, phases=phases,
                     duration_ms=self.last_mix_duration * 1e3,
+                    trace_id=ctx.trace_id,
                     event_hlc=evt["hlc"] if evt else None, **extra)
             return result
 

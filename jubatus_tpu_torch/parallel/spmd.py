@@ -86,6 +86,22 @@ def init_spmd_state(mesh: DeviceGrid, num_labels: int, dim: int,
                                  for i in range(4)))
 
 
+def place_host(mesh: DeviceGrid, host_state, dim: int
+               ) -> SpmdClassifierState:
+    """A state of host numpy ``[R, L, D]`` leaves (the JAX package's
+    stacked global arrays, ``SpmdClassifierState.stacked``) on the grid:
+    replica r's slice onto its row's devices, split into the row's column
+    blocks when the grid has a shard axis (``sharded_model.place_host``
+    per replica)."""
+    states = []
+    for r, row in enumerate(_rows(mesh)):
+        replica = cops.ClassifierState(*(np.asarray(a)[r]
+                                         for a in host_state))
+        states.append(sm.place_host(_row_mesh(row), replica, dim, row[0]))
+    return SpmdClassifierState(*(tuple(st[i] for st in states)
+                                 for i in range(4)))
+
+
 def _replica_sum(tables: Tuple[Any, ...]):
     """The replicas' tables summed in replica order on replica 0's
     devices (block by block when sharded)."""

@@ -30,6 +30,13 @@ served by the method's registered handler). The proxy's zero-decode relay
 uses it. Not carried over: fault sites other than the dispatch's, the
 usage ledger and the legacy-wire scan.
 
+A handler may answer with a ``concurrent.futures.Future`` (``deferred``
+wraps one that runs on a thread of its own): the worker returns to the
+pool at once and the response goes out when the future resolves, from the
+thread that resolves it, with its result or its exception as the error.
+A long operator call (``profile_device``) so holds no worker; its span
+``rpc.<method>`` covers the hand-off only.
+
 ``stop()`` waits on nothing: it shuts the listening socket and every open
 connection down (which wakes a reader blocked in ``recv`` and a worker
 blocked in ``sendall`` to a peer that does not read), drops the requests
@@ -39,6 +46,7 @@ with the process. A request already running finishes, but nothing joins it.
 
 from __future__ import annotations
 
+import concurrent.futures
 import inspect
 import logging
 import queue
@@ -416,12 +424,32 @@ class RpcServer:
             tracing.swap_trace(prev)
             deadlines.swap(prev_dl)
             principals.swap(prev_pr)
+        if error is None and isinstance(result, concurrent.futures.Future):
+            result.add_done_callback(
+                lambda fut: self._reply_deferred(conn, wlock, msgid,
+                                                 method, fut))
+            return
+        self._reply(conn, wlock, msgid, error, result)
+
+    def _reply(self, conn, wlock, msgid, error, result) -> None:
         payload = build_response(msgid, error, result)
         try:
             with wlock:
                 conn.sendall(payload)
         except OSError:
             pass
+
+    def _reply_deferred(self, conn, wlock, msgid, method: str,
+                        fut: "concurrent.futures.Future") -> None:
+        """The response of a handler that answered with a future."""
+        error, result = None, None
+        try:
+            result = fut.result()
+        except BaseException as e:  # broad-ok — every failure must answer
+            log.debug("rpc method %s raised", method, exc_info=True)
+            self.trace.count(f"rpc.{method}.errors")
+            error = error_to_wire(e)
+        self._reply(conn, wlock, msgid, error, result)
 
     def _execute_fast(self, method: str, raw_params: bytes):
         """Raw-span invoke; falls back to the generic decode + handler when
@@ -492,6 +520,25 @@ class RpcServer:
             self._invoke(method, params)
         except Exception:  # broad-ok — a notify has no one to answer
             log.debug("rpc notify %s raised", method, exc_info=True)
+
+
+def deferred(fn: Callable[..., Any], name: str = "rpc-deferred"
+             ) -> Callable[..., "concurrent.futures.Future"]:
+    """``fn`` as a handler that frees its worker: each call runs ``fn`` on
+    a daemon thread of its own and answers with a future of its result."""
+    def call(*args: Any) -> "concurrent.futures.Future":
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+
+        def run() -> None:
+            try:
+                fut.set_result(fn(*args))
+            except BaseException as e:  # broad-ok — the caller gets it
+                fut.set_exception(e)
+
+        threading.Thread(target=run, daemon=True, name=name).start()
+        return fut
+
+    return call
 
 
 def _shutdown(sock: socket.socket) -> None:

@@ -16,7 +16,11 @@ snapshot ring (``--model-snapshot-interval``), elastic membership
 ``--ann-cells``, ``--ann-nprobe``), the model store
 (``--store-dir``, ``--store-interval``, ``--store-compact-every``,
 ``--store-compress``, ``--no-store-warmboot``), the chaos drills'
-``--fault`` rules, plus ``--device``, with
+``--fault`` rules, the forensics plane (``--metrics-port``,
+``--slowlog-capacity``, ``--slowlog-quantile``, ``--slowlog-min-count``,
+``--telemetry-interval``, ``--profile-hz``, ``--profile-dir``,
+``--profile-trigger-breaches``, ``--profile-trigger-window``), plus
+``--device``, with
 the JAX package's defaults and checks. ``--mixer`` takes the JAX
 package's names. No flag is accepted and then ignored.
 """
@@ -103,6 +107,28 @@ class ServerArgs:
     store_warmboot: bool = True
     #: fault-injection rules armed at boot (utils/faults.py grammar)
     fault: List[str] = dataclasses.field(default_factory=list)
+    #: Prometheus /metrics + /healthz + /slowlog HTTP port
+    #: (utils/metrics_http.py): -1 = off, 0 = ephemeral (the bound port
+    #: lands in get_status)
+    metrics_port: int = -1
+    #: tail-based slow-request capture (utils/slowlog.py): an RPC at/above
+    #: this quantile of its own span histogram lands in a bounded ring;
+    #: capacity 0 disables capture; no capture below min_count samples
+    slowlog_capacity: int = 256
+    slowlog_quantile: float = 0.99
+    slowlog_min_count: int = 64
+    #: runtime telemetry sampler period (utils/runtime_telemetry.py);
+    #: 0 disables the thread
+    telemetry_interval: float = 10.0
+    #: always-on stack sampling rate (utils/profiler.py); 0 = no sampler
+    profile_hz: float = 67.0
+    #: artifacts directory of profile_device captures; "" =
+    #: <datadir>/jubatus_profile_<engine>_<port>
+    profile_dir: str = ""
+    #: slow-log captures of one span inside the window that take a
+    #: sampling-profile snapshot (once per window; 0 = no tail trigger)
+    profile_trigger_breaches: int = 3
+    profile_trigger_window: float = 10.0
     #: "cuda" (default) or "cpu"; never falls back on its own
     device: str = "cuda"
     #: most examples one coalesced train flush takes; 0 = the direct
@@ -271,6 +297,47 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
                    help="arm a fault-injection rule at boot (repeatable; "
                         "site:action[:arg], e.g. mix.diff.poison*:nan) — "
                         "for chaos drills, never in production")
+    p.add_argument("--metrics-port", type=int, default=-1,
+                   help="serve Prometheus /metrics + /healthz on this "
+                        "HTTP port (0 = ephemeral; default off)")
+    p.add_argument("--slowlog-capacity", type=int, default=256,
+                   help="slow-request ring size (tail-based capture of "
+                        "RPCs at/above --slowlog-quantile of their own "
+                        "latency histogram; 0 disables)")
+    p.add_argument("--slowlog-quantile", type=float, default=0.99,
+                   help="per-span histogram quantile at/above which a "
+                        "request is captured in the slow log (and "
+                        "exemplar-stamped on /metrics)")
+    p.add_argument("--slowlog-min-count", type=int, default=64,
+                   help="samples a span needs before slow-log "
+                        "thresholding starts (early on, everything "
+                        "is 'p99')")
+    p.add_argument("--telemetry-interval", type=float, default=10.0,
+                   help="runtime telemetry sampling period in seconds "
+                        "(RSS/FDs/threads/GC + the card's allocator, "
+                        "memory and kernel builds into get_status, "
+                        "/metrics, /healthz; 0 disables the sampler "
+                        "thread)")
+    p.add_argument("--profile-hz", type=float, default=67.0,
+                   help="always-on stack sampling rate (Hz): a daemon "
+                        "thread folds every thread's stack into a "
+                        "bounded windowed store served by get_profile "
+                        "and jubadump --profile; 0 disables the sampler "
+                        "thread entirely")
+    p.add_argument("--profile-dir", default="",
+                   help="artifacts directory for on-demand device "
+                        "captures (profile_device RPC wrapping "
+                        "torch.profiler); empty = under --datadir. Old "
+                        "captures are pruned past a fixed cap")
+    p.add_argument("--profile-trigger-breaches", type=int, default=3,
+                   help="slow-log captures of the SAME span inside "
+                        "--profile-trigger-window that auto-capture a "
+                        "short sampling-profile snapshot stamped with "
+                        "the breaching trace_ids (once per window; "
+                        "0 disables the tail trigger)")
+    p.add_argument("--profile-trigger-window", type=float, default=10.0,
+                   help="breach-counting window (seconds) for the "
+                        "tail-triggered profile snapshot")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device the model runs on; cuda unless cpu is asked "
                         "for (no fallback)")
@@ -324,6 +391,20 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
         raise SystemExit("--rpc-port out of range")
     if args.microbatch_max < 0:
         raise SystemExit("--microbatch-max must be >= 0")
+    if args.metrics_port > 65535:
+        raise SystemExit("--metrics-port out of range")
+    if args.slowlog_capacity < 0:
+        raise SystemExit("--slowlog-capacity must be >= 0")
+    if not 0.0 < args.slowlog_quantile <= 1.0:
+        raise SystemExit("--slowlog-quantile must be in (0, 1]")
+    if args.telemetry_interval < 0:
+        raise SystemExit("--telemetry-interval must be >= 0")
+    if args.profile_hz < 0 or args.profile_hz > 1000:
+        raise SystemExit("--profile-hz must be in [0, 1000]")
+    if args.profile_trigger_breaches < 0:
+        raise SystemExit("--profile-trigger-breaches must be >= 0")
+    if args.profile_trigger_window <= 0:
+        raise SystemExit("--profile-trigger-window must be > 0")
     if args.shard_devices < 0:
         raise SystemExit("--shard-devices must be >= 0")
     if args.shard_features < 0:

@@ -44,8 +44,19 @@ The durability and elastic planes, as in the JAX server:
 The snapshot and upload hooks run on one small tick thread that waits on
 the server's stop event. Each of these planes packs or loads the model
 under the driver's lock on the driver's device, where the JAX server
-holds its lock. Not carried over: the incident bundles a rollback
-triggers (the event is emitted), and the observability planes;
+holds its lock.
+
+The forensics plane, as in the JAX server: the tracing registry's span
+store and slow-request log (``--slowlog-*``), served by ``get_metrics``,
+``get_spans`` and ``get_slow_log``; the runtime telemetry sampler
+(``--telemetry-interval``: the process and the card's allocator, memory
+and kernel builds, ``runtime.*`` in get_status); the always-on stack
+sampler (``--profile-hz``, ``get_profile``) with its slow-log tail
+trigger (``--profile-trigger-*``); ``profile_device``, a torch.profiler
+capture into ``--profile-dir``; and with ``--metrics-port`` the
+``/metrics``, ``/healthz`` and ``/slowlog`` endpoints. Not carried over:
+the incident bundles a rollback triggers (the event is emitted), and the
+time series, SLO, quality, usage, tuner and event views;
 ``health.status`` / ``health.reasons`` in get_status carry the mix
 plane's part of the JAX server's degraded reasons.
 """
@@ -82,6 +93,8 @@ from jubatus_tpu_torch.rpc.server import RpcServer
 from jubatus_tpu_torch.server.args import ServerArgs
 from jubatus_tpu_torch.server.factory import create_driver
 from jubatus_tpu_torch.utils import faults
+from jubatus_tpu_torch.utils.profiler import DeviceCapture, SamplingProfiler
+from jubatus_tpu_torch.utils.runtime_telemetry import RuntimeTelemetry
 from jubatus_tpu_torch.utils.serialization import unpack_obj
 from jubatus_tpu_torch.utils.tracing import Registry
 
@@ -125,6 +138,27 @@ class EngineServer:
         #: events); the RPC server records its dispatch spans here
         self.trace = Registry()
         self.rpc = RpcServer(trace=self.trace)
+        # forensics plane: the slow-request ring off the --slowlog-*
+        # flags, the runtime telemetry sampler, the always-on stack
+        # sampler and the slow log's tail trigger that snapshots it when
+        # one span breaches repeatedly
+        self.trace.slowlog.configure(capacity=self.args.slowlog_capacity,
+                                     quantile=self.args.slowlog_quantile,
+                                     min_count=self.args.slowlog_min_count)
+        self.telemetry = RuntimeTelemetry(
+            self.trace, interval_sec=self.args.telemetry_interval)
+        self.profiler = SamplingProfiler(self.trace, hz=self.args.profile_hz)
+        if self.args.profile_trigger_breaches > 0 and self.profiler.enabled:
+            self.trace.slowlog.set_trigger(
+                self.profiler.tail_snapshot,
+                breaches=self.args.profile_trigger_breaches,
+                window_s=self.args.profile_trigger_window)
+        #: made on first use (_device_capture): the default artifacts dir
+        #: carries the bound rpc port, which an ephemeral start resolves
+        #: only at serve time
+        self.device_capture: Optional[DeviceCapture] = None
+        #: the /metrics endpoint, with --metrics-port
+        self.metrics = None
         #: method -> its microbatch coalescer (server/service.py)
         self.coalescers: Dict[str, Any] = {}
         self._stopped = threading.Event()
@@ -738,6 +772,102 @@ class EngineServer:
             return False
         return self.mixer.mix_now() is not None
 
+    # -- forensics plane ----------------------------------------------------
+    def get_metrics(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
+        """Raw mergeable metrics state keyed like get_status: span
+        histogram buckets, counters and gauges (``tracing.merge_snapshots``
+        folds members' into one view)."""
+        return {self._node_key(): self.trace.snapshot()}
+
+    def get_spans(self, _name: str, trace_id: str) -> Dict[str, Any]:
+        """Span records of one trace from this node's span store, keyed
+        like get_status."""
+        return {self._node_key(): self.trace.get_spans(_text(trace_id))}
+
+    def get_slow_log(self, _name: str = "") -> Dict[str, Any]:
+        """This node's slow-request ring (utils/slowlog.py), keyed like
+        get_status."""
+        return {self._node_key(): self.trace.slowlog.snapshot()}
+
+    def get_profile(self, _name: str = "", seconds: float = 0.0
+                    ) -> Dict[str, Any]:
+        """This node's folded stack profile over the last ``seconds`` (0 =
+        every retained bucket), keyed like get_status: collapsed stacks,
+        sampler stats and the tail-triggered snapshot ring."""
+        return {self._node_key(): self.profiler.profile(
+            float(seconds or 0.0))}
+
+    def _device_capture(self) -> DeviceCapture:
+        """The capped capture dir, made on first use so the default path
+        carries the bound rpc port (ephemeral-port servers on one host
+        must not share a dir)."""
+        if self.device_capture is None:
+            prof_dir = self.args.profile_dir or os.path.join(
+                self.args.datadir,
+                f"jubatus_profile_{self.engine}_"
+                f"{self.rpc.port or self.args.rpc_port}")
+            self.device_capture = DeviceCapture(prof_dir)
+        return self.device_capture
+
+    def profile_device(self, _name: str = "", seconds: float = 0.0
+                       ) -> Dict[str, Any]:
+        """On-demand device capture: ``seconds > 0`` runs one bounded
+        torch.profiler capture into the capped ``--profile-dir`` and
+        returns when its trace is written; ``seconds == 0`` lists the
+        existing artifacts. A failure answers a structured ``error``. The
+        RPC runs it on a thread of its own (server/service.py), so a
+        capture holds no RPC worker."""
+        s = float(seconds or 0.0)
+        if s <= 0:
+            return {self._node_key(): self._device_capture().list()}
+        doc = self._device_capture().capture(s)
+        if "artifact" in doc:
+            self.trace.count("profiler.device_captures")
+        return {self._node_key(): doc}
+
+    def _health(self) -> Dict[str, Any]:
+        """The /healthz document: ``status`` degrades to "degraded" with a
+        structured reason list while the process keeps its 200."""
+        reasons = self._degraded_reasons()
+        doc: Dict[str, Any] = {
+            "status": "degraded" if reasons else "ok",
+            "degraded_reasons": reasons,
+            "engine": self.engine,
+            "name": self.args.name,
+            "uptime_s": int(time.time() - self.start_time),  # wall-clock
+            "rpc_port": self.rpc.port or self.args.rpc_port,
+            "update_count": self.driver.update_count,
+        }
+        if self.mixer is not None:
+            doc["mix_count"] = getattr(self.mixer, "mix_count", 0)
+        doc["cluster_epoch"] = self.membership_epoch()
+        doc["drain_state"] = self.drain_ctl.state
+        mig = self.migration.snapshot()
+        if mig.get("active") or mig.get("rows_moved"):
+            doc["migration_rows_moved"] = mig["rows_moved"]
+            doc["migration_active"] = mig["active"]
+        pstats = self.profiler.stats()
+        doc["profiler_hz"] = pstats["hz"]
+        doc["profiler_samples"] = pstats["samples"]
+        doc["profiler_snapshots"] = pstats["snapshots_taken"]
+        doc["model_snapshots"] = self.snapshots.stats()["count"]
+        doc["model_rollbacks"] = self.rollbacks
+        # runtime telemetry summary (the full key set is in get_status)
+        rt = self.telemetry.status()
+        for k in ("rss_bytes", "open_fds", "threads", "kernel_build_count",
+                  "kernel_build_ms", "torch_device_bytes_in_use",
+                  "slowlog_depth"):
+            if k in rt:
+                doc[k] = rt[k]
+        return doc
+
+    def _node_key(self) -> str:
+        """This node's key in get_status and the forensics replies."""
+        if self.mixer is not None:
+            return self.self_nodeinfo().name
+        host = self.args.listen_addr or "127.0.0.1"
+        return f"{host}_{self.rpc.port or self.args.rpc_port}"
+
     def get_status(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
         """One map keyed by <ip>_<port>: uptime, flags, driver state, the
         coalescers' stats, the kernels' launch counts in this process, the
@@ -748,7 +878,9 @@ class EngineServer:
         (``mixer.*``), the round's spans and counters (``trace.*``) and
         its gauges (``mix.*``); on a sharded model the shard layout
         (``driver.shard.*`` and the ``shard.*`` gauges), on the instance
-        engines the IVF tier (``driver.ann.*``, the ``ann.*`` gauges)."""
+        engines the IVF tier (``driver.ann.*``, the ``ann.*`` gauges); the
+        runtime telemetry sample (``runtime.*``), the slow log's and the
+        stack sampler's state (``slowlog.*``, ``profiler.*``)."""
         st: Dict[str, Any] = {
             "timestamp": int(time.time()),  # wall-clock
             "uptime": int(time.time() - self.start_time),  # wall-clock
@@ -790,14 +922,15 @@ class EngineServer:
         st["health.status"] = "degraded" if reasons else "ok"
         st["health.reasons"] = reasons
         st.update(self.trace.trace_status())
+        st.update({f"runtime.{k}": v
+                   for k, v in self.telemetry.status().items()})
+        st.update({f"slowlog.{k}": v
+                   for k, v in self.trace.slowlog.stats().items()})
+        st.update({f"profiler.{k}": v
+                   for k, v in self.profiler.stats().items()})
         self._publish_index_gauges()
         st.update(self.trace.gauges())
-        if self.mixer is not None:
-            node = self.self_nodeinfo().name
-        else:
-            host = self.args.listen_addr or "127.0.0.1"
-            node = f"{host}_{self.rpc.port or self.args.rpc_port}"
-        return {node: st}
+        return {self._node_key(): st}
 
     def _degraded_reasons(self) -> list:
         """The mix plane's degraded reasons (the JAX server's list, less
@@ -874,6 +1007,20 @@ class EngineServer:
             nthreads=self.args.thread, host=self.args.bind_host)
         self.args.rpc_port = actual
         self.trace.events.node = NodeInfo(self.args.eth, actual).name
+        self.telemetry.start()
+        self.profiler.start()
+        if self.args.metrics_port >= 0:
+            from jubatus_tpu_torch.utils.metrics_http import MetricsServer
+
+            self.metrics = MetricsServer(
+                self.trace,
+                labels={"engine": self.engine, "cluster": self.args.name,
+                        "node": NodeInfo(self.args.eth, actual).name},
+                health_fn=self._health, host=self.args.bind_host,
+                port=self.args.metrics_port)
+            self.args.metrics_port = self.metrics.start()
+            log.info("metrics endpoint on %s:%d", self.args.bind_host,
+                     self.args.metrics_port)
         # the uploader needs the BOUND port for its node name
         if self.store is not None and self.args.store_interval > 0:
             from jubatus_tpu_torch.framework.model_store import StoreUploader
@@ -979,6 +1126,10 @@ class EngineServer:
                     (self.mixer.stop if self.mixer is not None else None),
                     (self.coord.close if self.coord is not None else None),
                     self.rpc.stop,
+                    (self.metrics.stop if self.metrics is not None
+                     else None),
+                    self.telemetry.stop,
+                    self.profiler.stop,
                     self._close_peers):
                 if step is None:
                     continue

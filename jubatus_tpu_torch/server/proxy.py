@@ -852,7 +852,8 @@ _UNPORTED_FLAGS: Dict[str, Tuple[str, Any, Callable[[Any], bool]]] = {
                            _given),
     "--slowlog-min-count": ("A20 (the proxy's slow-request log)", int,
                             _given),
-    "--telemetry-interval": ("A17 (telemetry and profiling)", float, _on),
+    "--telemetry-interval": ("A20 (the proxy's telemetry and profiling)",
+                             float, _on),
     "--slo": ("A20 (the proxy's SLOs and time series)", list, bool),
     "--slo-fast-window": ("A20 (the proxy's SLOs and time series)", float,
                           _given),
@@ -862,11 +863,12 @@ _UNPORTED_FLAGS: Dict[str, Tuple[str, Any, Callable[[Any], bool]]] = {
                              float, _given),
     "--timeseries-capacity": ("A20 (the proxy's SLOs and time series)", int,
                               _on),
-    "--profile-hz": ("A17 (telemetry and profiling)", float, _on),
-    "--profile-trigger-breaches": ("A17 (telemetry and profiling)", int,
-                                   _on),
-    "--profile-trigger-window": ("A17 (telemetry and profiling)", float,
-                                 _given),
+    "--profile-hz": ("A20 (the proxy's telemetry and profiling)", float,
+                     _on),
+    "--profile-trigger-breaches": (
+        "A20 (the proxy's telemetry and profiling)", int, _on),
+    "--profile-trigger-window": (
+        "A20 (the proxy's telemetry and profiling)", float, _given),
     "--event-capacity": ("A22 (events and incident bundles)", int, _on),
     "--incident-window": ("A22 (events and incident bundles)", float, _on),
     "--incident-dir": ("A22 (events and incident bundles)", str, bool),

@@ -2,13 +2,15 @@
 ``jubatus_tpu/server/service.py``).
 
 Registers the built-ins get_config, get_status, save, load and do_mix,
-those of the elastic membership plane (get_epoch, drain, drain_status,
-rebalance, migrate_range, put_rows, get_row_count), of the snapshot ring
-(rollback) and of the model store (store_restore, get_store_status), and
-the engine's IDL methods, each under its wire name, arity and wire shape,
-with the leading cluster-name parameter every jubatus call carries (the
-mixer registers its own ``mix_*`` RPCs). Update methods run under the
-driver lock and bump the driver's update counter when the driver did not.
+those of the forensics plane (get_metrics, get_spans, get_slow_log,
+get_profile, profile_device), of the elastic membership plane (get_epoch,
+drain, drain_status, rebalance, migrate_range, put_rows, get_row_count),
+of the snapshot ring (rollback) and of the model store (store_restore,
+get_store_status), and the engine's IDL methods, each under its wire
+name, arity and wire shape, with the leading cluster-name parameter every
+jubatus call carries (the mixer registers its own ``mix_*`` RPCs). Update
+methods run under the driver lock and bump the driver's update counter
+when the driver did not.
 The classifier's and regression's ``train`` go through the microbatch
 coalescer (``server/microbatch.py``). In a fleet, anomaly's ``add`` and
 graph's ``create_node`` mint a cluster-unique id and place it on its CHT(2)
@@ -28,7 +30,7 @@ import logging
 from typing import Any, Callable, Dict, List
 
 from jubatus_tpu_torch.core.datum import Datum
-from jubatus_tpu_torch.rpc.server import RpcServer
+from jubatus_tpu_torch.rpc.server import RpcServer, deferred
 from jubatus_tpu_torch.server.microbatch import Coalescer, PipelinedCoalescer
 
 
@@ -69,6 +71,15 @@ def bind_engine(rpc: RpcServer, server: Any) -> None:
     rpc.register("save", server.save, arity=2)
     rpc.register("load", server.load, arity=2)
     rpc.register("get_status", server.get_status, arity=1)
+    # forensics plane: mergeable metrics, the per-trace span store, the
+    # slow-request ring, the folded stack profile and device captures
+    rpc.register("get_metrics", server.get_metrics, arity=1)
+    rpc.register("get_spans", server.get_spans, arity=2)
+    rpc.register("get_slow_log", server.get_slow_log, arity=1)
+    rpc.register("get_profile", server.get_profile, arity=2)
+    # a capture runs for seconds: on a thread of its own, holding no worker
+    rpc.register("profile_device",
+                 deferred(server.profile_device, "device-capture"), arity=2)
     rpc.register("do_mix", server.do_mix, arity=1)
     # elastic membership: ring version, drain control and the migration
     # data plane (framework/migration.py); row payloads travel as msgpack

@@ -150,6 +150,11 @@ class EventJournal:
                     "retained": len(self._ring),
                     "capacity": self.capacity}
 
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._emitted = 0
+
 
 _default = EventJournal()
 

@@ -194,6 +194,35 @@ def test_jubavisor_and_jubactl_drive_a_port_child(coordd, tmp_path, capsys):
             visor.wait(timeout=30)
 
 
+def test_jubavisor_appends_its_server_flags(coordd, monkeypatch):
+    """``--server-flags`` reaches every child's command line after the
+    flags of the argv map, e.g. to start a fleet with the forensics
+    plane's sampler off."""
+    from jubatus_tpu_torch.cmd import jubavisor
+
+    spawned = []
+
+    class _Proc:
+        pid = 1
+
+    monkeypatch.setattr(jubavisor.subprocess, "Popen",
+                        lambda cmd, **_kw: spawned.append(cmd) or _Proc())
+    locator, _ = coordd
+    visor = jubavisor.Jubavisor(
+        locator, 0, 2, device="cpu",
+        server_flags=["--profile-hz", "0", "--telemetry-interval", "0"])
+    visor._pool = [40001, 40002]
+    try:
+        assert visor.start_procs("stat/v1", 2, {"thread": 2}) == 0
+    finally:
+        visor._children.clear()
+        visor.coord.close()
+    assert len(spawned) == 2
+    for cmd in spawned:
+        assert cmd[-6:] == ["--thread", "2", "--profile-hz", "0",
+                            "--telemetry-interval", "0"]
+
+
 # -- restore, rollback, breakers ---------------------------------------------------
 
 CLF_CONF = {"method": "AROW", "parameter": {"regularization_weight": 1.0},

@@ -61,6 +61,7 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.utils.faults",
     "jubatus_tpu_torch.utils.tracing",
     "jubatus_tpu_torch.utils.tree",
+    "jubatus_tpu_torch.utils.disk",
     "jubatus_tpu_torch.version",
     "jubatus_tpu_torch.framework.save_load",
     "jubatus_tpu_torch.framework.model_guard",
@@ -104,6 +105,12 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.parallel.collective",
     "jubatus_tpu_torch.parallel.spmd",
     "jubatus_tpu_torch.framework.collective_mixer",
+    "jubatus_tpu_torch.utils.slowlog",
+    "jubatus_tpu_torch.utils.metrics_http",
+    "jubatus_tpu_torch.utils.runtime_telemetry",
+    "jubatus_tpu_torch.utils.profiler",
+    "jubatus_tpu_torch.framework.sharded_checkpoint",
+    "jubatus_tpu_torch.cmd.jubadump",
 )
 
 
@@ -118,6 +125,33 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert lines[1] == "", f"imported: {lines[1]}"
     walked = set(lines[2].split(","))
     assert not set(SLICE_MODULES) - walked
+
+
+_TELEMETRY_PROBE = r"""
+import torch
+from jubatus_tpu_torch.utils.runtime_telemetry import RuntimeTelemetry
+from jubatus_tpu_torch.utils.tracing import Registry
+rt = RuntimeTelemetry(Registry(), interval_sec=0.01)
+s = rt.sample()
+rt.start()
+rt.status()
+rt.stop()
+print(torch.cuda.is_initialized(), sorted(k for k in s if "torch_" in k),
+      "kernel_build_count" in s)
+"""
+
+
+def test_telemetry_sample_never_initializes_cuda():
+    """A process that never used CUDA (jubactl, jubadump, jubacoordd) pays
+    no CUDA context for its telemetry: the sample reads the card only once
+    CUDA is initialized, and carries no torch_* key before."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _TELEMETRY_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "[]", "True"]
 
 
 @pytest.fixture

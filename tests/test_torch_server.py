@@ -548,7 +548,9 @@ def test_new_engines_bind_the_jax_wire_names_and_arities(engine):
     want.update(get_config=1, get_status=1, save=2, load=2, do_mix=1,
                 get_epoch=1, drain=2, drain_status=1, rebalance=1,
                 migrate_range=5, put_rows=2, get_row_count=1, rollback=2,
-                store_restore=2, get_store_status=1)
+                store_restore=2, get_store_status=1, get_metrics=1,
+                get_spans=2, get_slow_log=1, get_profile=2,
+                profile_device=2)
     assert dict(rpc._arity) == want
 
 
