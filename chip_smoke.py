@@ -43,8 +43,9 @@ each of which fails the run (non-zero exit, no result line) on error:
    with the port's driver on the CPU fed the same rows; the server's
    scan-launch count (get_status) must move;
 5. recommender: ``config/recommender/{lsh,minhash,default}.json`` (default
-   is inverted_index) with the first REC_ROWS (2.5·10^5) rows of phase 3
-   through ``backend.set_row``;
+   is inverted_index) with the first REC_HASH_ROWS (1.25·10^5; lsh and
+   minhash) or REC_ROWS (2.5·10^5; default) rows of phase 3 through
+   ``backend.set_row``;
    50 ``similar_row_from_datum`` (k = 10) and 50
    ``complete_row_from_datum`` timed (p50/p99), the flush (or, for the
    exact method, the arenas' upload) timed; the first answers held against
@@ -55,12 +56,12 @@ each of which fails the run (non-zero exit, no result line) on error:
    (euclid_lsh) and with its nested method set to lsh and to minhash, 4096
    rows through ``backend.set_row``; one cold LOF support rebuild timed and
    split into scan, readback and host, each chunk's kernel output held
-   against the plain version; 5 ``add`` and 50 ``calc_score`` timed; the
+   against the plain version; 2 ``add`` and 50 ``calc_score`` timed; the
    support and every score held against the port's driver on the CPU fed
    the same rows (lsh/minhash exactly, euclid_lsh within LOF_SCORE_RTOL);
    float32 matmul must be at full precision (no TF32);
 7. servers: the recommender (default.json, 10^4 update_row), anomaly (LOF
-   over lsh, 500 add: each add rebuilds the support) and classifier
+   over lsh, 200 add: each add rebuilds the support) and classifier
    (``config/classifier/nn.json`` as shipped and with nested lsh, 10^4
    examples) servers on the card, every answer compared with the port's
    driver on the CPU fed the same datums;
@@ -101,11 +102,11 @@ each of which fails the run (non-zero exit, no result line) on error:
    ``save``; a second server of each, started with ``-m`` on the file,
    answers every query as the saver did (exactly, or within the
    tolerance of tests/test_torch_save_load.py); ``save_model`` /
-   ``load_model`` of the AROW driver at phase 8's shape (D = 2^20 and
-   2^24), split into readback, msgpack, CRC, write and fsync, then read,
-   CRC check, unpack and upload, the loaded tables equal to the saved;
-   one mix round of two AROW drivers at the same shapes through the
-   mixer's wire path in this process (the round's phases, each member's
+   ``load_model`` of the AROW driver at phase 8's shape (D = 2^20; phase
+   17 times them at 2^24), split into readback, msgpack, CRC, write and
+   fsync, then read, CRC check, unpack and upload, the loaded tables equal
+   to the saved; one mix round of two AROW drivers at that shape through
+   the mixer's wire path in this process (the round's phases, each member's
    snapshot stall, pack, unpack and apply stall), both replicas equal to
    the CPU fold of their diffs; then fleets of two server processes on
    ``-z file://<dir> --mixer linear_mixer`` (arow.json, regression's
@@ -124,13 +125,13 @@ each of which fails the run (non-zero exit, no result line) on error:
    fold of both members' diffs against two CPU port servers driven the
    same way, then streaming turns (submits, folds, staleness, drops,
    stalls) until the replicas hold one model; an ``lsh.json`` server
-   filled with 1.25·10^5 rows through ``put_rows``, a second server's
+   filled with 6.25·10^4 rows through ``put_rows``, a second server's
    ``rebalance`` pull, its first query (signing every pulled row, K1),
    then the first server's drain and handoff, the new owner's answers
    equal to the source's each time; the AROW driver (capacity 8, B =
    32768) in a model store at D = 2^20 and 2^24 (full and diff records
-   off and int8, compaction, materialize, the snapshot's lock hold,
-   rollback); a
+   off, and int8 at 2^20 only; compaction, materialize, the snapshot's
+   lock hold, rollback); a
    regression server stopped and restarted warm from ``--store-dir``
    (answers equal, its flushes launch S1); two ``arow.json`` servers
    under ``--mix-guard quarantine``, one armed with ``--fault
@@ -171,7 +172,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    once a shard), IVF with every cell probed equal to them; LOF (phase
    6's config over lsh, 4096 rows) on the shards, bit-equal to the CPU
    port's sharded driver, its agreement with the flat LOF counted. Then
-   two ``--ann ivf`` lsh.json servers: one filled with 2.5·10^5 rows by
+   two ``--ann ivf`` lsh.json servers: one filled with 1.25·10^5 rows by
    ``put_rows`` and queried 200 times over RPC, its ``ann.*`` status
    read, saved; the other loads the file (centroids byte for byte, equal
    answers); and ``--shard-devices 2`` on one card exits with the JAX
@@ -226,9 +227,33 @@ each of which fails the run (non-zero exit, no result line) on error:
    and ``get_status`` must answer while it is in flight (a capture holds
    no RPC worker); each server's ``runtime.torch_device_bytes_in_use``,
    /metrics (``rpc.<method>`` buckets, runtime gauges), /healthz, slow log
-   and folded profile; the telemetry sample's cost in this process.
+   and folded profile; the telemetry sample's cost in this process;
+18. the server planes, seven server processes started at once with ``-l
+   <dir> -t 30`` (each must write ``<dir>/juba<engine>.log``): three
+   ``arow.json`` servers, one an arm each (the defaults;
+   ``--quality-sample 1.0``; every plane off), trained by two clients
+   (principals ``tenant-a`` and ``tenant-b``, 10^4 rows each in calls of
+   256, the label mix and the feature scale shifted after half), after a
+   warm-up of SP_WARMUP_ROWS rows a server, the arms in order, reversed
+   and in order again (median rows/s); ``get_quality``'s prequential
+   accuracy and drift, ``get_usage``'s rows per tenant (equal to what
+   each sent); the drift drill on a fourth ``arow.json`` server, not
+   timed (SP_DRILL: every batch scored, 2 s quality windows, a 1 s
+   telemetry tick, ``--slo drift=gauge:quality.drift.max:0.1``): the same
+   stream, the drift SLO firing in ``get_alerts`` and one bundle in
+   ``get_incidents``; a regression ``default.json`` server under ``--quality-sample 1.0`` (10^4
+   rows in calls of 256, S1), its prequential MAE against a CPU driver
+   replaying the same test-then-train (SP_MAE_RTOL); two ``lsh.json``
+   servers whose converter splits a text key with the ``ux_splitter``
+   plugin (its dictionary written here), one with ``--fv-cache-size 0``:
+   10^4 set_row each (both filled at once), then 200 queries each in turn
+   (p50/p99, K1 launches +200), the
+   answers of both against the CPU port's driver, the memo caches' hit
+   rate; then the usage ledger's billed "device seconds" beside the
+   CUDA-event time of the same flushes (an ``arow.json`` server in this
+   process).
 
-Phases 3-7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 are the main path: each
+Phases 3-7 and 8-18 are the main path: each
 path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -237,10 +262,11 @@ launches per path), the nvidia-smi line, and ``{"ok": true, "device":
 
 ``python3 chip_smoke.py --forensics-ab N [--parent DIR]`` drives none of
 the main path and prints no result line: it measures what the forensics
-plane costs the servers. After the build it runs, N rounds over, phase 9's
-two linear servers and phase 13's fleet under each arm of AB_ARMS (the
-servers' defaults; the stack sampler off; the sampler and the runtime
-telemetry off) and, with ``--parent``, the same two phases of the checkout
+plane and the server planes cost the servers. After the build it runs, N
+rounds over, phase 9's two linear servers and phase 13's fleet under each
+arm of AB_ARMS (the servers' defaults; the stack sampler off; the sampler
+and the runtime telemetry off; the quality, usage, time-series and event
+planes off) and, with ``--parent``, the same two phases of the checkout
 in DIR (its own chip_smoke.py, in a process of its own), the arms in
 order in even rounds and reversed in odd ones. One ``[forensics_ab]``
 line per arm and round, then the medians by arm; then phase 17's servers
@@ -281,16 +307,22 @@ ROWS = 1_000_000              # rows of each full-size backend
 QUERIES = 200                 # timed neighbors() queries per backend
 PROFILED_QUERIES = 20         # further queries under torch.profiler
 SERVER_ROWS = 10_000          # rows written over the wire per server
-REC_ROWS = 250_000            # rows of each recommender (phase 5; cut from
-                              # 10^6 to keep the run inside its time limit)
+REC_ROWS = 250_000            # rows of the exact recommender (phase 5; cut
+                              # from 10^6 to keep the run inside its time
+                              # limit; phase 14 builds IVF over it)
+REC_HASH_ROWS = 125_000       # rows of the lsh and minhash recommenders:
+                              # their scan and signature repeat phase 3's
+                              # at 10^6 rows
 REC_QUERIES = 50              # timed similar_row / complete_row calls each
 REC_PROFILED = 10             # further similar_row calls under the profiler
 REC_CONFIGS = ("lsh.json", "minhash.json", "default.json")
 LOF_ROWS = 4096               # lof_unlearner_lru.json's max_size
-LOF_ADDS = 5
+LOF_ADDS = 2                  # each add rebuilds the support, whose cold
+                              # rebuild the phase times and splits
 LOF_SCORES = 50
 LOF_METHODS = ("euclid_lsh", "lsh", "minhash")
-ANOMALY_SERVER_ROWS = 500     # adds over the wire (each rebuilds the support)
+ANOMALY_SERVER_ROWS = 200     # adds over the wire (each rebuilds the support;
+                              # phase 13 makes as many through the proxy)
 REPS = 30                     # timed kernel launches per shape (median)
 EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
 EDGE_W = (2, 3, 64, 70)
@@ -644,7 +676,7 @@ def busy_breakdown(prof, dev, n: int, steps) -> dict:
         elif is_copy(e.name):
             us["copies"] += e.time_range.elapsed_us()
     attributed = 0.0
-    for e in prof.events():
+    for e in prof.function_events:
         if e.device_type != DeviceType.CPU or not e.kernels:
             continue
         step = step_of(e)
@@ -668,9 +700,14 @@ def profile_calls(torch, calls, unprofiled_ms: float, steps) -> dict:
     each such function is wrapped in a ``smoke.<step>`` label for these
     calls only. The profiler slows the host side, so the idle and scan
     shares are taken against ``unprofiled_ms``, the mean wall time of the
-    same calls unprofiled; the profiled wall time is reported beside it."""
+    same calls unprofiled; the profiled wall time is reported beside it.
+    The capture is ``torch.autograd.profiler``'s kineto one
+    (``kineto_profile``): ``torch.profiler.profile`` would import
+    ``torch._inductor`` on its first use, seconds of the run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.autograd.profiler import record_function
+
+    from jubatus_tpu_torch.utils.profiler import kineto_profile
 
     def labelled(fn, label):
         def run(*args, **kwargs):
@@ -684,8 +721,7 @@ def profile_calls(torch, calls, unprofiled_ms: float, steps) -> dict:
         setattr(obj, attr, labelled(getattr(obj, attr), LABEL_PREFIX + step))
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with kineto_profile(cuda=True) as prof:
             t0 = time.perf_counter()
             for call in calls:
                 call()
@@ -699,7 +735,8 @@ def profile_calls(torch, calls, unprofiled_ms: float, steps) -> dict:
                 setattr(obj, attr, orig)
     # device work items; a label's own range on the device timeline spans
     # its whole step, idle time included, and is not one
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    dev = [e for e in prof.function_events
+           if e.device_type == DeviceType.CUDA
            and not e.name.startswith(LABEL_PREFIX)
            and not getattr(e, "is_user_annotation", False)]
     check(dev, "torch.profiler recorded no device work")
@@ -756,14 +793,25 @@ def server_datum(rng, Datum, i: int):
     return d
 
 
+def server_datadir(name: str) -> str:
+    """An empty datadir under OUT_DIR for one server, so that nothing a
+    server writes (incident bundles, device captures) lands outside the
+    checkout or meets an earlier run's files."""
+    return fleet_dir(os.path.join("data", name))
+
+
 def start_server(engine: str, config_path: str, tag: str = "",
                  extra=()):
     """Start ``python -m jubatus_tpu_torch.server <engine> -f <config>``
     (and the flags in ``extra``) on the card; returns (process, port, log
-    path) without waiting for it."""
+    path) without waiting for it. Unless ``extra`` names a ``-d``, the
+    server's datadir (where its incident bundles and captures go) is an
+    empty directory of its own under OUT_DIR."""
     port = free_port()
     os.makedirs(OUT_DIR, exist_ok=True)
     log_path = os.path.join(OUT_DIR, f"chip_smoke_server_{engine}{tag}.log")
+    if "-d" not in extra and "--datadir" not in extra:
+        extra = ("-d", server_datadir(f"{engine}{tag}_{port}"), *extra)
     cmd = [sys.executable, "-m", "jubatus_tpu_torch.server", engine,
            "-f", config_path, "-p", str(port), "-b", "127.0.0.1", "-c", "4",
            "--device", "cuda", *extra]
@@ -1004,8 +1052,9 @@ def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
     rec = RecommenderDriver(config, device="cuda")
     be = rec.backend
     exact = be.method in ("inverted_index", "euclid")
+    rows = REC_ROWS if exact else REC_HASH_ROWS
     t0 = time.perf_counter()
-    fill_rows(be, REC_ROWS, seed)
+    fill_rows(be, rows, seed)
     t_load = time.perf_counter() - t0
     # the write path: signatures of every row (hash methods) or the
     # arenas' upload (the exact methods' device_view)
@@ -1015,7 +1064,7 @@ def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
         view = be.store.device_view(be.device)
     torch.cuda.synchronize()
     t_flush = time.perf_counter() - t0
-    check(signed == (0 if exact else REC_ROWS),
+    check(signed == (0 if exact else rows),
           f"{config_name}: flushed {signed} rows")
     queries = random_datums(np.random.default_rng(seed + 2), Datum,
                             REC_QUERIES)
@@ -1053,8 +1102,8 @@ def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
         torch, [lambda q=q: rec.similar_row_from_datum(q, 10) for q in pq],
         sim_mean, steps)
     out = dict(config=f"config/recommender/{config_name}", method=be.method,
-               rows=REC_ROWS, queries=REC_QUERIES, load_s=t_load,
-               flush_s=t_flush, flush_rows_per_s=REC_ROWS / t_flush,
+               rows=rows, queries=REC_QUERIES, load_s=t_load,
+               flush_s=t_flush, flush_rows_per_s=rows / t_flush,
                similar_row=pcts(sim_lat), complete_row=pcts(comp_lat),
                launches=launched, parity=checked, profile=prof)
     if exact:
@@ -1481,6 +1530,14 @@ CLF_B = 32768                 # bench.py: AROW, L = 2, K = 64, B = 32768
 CLF_K = 64
 CLF_L = 2
 CLF_DIM_BITS = (20, 24)
+#: phase 11's save/load split and in-process mix round: at 2^24 they do
+#: not fit the run's time limit (phase 17 times save_model / load_model of
+#: AROW at 2^24 as wholes; no phase times the save split or a
+#: linear_mixer round at 2^24 now)
+WIDTH_DIM_BITS = (20,)
+#: phase 12's int8 store chain: at 2^24 it repeats the off chain's
+#: readback and write with a quantize more (its codec is timed at 2^20)
+STORE_INT8_DIM_BITS = (20,)
 CLF_WARMUP = 2
 CLF_STEPS = 10                # timed steps (median)
 CLF_CHECK_STEPS = 4           # steps held against the CPU port
@@ -2292,6 +2349,7 @@ def phase_new_servers(Datum, EngineServer, seed: int) -> dict:
     that takes the same calls: every answer equal (clustering and graph
     within CLUSTER_TOL / PAGERANK_RTOL relative); p50/p99 per method."""
     from jubatus_tpu_torch.rpc.client import RpcClient
+    from jubatus_tpu_torch.server.args import ServerArgs
 
     started = {e: start_server(e, os.path.join(ROOT, "config", e,
                                                "default.json"))
@@ -2301,8 +2359,10 @@ def phase_new_servers(Datum, EngineServer, seed: int) -> dict:
         for engine in NEW_ENGINES:
             rng = np.random.default_rng(seed + 81)
             calls = rpc_session(engine, rng, Datum)
+            twin_args = ServerArgs(engine=engine,
+                                   datadir=server_datadir(f"{engine}_twin"))
             twin = EngineServer(engine, load_config(engine, "default.json"),
-                                device="cpu")
+                                twin_args, device="cpu")
             tport = twin.start(0)
             rtol = {"clustering": CLUSTER_TOL, "graph": PAGERANK_RTOL}.get(
                 engine, 0.0)
@@ -2774,11 +2834,13 @@ def cpu_fleet(EngineServer, engine: str, name: str, halves) -> dict:
     store = _Store()
     servers = []
     try:
-        for _ in range(2):
+        for i in range(2):
             srv = EngineServer(engine, load_config(engine, name), ServerArgs(
                 engine=engine, coordinator="(memory)", name="fleet",
                 listen_addr="127.0.0.1", interval_sec=1e9,
-                interval_count=1 << 30), device="cpu",
+                interval_count=1 << 30,
+                datadir=server_datadir(f"cpu_fleet_{engine}_{i}")),
+                device="cpu",
                 coord=MemoryCoordinator(store))
             srv.start(0)
             servers.append(srv)
@@ -2900,8 +2962,9 @@ PUSH_REPEATABLE = ("broadcast_mixer", "skip_mixer")
 PUSH_ROWS = 3_000             # arow.json rows, a third per member
 ASYNC_ROWS = 2_000            # arow.json rows, half per member
 ASYNC_STREAM_STEPS = 4        # train + do_mix on each member, in turns
-ELASTIC_ROWS = 125_000        # cut from phase 3's 10^6 (2.5·10^5 until
-                              # PR 12) to keep the run inside its limit
+ELASTIC_ROWS = 62_500         # cut from phase 3's 10^6 to keep the run inside
+                              # its limit; phase 13 fills and drains 1.25·10^5
+                              # rows a member
 ELASTIC_FILL = 20_000         # rows per put_rows call of the fill
 ELASTIC_QUERIES = 5
 STORE_ROWS = 2_000            # regression rows before the warm boot
@@ -2961,7 +3024,9 @@ def cpu_members(EngineServer, engine: str, config_name: str, n: int,
 
     store = _Store()
     out = []
-    for _ in range(n):
+    for i in range(n):
+        args = {"datadir": server_datadir(f"cpu_members_{engine}_{i}"),
+                **args}
         srv = EngineServer(engine, load_config(engine, config_name),
                            ServerArgs(engine=engine, coordinator="(memory)",
                                       name="smoke", listen_addr="127.0.0.1",
@@ -3313,7 +3378,8 @@ def phase_store_width(torch, ClassifierDriver, dim_bits: int,
                       seed: int) -> dict:
     """The AROW driver at phase 8's shape on the card and a model store in
     OUT_DIR: a full upload, then a diff record after one more train batch,
-    with ``--store-compress`` off and int8 (time, bytes); the off chain's
+    with ``--store-compress`` off and, at STORE_INT8_DIM_BITS, int8 (time,
+    bytes); the off chain's
     compaction; materialize of each chain (off: equal to the driver's
     model; int8: within one quantization step); the lock hold of a
     snapshot into the ring, and a rollback's restore (the tables equal
@@ -3340,7 +3406,8 @@ def phase_store_width(torch, ClassifierDriver, dim_bits: int,
                        engine="classifier")
     ups = {mode: StoreUploader(store, f"n_{mode}", model_id="smoke",
                                config=json.dumps(CLF_CONFIG), compress=mode)
-           for mode in ("off", "int8")}
+           for mode in (("off", "int8") if dim_bits in STORE_INT8_DIM_BITS
+                        else ("off",))}
 
     def record_bytes(key):
         return os.path.getsize(os.path.join(root, key))
@@ -3355,13 +3422,15 @@ def phase_store_width(torch, ClassifierDriver, dim_bits: int,
         check(key is not None and "/diff/" in key, f"{mode}: no diff record")
         out[f"diff_{mode}"] = dict(ms=ms, bytes=record_bytes(key))
     want = drv.pack()
-    (blob, meta), ms = timed(lambda: store.materialize(node="n_int8"))
-    check(meta["chain_len"] == 1, "the int8 chain did not replay")
-    got = unpack_obj(read_envelope(blob, "int8")[1])[1]
-    scale = float(np.abs(want["w"]).max())
-    err = float(np.abs(np.asarray(got["w"]) - want["w"]).max())
-    check(err <= scale / 127.0, f"int8 replay off by {err} (scale {scale})")
-    out["materialize_int8"] = dict(ms=ms, max_abs_err=err)
+    if "int8" in ups:
+        (blob, meta), ms = timed(lambda: store.materialize(node="n_int8"))
+        check(meta["chain_len"] == 1, "the int8 chain did not replay")
+        got = unpack_obj(read_envelope(blob, "int8")[1])[1]
+        scale = float(np.abs(want["w"]).max())
+        err = float(np.abs(np.asarray(got["w"]) - want["w"]).max())
+        check(err <= scale / 127.0,
+              f"int8 replay off by {err} (scale {scale})")
+        out["materialize_int8"] = dict(ms=ms, max_abs_err=err)
     key, ms = timed(lambda: store.compact(node="n_off"))
     check(key is not None, "nothing compacted")
     out["compact_off_ms"] = ms
@@ -3992,7 +4061,8 @@ IVF_NPROBE = 8                # --ann-nprobe's default
 SHARDS = 4                    # logical shards on cuda:0
 SHARD_IVF_CELLS = 16          # the sharded full-probe check's cells
 SHARD_IVF_QUERIES = 20
-IVF_SERVER_ROWS = 250_000     # the --ann ivf server's put_rows fill
+IVF_SERVER_ROWS = 125_000     # the --ann ivf server's put_rows fill (the IVF
+                              # query at 10^6 rows is the flat index's)
 IVF_SERVER_QUERIES = 200
 IVF_LOAD_QUERIES = 50
 SHARD_LOF_SCORES = 20
@@ -4746,7 +4816,8 @@ def phase_fs_servers(torch, ShardMesh, EngineServer, ServerArgs, Datum,
           and st["shard.count"] == FS_SHARDS,
           f"sharded {engine}: shard gauges {st.get('driver.shard.count')}")
     (path,) = saved.values()
-    flat = EngineServer(engine, config, ServerArgs(engine=engine), device=dev)
+    flat = EngineServer(engine, config, ServerArgs(engine=engine, datadir=tmp),
+                        device=dev)
     t0 = time.perf_counter()
     flat.load_file(path)
     load_ms = (time.perf_counter() - t0) * 1e3
@@ -4795,11 +4866,12 @@ def phase_fs_mix(torch, ShardMesh, EngineServer, ServerArgs, Datum, dev,
             for i in range(FS_MIX_ROWS)]
     servers = []
     try:
-        for _ in range(2):
+        for i in range(2):
             srv = EngineServer("classifier", config, ServerArgs(
                 engine="classifier", coordinator="(shared)", name="smoke",
                 listen_addr="127.0.0.1", interval_sec=1e9,
-                interval_count=1 << 30), device=dev,
+                interval_count=1 << 30,
+                datadir=server_datadir(f"fs_mix_{i}")), device=dev,
                 coord=MemoryCoordinator(store),
                 mesh=ShardMesh([dev] * FS_SHARDS))
             srv.start(0)
@@ -4867,7 +4939,7 @@ def kernel_count(prof) -> dict:
     """Kernels in a torch.profiler trace: the device's kernel records
     (memcpys and memsets apart) and the host's launch calls."""
     device = launches = 0
-    for e in prof.events():
+    for e in prof.function_events:
         name = e.name.lower()
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             device += not name.startswith(("memcpy", "memset"))
@@ -4988,17 +5060,15 @@ def phase_collective_world1(torch, ClassifierDriver, seed: int) -> dict:
               "int8: feedback drifted further than no feedback")
         # launches: the ship of one chunk, and a whole int8 round
         chunk = dw.reshape(-1)[: (8 << 20) // 4].clone()
-        from torch.profiler import ProfilerActivity, profile
+        from jubatus_tpu_torch.utils.profiler import kineto_profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with kineto_profile(cuda=True) as prof:
             y = chunk + 0.0
             q, s = C._block_quant(y, C.QUANT_BLOCK)
             C._add_dequant(y, q, s, C.QUANT_BLOCK, -1.0)
             torch.cuda.synchronize()
         ship = kernel_count(prof)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with kineto_profile(cuda=True) as prof:
             ph = {}
             C.psum_pytree(diff, compress="int8", prefer_device=True,
                           phases=ph, device=dev,
@@ -5618,7 +5688,10 @@ def phase_forensics(torch, Datum, seed: int) -> dict:
 #: visor's --server-flags)
 AB_ARMS = {"default": (),
            "sampler_off": ("--profile-hz", "0"),
-           "off": ("--profile-hz", "0", "--telemetry-interval", "0")}
+           "off": ("--profile-hz", "0", "--telemetry-interval", "0"),
+           "planes_off": ("--quality-sample", "0", "--usage-top", "0",
+                          "--timeseries-capacity", "0",
+                          "--event-capacity", "0")}
 #: the parent arm: phase 9's linear servers and phase 13 from the checkout
 #: in the working directory, with its own chip_smoke.py and package
 PARENT_AB = r"""
@@ -5723,6 +5796,486 @@ def log_forensics(torch, Datum, seed: int, kind: str, smi: str) -> dict:
         log(f"[forensics] {key} {json.dumps(res.pop(key))} | {kind} | {smi}")
     log(f"[forensics] {json.dumps(res)} | {kind} | {smi}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the server planes (quality, usage, SLOs, incidents, plugins)
+# ---------------------------------------------------------------------------
+SP_ROWS = 10_000              # rows each tenant's client trains per arm run
+SP_BATCH = 256                # rows per train call (phase 9's)
+SP_ROUNDS = 3                 # arms in order, reversed, in order (medians)
+SP_WARMUP_ROWS = 2_048        # rows each arm server trains before timing
+SP_TENANTS = ("tenant-a", "tenant-b")
+SP_ARMS = {
+    "defaults": (),
+    "sample_all": ("--quality-sample", "1.0"),
+    "planes_off": AB_ARMS["planes_off"],
+}
+#: the drift drill, on a fourth arow.json server that is not timed:
+#: every batch scored, 2 s quality windows, the first completed one pinned
+#: as the reference, a 1 s telemetry tick and an SLO on the input drift (a
+#: PSI of 0.1 is the ceiling)
+SP_DRILL = ("--quality-sample", "1.0",
+            "--quality-window", "2", "--quality-ref-windows", "1",
+            "--telemetry-interval", "1",
+            "--slo", "drift=gauge:quality.drift.max:0.1",
+            "--slo-fast-window", "4", "--slo-slow-window", "8")
+SP_DRILL_WAIT_S = 30.0        # longest wait for the reference / the alert
+SP_SCORED = 8                 # rows the prequential scorer takes a batch
+SP_NN_ROWS = 10_000           # set_row calls per nearest_neighbor server
+SP_NN_QUERIES = 200
+SP_TEXTS = 500                # distinct texts of the NN rows (hot strings)
+SP_KEYWORDS = 400             # ux_splitter dictionary entries
+SP_TIMEOUT = "30"             # -t of the phase's servers
+SP_MAE_RTOL = 1e-4            # prequential MAE, card against the CPU replay
+
+
+def sp_rows(rng, Datum, n: int):
+    """A tenant's classifier rows: the label mix turns from 80% "a" to 20%
+    after half, and the features scale by 4 (the drift the plane sees)."""
+    out = []
+    for i in range(n):
+        late = i >= n // 2
+        lab = "a" if rng.random() < (0.2 if late else 0.8) else "b"
+        d = Datum()
+        for j in rng.choice(16, 6, replace=False):
+            v = rng.standard_normal() + (1.0 if lab == "a" else -1.0)
+            d.add(f"f{j}", float(np.round(v * (4.0 if late else 1.0), 3)))
+        d.add("city", f"c{int(rng.integers(40))}")
+        out.append([lab, d])
+    return out
+
+
+def sp_batches(rows):
+    return [rows[lo:lo + SP_BATCH] for lo in range(0, len(rows), SP_BATCH)]
+
+
+def two_tenants(port: int, batches_by_tenant) -> float:
+    """Each tenant's client trains its batches at once, under its own
+    principal; returns the wall seconds. Every call must answer its own
+    count."""
+    import threading
+
+    from jubatus_tpu_torch.rpc import principal as principals
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    errors = []
+
+    def client(tenant, batches):
+        try:
+            with principals.use(tenant), \
+                    RpcClient("127.0.0.1", port, timeout=120.0) as c:
+                for b in batches:
+                    n = c.call("train", "smoke", b)
+                    if n != len(b):
+                        errors.append(f"{tenant}: {n} for {len(b)} rows")
+        except Exception as e:  # broad-ok — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=kv)
+               for kv in batches_by_tenant.items()]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    check(not errors, f"tenant train failed: {errors[:2]}")
+    return seconds
+
+
+def node_doc(cli, method: str, *args):
+    (doc,) = cli.call(method, "smoke", *args).values()
+    return doc
+
+
+def wait_doc(cli, method: str, pred, what: str, *args):
+    deadline = time.time() + SP_DRILL_WAIT_S
+    while True:
+        doc = node_doc(cli, method, *args)
+        if pred(doc):
+            return doc
+        check(time.time() < deadline,
+              f"{what} not seen in {SP_DRILL_WAIT_S:.0f} s")
+        time.sleep(0.25)
+
+
+def sp_log_check(logdir: str, engine: str) -> None:
+    check(os.path.isfile(os.path.join(logdir, f"juba{engine}.log")),
+          f"-l {logdir}: the {engine} server wrote no log file")
+
+
+def sp_start(engine: str, config_path: str, tag: str, extra=()):
+    logdir = os.path.join(OUT_DIR, "p18_logs", tag)
+    started = start_server(engine, config_path, tag=f"_p18_{tag}",
+                           extra=("-l", logdir, "-t", SP_TIMEOUT, *extra))
+    return started, logdir
+
+
+def sp_stream(Datum, seed: int):
+    """The two tenants' rows as halves of batches (before and after the
+    shift), and the warm-up batches."""
+    rng = np.random.default_rng(seed + 1800)
+    rows = {t: sp_rows(rng, Datum, SP_ROWS) for t in SP_TENANTS}
+    halves = [{t: sp_batches(r[:SP_ROWS // 2]) for t, r in rows.items()},
+              {t: sp_batches(r[SP_ROWS // 2:]) for t, r in rows.items()}]
+    warm = sp_batches(sp_rows(rng, Datum, SP_WARMUP_ROWS))
+    return halves, warm
+
+
+def sp_arms(clis, halves, warm) -> dict:
+    """Three arow.json servers, one an arm of SP_ARMS, trained by two
+    tenants' clients in turns."""
+    from jubatus_tpu_torch.utils.usage import FIELDS
+
+    for cli in clis.values():
+        two_tenants(cli.port, {"warmup": warm})
+    rates = {arm: [] for arm in SP_ARMS}
+    arms = list(SP_ARMS)
+    for rnd in range(SP_ROUNDS):
+        for arm in (arms if rnd % 2 == 0 else arms[::-1]):
+            port = clis[arm].port
+            seconds = sum(two_tenants(port, h) for h in halves)
+            rates[arm].append(2 * SP_ROWS / seconds)
+            log(f"[server_planes] round {rnd} arm {arm} "
+                f"{2 * SP_ROWS / seconds:.1f} rows/s")
+    out = {}
+    for arm, cli in clis.items():
+        st = server_status(cli)
+        q = node_doc(cli, "get_quality")
+        u = node_doc(cli, "get_usage")
+        doc = dict(flags=list(SP_ARMS[arm]),
+                   rows_per_s=statistics.median(rates[arm]),
+                   rows_per_s_runs=rates[arm],
+                   flushes=st["microbatch.train.flush_count"],
+                   launches=server_launches(st))
+        check(st["microbatch.train.item_count"] ==
+              SP_WARMUP_ROWS + SP_ROUNDS * 2 * SP_ROWS,
+              f"{arm}: {st['microbatch.train.item_count']} rows flushed")
+        if arm == "planes_off":
+            check(q == {} and u == {}, "planes_off still answers planes")
+        else:
+            preq = q["prequential"]
+            calls = len(warm) + SP_ROUNDS * sum(
+                len(b) for h in halves for b in h.values())
+            if arm == "sample_all":
+                # every call scores SP_SCORED rows, but the very first
+                # meets a model with no labels yet
+                check(calls - 2 <= preq["n"] // SP_SCORED <= calls,
+                      f"sample_all scored {preq['n']} rows for {calls} "
+                      "calls")
+            doc["prequential"] = dict(
+                n=preq["n"], correct=preq["correct"],
+                accuracy=preq["correct"] / preq["n"] if preq["n"] else None)
+            doc["drift"] = q["drift"]
+            doc["quality_stats"] = q["stats"]
+            rows_idx = FIELDS.index("rows")
+            billed = {}
+            for t in SP_TENANTS:
+                row = u["table"][t]["train"]
+                billed[t] = dict(zip(FIELDS, row))
+                check(row[rows_idx] == SP_ROUNDS * SP_ROWS,
+                      f"{arm}: {t} billed {row[rows_idx]} rows, sent "
+                      f"{SP_ROUNDS * SP_ROWS}")
+            doc["usage"] = billed
+        out[arm] = doc
+    fire = out["sample_all"]
+    check(fire["prequential"]["accuracy"] is not None
+          and 0.0 < fire["prequential"]["accuracy"] <= 1.0,
+          "prequential accuracy out of range")
+    return out
+
+
+def sp_drill(cli, halves) -> dict:
+    """The drift drill on its own server (SP_DRILL): the tenants' rows
+    before the shift, the first window pinned as the reference, the rows
+    after it; the drift SLO must fire, degrade the health and leave one
+    incident bundle."""
+    two_tenants(cli.port, halves[0])
+    doc = wait_doc(cli, "get_quality",
+                   lambda d: d["stats"]["reference_pinned"],
+                   "the pinned quality reference")
+    drill = {"reference_rows": doc["stats"]["recorded_rows"]}
+    two_tenants(cli.port, halves[1])
+    alerts = wait_doc(
+        cli, "get_alerts",
+        lambda d: any(a["name"] == "drift" for a in d["alerts"]),
+        "the drift SLO firing")
+    drill["alerts"] = alerts["alerts"]
+    drill["slos"] = alerts["slos"]
+    q = node_doc(cli, "get_quality")
+    drill["drift"] = q["drift"]
+    drill["prequential"] = q["prequential"]["n"]
+    check(q["drift"].get("f", 0.0) > 0.1,
+          f"the shifted features drew no drift: {q['drift']}")
+    bundles = node_doc(cli, "get_incidents", "")["incidents"]
+    check(len(bundles) == 1, f"{len(bundles)} incident bundles, want 1")
+    check(bundles[0]["reason"] == "slo_firing:drift",
+          f"incident reason {bundles[0]['reason']!r}")
+    drill["incident"] = bundles[0]
+    health = server_status(cli)["health.reasons"]
+    check(any(r["kind"] == "slo_firing" for r in health),
+          "a firing SLO did not degrade the health")
+    return drill
+
+
+
+def sp_regression(cli, Datum, seed: int) -> dict:
+    """regression default.json under --quality-sample 1.0, trained from
+    one client in phase 9's calls; its prequential MAE against a CPU
+    driver replaying the same test-then-train."""
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+    from jubatus_tpu_torch.utils.usage import FIELDS
+
+    rng = np.random.default_rng(seed + 1810)
+    rows = [linear_example(rng, Datum, "regression", i)
+            for i in range(SERVER_ROWS)]
+    ref = RegressionDriver(load_config("regression", "default.json"),
+                           device="cpu")
+    abs_err, n = 0.0, 0
+    t0 = time.perf_counter()
+    for b in sp_batches(rows):
+        check(cli.call("train", "smoke", b) == len(b), "train count")
+    seconds = time.perf_counter() - t0
+    for b in sp_batches(rows):
+        sub = b[:SP_SCORED]
+        for (truth, _d), est in zip(sub, ref.estimate([d for _, d in sub])):
+            abs_err += abs(float(est) - float(truth))
+            n += 1
+        ref.train([(t, d) for t, d in b])
+    q = node_doc(cli, "get_quality")["prequential"]
+    check(q["n"] == n, f"prequential n {q['n']}, CPU replay {n}")
+    mae, want = q["abs_err"] / q["n"], abs_err / n
+    check(abs(mae - want) <= SP_MAE_RTOL * abs(want),
+          f"prequential MAE {mae} against the CPU replay's {want}")
+    st = server_status(cli)
+    launches = server_launches(st)
+    check(launches["pa_scan"] > 0, "the regression flushes launched no S1")
+    u = node_doc(cli, "get_usage")
+    return dict(rows=SERVER_ROWS, rows_per_s=SERVER_ROWS / seconds,
+                prequential=dict(n=q["n"], mae=mae, cpu_replay_mae=want,
+                                 rtol=SP_MAE_RTOL),
+                billed_device_s=u["table"]["(untagged)"]["train"][
+                    FIELDS.index("device_seconds")],
+                launches=launches)
+
+
+def sp_texts(rng):
+    """The ux_splitter dictionary (SP_KEYWORDS words) and SP_TEXTS texts
+    made of its words and of filler no keyword matches."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, int(rng.integers(4, 9))))
+                    for _ in range(SP_KEYWORDS * 2)})[:SP_KEYWORDS]
+    filler = ["0", "1", "2", "-", "+"]
+    texts = []
+    for _ in range(SP_TEXTS):
+        parts = list(rng.choice(words, int(rng.integers(3, 9))))
+        parts += list(rng.choice(filler, 3))
+        rng.shuffle(parts)
+        texts.append(" ".join(parts))
+    return words, texts
+
+
+def sp_nn_datum(rng, Datum, texts, weights, i: int):
+    d = Datum()
+    d.add("text", texts[int(rng.choice(len(texts), p=weights))])
+    for j in rng.choice(16, 4, replace=False):
+        d.add(f"f{j}", float(np.round(rng.standard_normal(), 3)))
+    d.add("kind", f"k{i % 7}")
+    return d
+
+
+def sp_nn_config(seed: int):
+    """lsh.json with a converter that splits "text" with the ux_splitter
+    plugin over a dictionary written here; returns (config, its path, the
+    texts of the rows)."""
+    rng = np.random.default_rng(seed + 1820)
+    words, texts = sp_texts(rng)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    kw_path = os.path.join(OUT_DIR, "p18_keywords.txt")
+    with open(kw_path, "w") as f:
+        f.write("\n".join(words) + "\n")
+    config = load_config("nearest_neighbor", "lsh.json")
+    config["converter"] = {
+        "string_types": {"ux": {"method": "dynamic", "path": "ux_splitter",
+                                "function": "create",
+                                "dict_path": kw_path}},
+        "string_rules": [{"key": "text", "type": "ux", "sample_weight": "tf",
+                          "global_weight": "bin"},
+                         {"key": "kind", "type": "str",
+                          "sample_weight": "bin", "global_weight": "bin"}],
+        "num_rules": [{"key": "*", "type": "num"}]}
+    return config, write_config("p18_lsh_ux.json", config), texts
+
+
+def sp_nn(clis, config, texts, Datum, NearestNeighborDriver,
+          seed: int) -> dict:
+    """Two such servers, one with the memo caches and one with
+    --fv-cache-size 0: 10^4 set_row each (both servers and the CPU port's
+    driver filled at once), then 200 queries timed on each in turn (K1),
+    the answers of the two and of the CPU driver fed the same rows
+    agreeing."""
+    import threading
+
+    rng = np.random.default_rng(seed + 1821)
+    zipf = 1.0 / np.arange(1, SP_TEXTS + 1)
+    weights = zipf / zipf.sum()
+    rows = [sp_nn_datum(rng, Datum, texts, weights, i)
+            for i in range(SP_NN_ROWS)]
+    queries = [sp_nn_datum(rng, Datum, texts, weights, SP_NN_ROWS + i)
+               for i in range(SP_NN_QUERIES)]
+    set_s, errors = {}, []
+
+    def fill(key, cli):
+        t0 = time.perf_counter()
+        try:
+            for i, d in enumerate(rows):
+                if cli.call("set_row", "smoke", f"r{i}", d) is not True:
+                    errors.append(f"{key}: set_row r{i} failed")
+                    return
+        except Exception as e:  # broad-ok — reported below
+            errors.append(f"{key}: {e!r}")
+        set_s[key] = time.perf_counter() - t0
+
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    fill_clis = {k: RpcClient("127.0.0.1", c.port, timeout=120.0)
+                 for k, c in clis.items()}
+    threads = [threading.Thread(target=fill, args=kv)
+               for kv in fill_clis.items()]
+    for t in threads:
+        t.start()
+    ref = NearestNeighborDriver(config, device="cpu")
+    for i, d in enumerate(rows):
+        ref.set_row(f"r{i}", d)
+    for t in threads:
+        t.join()
+    for c in fill_clis.values():
+        c.close()
+    check(not errors, f"set_row failed: {errors[:2]}")
+    out, answers = {}, {}
+    for key, cli in clis.items():
+        st0 = server_status(cli)
+        lat, got = [], []
+        for q in queries:
+            ans, ms = timed(cli.call, "neighbor_row_from_datum", "smoke", q,
+                            10)
+            lat.append(ms)
+            got.append([tuple(x) for x in ans])
+        st1 = server_status(cli)
+        moved = (st1["kernel.sig_scan.hamming.launches"]
+                 - st0["kernel.sig_scan.hamming.launches"])
+        check(moved == SP_NN_QUERIES,
+              f"{key}: K1 launches moved {moved} for {SP_NN_QUERIES} "
+              "queries")
+        answers[key] = got
+        out[key] = dict(set_row_s=set_s[key],
+                        set_rows_per_s=SP_NN_ROWS / set_s[key],
+                        **pcts(lat), memo_hit_rate=st1["fv.memo_hit_rate"],
+                        memo={c: {k: st1[f"fv.memo.{c}.{k}"]
+                                  for k in ("entries", "hits", "misses")}
+                              for c in ("filter", "token", "name")},
+                        launches=server_launches(st1))
+    for q, got, other in zip(queries, answers["memo"], answers["no_memo"]):
+        want = ref.neighbor_row_from_datum(q, 10)
+        compare_ranked(got, want, "ux_splitter server")
+        compare_ranked(other, want, "ux_splitter server, no memo")
+    check(out["memo"]["memo_hit_rate"] > 0.5,
+          f"memo hit rate {out['memo']['memo_hit_rate']}")
+    check(out["no_memo"]["memo_hit_rate"] == 0.0,
+          "--fv-cache-size 0 still memoizes")
+    return dict(rows=SP_NN_ROWS, queries=SP_NN_QUERIES, texts=SP_TEXTS,
+                keywords=SP_KEYWORDS, **out)
+
+
+def sp_billing(torch, Datum, seed: int) -> dict:
+    """The usage ledger's "device seconds" beside CUDA-event time of the
+    same flushes: an arow.json server in this process on the card, its
+    train coalescer's device stage bracketed by events (the ledger bills
+    the stage's host wall time, as the JAX package does)."""
+    from jubatus_tpu_torch.rpc import principal as principals
+    from jubatus_tpu_torch.rpc.client import RpcClient
+    from jubatus_tpu_torch.server import EngineServer
+    from jubatus_tpu_torch.server.args import ServerArgs
+    from jubatus_tpu_torch.utils.usage import FIELDS
+
+    srv = EngineServer("classifier", load_config("classifier", "arow.json"),
+                       ServerArgs(engine="classifier", listen_addr="127.0.0.1",
+                                  telemetry_interval=0,
+                                  datadir=server_datadir("p18_billing")),
+                       device="cuda")
+    port = srv.start(0)
+    try:
+        co = srv.coalescers["train"]
+        stage, pairs = co._flush, []
+
+        def bracketed(prepared):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            try:
+                return stage(prepared)
+            finally:
+                b.record()
+                pairs.append((a, b))
+
+        co._flush = bracketed
+        rng = np.random.default_rng(seed + 1830)
+        rows = sp_rows(rng, Datum, SP_ROWS)
+        with principals.use("tenant-a"), \
+                RpcClient("127.0.0.1", port, timeout=120.0) as c:
+            for b in sp_batches(rows):
+                check(c.call("train", "smoke", b) == len(b), "train count")
+        torch.cuda.synchronize()
+        event_s = sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+        row = srv.usage.snapshot()["table"]["tenant-a"]["train"]
+        billed = row[FIELDS.index("device_seconds")]
+        return dict(flushes=len(pairs), billed_device_s=billed,
+                    cuda_event_s=event_s,
+                    queue_s=row[FIELDS.index("queue_seconds")],
+                    cpu_s=row[FIELDS.index("cpu_seconds")])
+    finally:
+        srv.stop()
+
+
+def phase_server_planes(torch, Datum, NearestNeighborDriver,
+                        seed: int) -> dict:
+    """Phase 18 (see the module's docstring)."""
+    shutil.rmtree(os.path.join(OUT_DIR, "p18_logs"), ignore_errors=True)
+    nn_config, nn_path, texts = sp_nn_config(seed)
+    clf = os.path.join(ROOT, "config", "classifier", "arow.json")
+    specs = {arm: ("classifier", clf, flags)
+             for arm, flags in SP_ARMS.items()}
+    specs["drill"] = ("classifier", clf, SP_DRILL)
+    specs["regression"] = ("regression", os.path.join(
+        ROOT, "config", "regression", "default.json"),
+        ("--quality-sample", "1.0"))
+    specs["memo"] = ("nearest_neighbor", nn_path, ())
+    specs["no_memo"] = ("nearest_neighbor", nn_path,
+                        ("--fv-cache-size", "0"))
+    # all seven processes start at once; nothing is driven before every
+    # one answers
+    started = {key: sp_start(engine, path, key, extra)
+               for key, (engine, path, extra) in specs.items()}
+    with contextlib.ExitStack() as stack:
+        clis = {}
+        for key, (st, logdir) in started.items():
+            engine, path, _extra = specs[key]
+            clis[key] = stack.enter_context(serving(engine, path, st))
+            sp_log_check(logdir, engine)
+        halves, warm = sp_stream(Datum, seed)
+        arms = sp_arms({a: clis[a] for a in SP_ARMS}, halves, warm)
+        drill = sp_drill(clis["drill"], halves)
+        reg = sp_regression(clis["regression"], Datum, seed)
+        nn = sp_nn({k: clis[k] for k in ("memo", "no_memo")}, nn_config,
+                   texts, Datum, NearestNeighborDriver, seed)
+    billing = sp_billing(torch, Datum, seed)
+    total = {m: 0 for m in RECORDED}
+    for doc in (*arms.values(), reg, nn["memo"], nn["no_memo"]):
+        for m in RECORDED:
+            total[m] += doc["launches"][m]
+    return dict(arms=arms, drill=drill, regression=reg, nearest_neighbor=nn,
+                billing=billing, server_launches=total)
 
 
 def main(argv=None) -> int:
@@ -5932,7 +6485,7 @@ def main(argv=None) -> int:
             for key, r in res["servers"].items():
                 log(f"[save_load] {key} {json.dumps(r)} | {kind} | {smi}")
             total = dict(res["server_launches"])
-            for dim_bits in CLF_DIM_BITS:
+            for dim_bits in WIDTH_DIM_BITS:
                 r = phase_save_load_width(torch, ClassifierDriver, dim_bits,
                                           args.seed)
                 log(f"[save_load_width] {json.dumps(r)} | {kind} | {smi}")
@@ -6061,6 +6614,20 @@ def main(argv=None) -> int:
             return {"server_launches": res["server_launches"]}
 
         run_path("checkpoint_forensics", checkpoint_forensics_path)
+
+        def server_planes_path():
+            res = phase_server_planes(torch, Datum, NearestNeighborDriver,
+                                      args.seed)
+            for arm, r in res["arms"].items():
+                log(f"[server_planes] {arm} {json.dumps(r)} | {kind} | "
+                    f"{smi}")
+            for key in ("drill", "regression", "nearest_neighbor",
+                        "billing"):
+                log(f"[server_planes] {key} {json.dumps(res[key])} | "
+                    f"{kind} | {smi}")
+            return {"server_launches": res["server_launches"]}
+
+        run_path("server_planes", server_planes_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -6099,6 +6666,10 @@ def main(argv=None) -> int:
             check(paths["checkpoint_forensics"][mode] > 0,
                   f"{mode} never launched on the checkpoint and forensics "
                   "path (phase 17)")
+        for mode in ("hamming", "pa_scan"):
+            check(paths["server_planes"][mode] > 0,
+                  f"{mode} never launched on the server planes path "
+                  "(phase 18)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

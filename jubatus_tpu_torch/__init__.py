@@ -21,7 +21,10 @@ devices (``parallel/``) and through the IVF tier (``ops/ivf.py``), the
 linear engines feature-sharded (``parallel/sharded_model.py``). Fleets mix
 over RPC or, with ``--mixer collective_mixer``, as a collective across the
 ranks of one ``torch.distributed`` world (``parallel/collective.py``).
-Features not ported yet (converter plugins) raise ``NotYetPorted``.
+Converters load plugins (``core/fv/plugins.py``, ``plugins/``), and a
+server carries the forensics, model-health, event, data-quality and usage
+planes (``utils/``). Features not ported yet (ZooKeeper sessions) raise
+``NotYetPorted``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

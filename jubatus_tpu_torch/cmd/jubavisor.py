@@ -23,9 +23,8 @@ from a pool [port+1, port+max] (jubavisor.cpp port_pool_); a reaper thread
 collects exits and recycles ports (≙ SIGCHLD handler); ``stop_all`` runs
 at exit (atexit_ kill-all). Registers ephemerally under
 /jubatus/supervisors so jubactl can find it (membership.cpp). Of the argv
-map, the keys of the flags the port's server has are forwarded
-(``_FLAG_MAP``); ``timeout`` and ``logdir``, which it has not, are not.
-``--server-flags`` (port only) appends the same extra server flags to
+map, the keys of the server flags are forwarded (``_FLAG_MAP``, the JAX
+package's, ``timeout`` and ``logdir`` included). ``--server-flags`` (port only) appends the same extra server flags to
 every child's command line, for the flags no jubactl argv key carries
 (the forensics plane's ``--profile-hz``, ``--telemetry-interval``, ...).
 """
@@ -52,7 +51,9 @@ log = logging.getLogger(__name__)
 _FLAG_MAP = {
     "listen_if": "--listen-addr",
     "thread": "--thread",
+    "timeout": "--timeout",
     "datadir": "--datadir",
+    "logdir": "--logdir",
     "mixer": "--mixer",
     "interval_sec": "--interval-sec",
     "interval_count": "--interval-count",

@@ -1,48 +1,60 @@
-"""Config-driven datum → weighted sparse feature vector.
+"""Config-driven datum → weighted sparse feature vector (copy of
+``jubatus_tpu/core/fv/converter.py``).
 
-Copy of ``jubatus_tpu/core/fv/converter.py``, trimmed to what the ported
-engines use: the per-datum path (``convert``), the batch path
-(``convert_batch``, which the NN classifier trains and classifies through),
-``convert_named`` (the weight engine) and ``revert_feature`` (the
-recommender's ``complete_row_*``, clustering's centres). No string
-or token memo caches, no tracing counter, no quality hook, no plugins (a
-``dynamic`` type raises "not yet ported"). The feature names, hashing and
-weights are the JAX package's, so both packages turn a datum into the same
+Implements the converter JSON schema of every engine config in the
+reference: string/num filter types+rules, string/num types+rules,
+combination types+rules, ``dynamic`` (plugin) string, num and binary
+types with binary rules, sample weights (bin/tf/log_tf) and global
+weights (bin/idf/weight). The feature names, hashing and weights are the
+JAX package's, so both packages turn a datum into the same
 ``SparseVector``:
 
   string features:  "<key>$<value>@<type>#<sample_weight>/<global_weight>"
   num features:     "<key>@num" / "<key>@log" / "<key>$<value>@str"
   combinations:     "<left>&<right>"
 
-Sample weights bin/tf/log_tf, global weights bin/idf/weight.
+Two entry points: ``convert`` (per datum) and ``convert_batch`` (the
+batch path: memoized filters and tokenization, one hash sweep, vectorized
+global weights, CSR output). ``convert_named`` serves the weight engine
+and ``revert_feature`` the recommender's ``complete_row_*``.
+
+Plugin ("dynamic") types — the reference's dlopen'd mecab/ux/image plugins
+— load by path through ``core/fv/plugins.py``: a bare name against
+``jubatus_tpu_torch/plugins/``, a ``.so`` through the ``jt_splitter_*`` C
+ABI. A plugin that fails to load raises
+``ConverterError``.
+
+The memo caches (``--fv-cache-size``) hold weight-independent facts only
+and count their hits and misses (``memo_stats``); rejected non-finite num
+values count into ``fv.nonfinite_rejected`` of the process's default
+tracing registry; ``quality_hook`` sees every ``convert_batch``.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.core.fv.hashing import FeatureHasher
 from jubatus_tpu_torch.core.fv.weight_manager import WeightManager
 from jubatus_tpu_torch.core.sparse import CSRBatch, SparseVector
 
 
+def _count_nonfinite(n: int) -> None:
+    """Count ingest-rejected non-finite num values into the process
+    default registry: ``trace.counter.fv.nonfinite_rejected`` in every
+    server's get_status and on /metrics."""
+    from jubatus_tpu_torch.utils import tracing
+
+    tracing.default_registry().count("fv.nonfinite_rejected", n)
+
+
 class ConverterError(ValueError):
     pass
-
-
-class PluginNotPorted(ConverterError, NotYetPorted):
-    """A converter plugin (``dynamic`` type): a config error that is also
-    a feature not yet ported."""
-
-
-def _not_ported(what: str) -> ConverterError:
-    return PluginNotPorted(f"{what}: plugins are not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +112,14 @@ def _build_string_type(name: str, params: Dict[str, str]) -> Splitter:
     if method == "regexp":
         return _make_regexp_splitter(params["pattern"], int(params.get("group", "0")))
     if method == "dynamic":
-        raise _not_ported(f"string type {name!r}")
+        # loaded by path: the so_factory dlopen path (plugins.py)
+        if params.get("path"):
+            from jubatus_tpu_torch.core.fv.plugins import load_string_plugin
+
+            return load_string_plugin(params)
+        raise ConverterError(
+            "unknown dynamic string type plugin: "
+            f"{params.get('function') or ''!r}")
     raise ConverterError(f"unknown string type method {method!r} for {name!r}")
 
 
@@ -195,19 +214,34 @@ class ConverterConfig:
         for name, params in (raw.get("num_filter_types") or {}).items():
             self.num_filters[name] = _build_num_filter(params)
 
-        # built-in num types: num / log / str
+        # built-in num types: num / log / str; "dynamic" via registry
         self.num_types: Dict[str, str] = {"num": "num", "log": "log", "str": "str"}
+        self.num_type_fns: Dict[str, Callable] = {}
         for name, params in (raw.get("num_types") or {}).items():
             method = params.get("method")
             if method == "dynamic":
-                raise _not_ported(f"num type {name!r}")
-            if method not in ("num", "log", "str"):
-                raise ConverterError(f"unknown num type method {method!r}")
-            self.num_types[name] = method
+                if not params.get("path"):
+                    raise ConverterError(
+                        "unknown dynamic num type plugin: "
+                        f"{params.get('function') or ''!r}")
+                from jubatus_tpu_torch.core.fv.plugins import load_feature_plugin
 
-        # binary types are dynamic plugins only
-        for name in (raw.get("binary_types") or {}):
-            raise _not_ported(f"binary type {name!r}")
+                self.num_type_fns[name] = load_feature_plugin(params)
+            elif method in ("num", "log", "str"):
+                self.num_types[name] = method
+            else:
+                raise ConverterError(f"unknown num type method {method!r}")
+
+        # binary types are dynamic plugins only (the reference's sole binary
+        # consumer is the image_feature plugin, plugin/src/fv_converter)
+        self.binary_type_fns: Dict[str, Callable] = {}
+        for name, params in (raw.get("binary_types") or {}).items():
+            if params.get("method") != "dynamic" or not params.get("path"):
+                raise ConverterError(
+                    f"binary type {name!r}: only dynamic plugins supported")
+            from jubatus_tpu_torch.core.fv.plugins import load_feature_plugin
+
+            self.binary_type_fns[name] = load_feature_plugin(params)
 
         self.string_rules = [
             StringRule(
@@ -227,8 +261,9 @@ class ConverterConfig:
             FilterRule(r["key"], r["type"], r["suffix"])
             for r in (raw.get("num_filter_rules") or [])
         ]
-        if raw.get("binary_rules"):
-            raise _not_ported("binary rules")
+        self.binary_rules = [
+            NumRule(r["key"], r["type"]) for r in (raw.get("binary_rules") or [])
+        ]
         # combination types: built-ins mul/add, or named with method mul/add
         self.combination_types: Dict[str, str] = {"mul": "mul", "add": "add"}
         for name, params in (raw.get("combination_types") or {}).items():
@@ -241,8 +276,10 @@ class ConverterConfig:
             for r in (raw.get("combination_rules") or [])
         ]
 
-        # "hash_max_size": caps the hashed feature space at the next power
-        # of two not exceeding it (as the JAX package reads it)
+        # "hash_max_size": caps the hashed feature space (reference core's
+        # converter_config optional member; there hash % size, here the
+        # next power of two NOT EXCEEDING it so the [L, D] tables keep the
+        # mask-indexed layout — the memory cap the option exists for holds)
         hms = raw.get("hash_max_size")
         if hms is not None:
             if not isinstance(hms, int) or hms < 16:
@@ -257,8 +294,11 @@ class ConverterConfig:
             if r.type_name not in self.string_types:
                 raise ConverterError(f"string rule references unknown type {r.type_name!r}")
         for r in self.num_rules:
-            if r.type_name not in self.num_types:
+            if r.type_name not in self.num_types and r.type_name not in self.num_type_fns:
                 raise ConverterError(f"num rule references unknown type {r.type_name!r}")
+        for r in self.binary_rules:
+            if r.type_name not in self.binary_type_fns:
+                raise ConverterError(f"binary rule references unknown type {r.type_name!r}")
         for r in self.string_filter_rules:
             if r.type_name not in self.string_filters:
                 raise ConverterError(f"string filter rule references unknown type {r.type_name!r}")
@@ -277,15 +317,18 @@ class ConverterConfig:
 _GW_BIN, _GW_IDF, _GW_USER = 0, 1, 2
 _GW_CODE = {"bin": _GW_BIN, "idf": _GW_IDF, "weight": _GW_USER}
 
-#: bound of the name memo (entries; cleared when full)
-NAME_MEMO_SIZE = 1 << 16
+#: default bound for the tokenization/name memo caches (entries, not bytes);
+#: overridable per converter via set_cache_size (--fv-cache-size)
+DEFAULT_CACHE_SIZE = 1 << 16
 
 
 class _ComboPlan:
-    """The combination cross product as a function of the base
-    feature-name schema: slot names, hashed indices, gw kinds, and the
-    bilinear terms feeding each slot. On a schema hit ``convert_batch``
-    replays the combination stage as numpy gathers and multiplies."""
+    """The combination cross product as a pure function of the BASE
+    feature-name schema (which repeats across a feed's datums): slot
+    names, hashed indices, gw kinds, and the bilinear terms feeding each
+    slot. On a schema hit the whole string/pair stage of _apply_combos is
+    replayed as numpy gathers + multiplies over the batch — the Python
+    mirror of the native parser's combo plan (native/fast_ingest.cpp)."""
 
     __slots__ = ("slot_idx", "slot_kind", "a_idx", "b_idx", "mul_mask",
                  "t_starts", "slot_names")
@@ -306,40 +349,80 @@ class _ComboPlan:
         vb = base_vals[:, self.b_idx]
         tv = np.where(self.mul_mask, va * vb, va + vb)
         if self.t_starts.shape[0] == tv.shape[1]:
-            return tv  # one term per slot, the common case
+            return tv  # one term per slot — the common case
         return np.add.reduceat(tv, self.t_starts, axis=1)
 
 
 class DatumToFVConverter:
-    """datum → hashed weighted sparse feature vector: ``convert`` per
-    datum, ``convert_batch`` for a batch (one hash sweep, vectorized global
-    weights, CSR output). Both run the same extraction code."""
+    """datum → hashed weighted sparse feature vector.
+
+    Two entry points: ``convert`` (per-datum, reference semantics) and
+    ``convert_batch`` (batch-native: memoized tokenization, one hash
+    sweep, vectorized global weights, CSR output — the serving hot
+    path). Both run the same extraction code, so they cannot drift."""
 
     def __init__(
         self,
         config: ConverterConfig,
         hasher: Optional[FeatureHasher] = None,
         weights: Optional[WeightManager] = None,
+        cache_size: int = DEFAULT_CACHE_SIZE,
     ):
         self.config = config
         self.hasher = hasher or FeatureHasher()
         self.weights = weights or WeightManager(self.hasher.dim)
-        #: num values dropped for being inf/NaN (they would poison a model)
-        self.nonfinite_rejected = 0
-        # weight-independent facts only (hashed index, gw kind per name;
-        # combination plans per schema), so no weighted value goes stale
+        # bounded memo caches (clear-on-full — the native parser's
+        # discipline; hot keys repopulate in one batch). Caches hold only
+        # weight-INDEPENDENT facts (tokenizations, filter outputs, hashed
+        # indices, gw kinds) so they can never serve a stale idf/user
+        # weighted value.
+        self._cache_max = max(int(cache_size), 0)
+        self._filter_memo: Dict[tuple, str] = {}
+        self._token_memo: Dict[tuple, tuple] = {}
         self._name_memo: Dict[str, Tuple[int, int]] = {}
         self._combo_plans: Dict[tuple, _ComboPlan] = {}
+        # optional data-quality recorder: called from convert_batch with
+        # (flat feature names, weighted values); the callee self-samples
+        self.quality_hook = None
+        #: num values dropped for being inf/NaN (they would poison a model)
+        self.nonfinite_rejected = 0
+        #: memo lookups by cache: [hits, misses] (memo_stats)
+        self._memo_counts: Dict[str, List[int]] = {
+            "filter": [0, 0], "token": [0, 0], "name": [0, 0]}
 
     @property
     def dim(self) -> int:
         return self.hasher.dim
 
-    @staticmethod
-    def _memo_put(memo: dict, key, value):
-        if len(memo) >= NAME_MEMO_SIZE:
-            memo.clear()
-        memo[key] = value
+    def set_cache_size(self, n: int) -> None:
+        """Rebound the tokenization/name memo caches (--fv-cache-size);
+        0 disables memoization."""
+        self._cache_max = max(int(n), 0)
+        for memo in (self._filter_memo, self._token_memo, self._name_memo):
+            if len(memo) > self._cache_max:
+                memo.clear()
+
+    def memo_stats(self) -> Dict[str, Any]:
+        """Each memo cache's entries, hits and misses since construction,
+        and the hit rate over all three."""
+        out: Dict[str, Any] = {}
+        hits = lookups = 0
+        for name, memo in (("filter", self._filter_memo),
+                           ("token", self._token_memo),
+                           ("name", self._name_memo)):
+            h, m = self._memo_counts[name]
+            out[name] = {"entries": len(memo), "hits": h, "misses": m}
+            hits += h
+            lookups += h + m
+        out["hit_rate"] = hits / lookups if lookups else 0.0
+        out["cache_size"] = self._cache_max
+        return out
+
+    def _memo_put(self, memo: dict, key, value):
+        if self._cache_max:
+            if len(memo) >= self._cache_max:
+                memo.clear()
+            memo[key] = value
         return value
 
     # -- filters ------------------------------------------------------------
@@ -350,11 +433,20 @@ class DatumToFVConverter:
             num_values=datum.num_values,
             binary_values=datum.binary_values,
         )
-        for rule in cfg.string_filter_rules:
+        memo = self._filter_memo
+        counts = self._memo_counts["filter"]
+        for fi, rule in enumerate(cfg.string_filter_rules):
             fn = cfg.string_filters[rule.type_name]
             for key, value in list(out.string_values):
                 if rule.matcher(key):
-                    out.string_values.append((key + rule.suffix, fn(value)))
+                    fkey = (fi, value)
+                    fv = memo.get(fkey)
+                    if fv is None:
+                        counts[1] += 1
+                        fv = self._memo_put(memo, fkey, fn(value))
+                    else:
+                        counts[0] += 1
+                    out.string_values.append((key + rule.suffix, fv))
         for rule in cfg.num_filter_rules:
             fn = cfg.num_filters[rule.type_name]
             for key, value in list(out.num_values):
@@ -362,20 +454,37 @@ class DatumToFVConverter:
                     out.num_values.append((key + rule.suffix, fn(value)))
         return out
 
-    @staticmethod
-    def _term_counts(splitter: Splitter, text: str) -> tuple:
-        """Distinct (term, tf) pairs in first-seen order."""
+    def _term_counts(self, type_name: str, splitter: Splitter,
+                     text: str) -> tuple:
+        """Distinct (term, tf) pairs in first-seen order, memoized per
+        (splitter type, input string) — repeated hot strings (headers,
+        categorical values) skip re-splitting entirely."""
+        tkey = (type_name, text)
+        cached = self._token_memo.get(tkey)
+        counts = self._memo_counts["token"]
+        if cached is not None:
+            counts[0] += 1
+            return cached
+        counts[1] += 1
         counts: Dict[str, int] = {}
         for term in splitter(text):
             counts[term] = counts.get(term, 0) + 1
-        return tuple(counts.items())
+        return self._memo_put(self._token_memo, tkey, tuple(counts.items()))
 
     # -- extraction ---------------------------------------------------------
     def _base_named_features(self, datum: Datum) -> Dict[str, float]:
-        """The weighted feature dict BEFORE combination rules."""
+        """The weighted feature dict BEFORE combination rules — the
+        snapshot the combo cross product feeds on."""
         cfg = self.config
         datum = self._apply_filters(datum)
-        # a non-finite num value (after filters) is rejected and counted
+        # ingest hardening: a single inf/NaN num value from
+        # a client would flow straight into the weights (train adds the
+        # feature value into the model; NaN is absorbing and the next
+        # mix round would broadcast it fleet-wide). Reject non-finite
+        # num values HERE — after filters, so a filter emitting
+        # non-finite output is caught too — counted, never silently
+        # trained. Runs for every convert path (per-datum, batch,
+        # named).
         if datum.num_values and any(
                 isinstance(v, float) and not math.isfinite(v)
                 for _, v in datum.num_values):
@@ -383,11 +492,13 @@ class DatumToFVConverter:
                     if not (isinstance(kv[1], float)
                             and not math.isfinite(kv[1]))]
             self.nonfinite_rejected += len(datum.num_values) - len(kept)
+            _count_nonfinite(len(datum.num_values) - len(kept))
             datum = Datum(string_values=datum.string_values,
                           num_values=kept,
                           binary_values=datum.binary_values)
         features: Dict[str, float] = {}
 
+        # string rules
         for rule in cfg.string_rules:
             splitter = cfg.string_types[rule.type_name]
             suffix = (f"@{rule.type_name}"
@@ -395,7 +506,8 @@ class DatumToFVConverter:
             for key, text in datum.string_values:
                 if not rule.matcher(key):
                     continue
-                for term, tf in self._term_counts(splitter, text):
+                for term, tf in self._term_counts(
+                        rule.type_name, splitter, text):
                     if rule.sample_weight == "bin":
                         sw = 1.0
                     elif rule.sample_weight == "tf":
@@ -405,12 +517,18 @@ class DatumToFVConverter:
                     name = f"{key}${term}{suffix}"
                     features[name] = features.get(name, 0.0) + sw
 
+        # num rules
         for rule in cfg.num_rules:
-            kind = cfg.num_types[rule.type_name]
-            tname = rule.type_name
+            kind = cfg.num_types.get(rule.type_name)
+            fn = cfg.num_type_fns.get(rule.type_name)
             for key, value in datum.num_values:
                 if not rule.matcher(key):
                     continue
+                if fn is not None:
+                    for name, v in fn(key, value):
+                        features[name] = features.get(name, 0.0) + v
+                    continue
+                tname = rule.type_name
                 if kind == "num":
                     name = f"{key}@{tname}"
                     features[name] = features.get(name, 0.0) + value
@@ -420,11 +538,23 @@ class DatumToFVConverter:
                 elif kind == "str":
                     name = f"{key}${_format_num(value)}@{tname}"
                     features[name] = features.get(name, 0.0) + 1.0
+
+        # binary rules (image_feature-style plugins)
+        for rule in cfg.binary_rules:
+            fn = cfg.binary_type_fns[rule.type_name]
+            for key, value in datum.binary_values:
+                if not rule.matcher(key):
+                    continue
+                for name, v in fn(key, value):
+                    features[name] = features.get(name, 0.0) + v
+
         return features
 
     def _apply_combos(self, features: Dict[str, float]) -> None:
         """Combination features over the features produced so far, added
-        in place; each rule emits each unordered pair once."""
+        in place. Each rule emits each unordered pair once (canonical
+        name order), regardless of which side matched which matcher;
+        values accumulate across rules."""
         cfg = self.config
         base = list(features.items())
         for rule in cfg.combination_rules:
@@ -445,6 +575,7 @@ class DatumToFVConverter:
                     features[name] = features.get(name, 0.0) + cval
 
     def _named_features(self, datum: Datum) -> Dict[str, float]:
+        """Produce the weighted feature dict keyed by full feature name."""
         features = self._base_named_features(datum)
         if self.config.combination_rules:
             self._apply_combos(features)
@@ -453,16 +584,21 @@ class DatumToFVConverter:
     # -- hashing + global weights -------------------------------------------
     def convert(self, datum: Datum, update_weights: bool = False) -> SparseVector:
         """Convert to hashed (index, value) pairs, applying global weights.
-        update_weights=True is the train path: document frequencies are
-        recorded before the idf lookup."""
+
+        update_weights=True is the train path (reference's
+        convert_and_update_weight): document frequencies are recorded before
+        idf lookup.
+        """
         named = self._named_features(datum)
+        # hash (one native batch call when built) + resolve global weights
         hashed: Dict[int, float] = {}
         idf_indices = []
         entries: List[Tuple[int, float, str]] = []
         names = list(named.keys())
         for idx, name in zip(self.hasher.index_many(names), names):
+            value = named[name]
             gw_kind = _global_weight_kind(name)
-            entries.append((idx, named[name], gw_kind))
+            entries.append((idx, value, gw_kind))
             if gw_kind == "idf":
                 idf_indices.append(idx)
         if update_weights and idf_indices:
@@ -477,8 +613,9 @@ class DatumToFVConverter:
 
     # -- batch pipeline ------------------------------------------------------
     def _resolve_names(self, names: List[str]):
-        """names → (int32 indices, uint8 gw kinds): memo lookups plus one
-        ``index_array`` sweep for the misses."""
+        """names → (int32 indices, uint8 gw kinds): memo lookups plus ONE
+        ``index_array`` sweep for the misses. The memo holds only pure
+        facts (hash, kind parsed from the name) — never weighted values."""
         n = len(names)
         idx = np.empty(n, dtype=np.int32)
         kind = np.empty(n, dtype=np.uint8)
@@ -493,6 +630,9 @@ class DatumToFVConverter:
             else:
                 idx[i] = e[0]
                 kind[i] = e[1]
+        counts = self._memo_counts["name"]
+        counts[0] += n - len(miss_names)
+        counts[1] += len(miss_names)
         if miss_names:
             new_idx = self.hasher.index_array(miss_names)
             for p, nm, ix in zip(miss_pos, miss_names, new_idx.tolist()):
@@ -503,8 +643,8 @@ class DatumToFVConverter:
         return idx, kind
 
     def _combo_plan_for(self, base_names: tuple) -> _ComboPlan:
-        """Build (or fetch) the combination plan for one base-name schema:
-        ``_apply_combos`` replayed with the values left abstract."""
+        """Build (or fetch) the combo plan for one base-name schema —
+        a symbolic replay of _apply_combos with values left abstract."""
         plan = self._combo_plans.get(base_names)
         if plan is not None:
             return plan
@@ -559,40 +699,50 @@ class DatumToFVConverter:
 
     def convert_batch(self, data: Sequence[Datum],
                       update_weights: bool = False) -> CSRBatch:
-        """Convert a batch: extract per datum, hash every feature name in
-        one sweep, apply global weights as numpy gathers, and return a CSR
-        batch.
+        """Batch-native conversion: tokenize/filter with the memo caches,
+        hash every feature name in one sweep, apply global weights as
+        numpy gathers, and emit an arena-style CSR triple — no per-datum
+        SparseVector objects on the hot path.
 
-        The same result as ``convert`` per datum, with one difference under
-        ``update_weights=True``: the document frequencies of the whole
-        batch are observed first (one ``observe_batch``), so every row's
-        idf reflects the whole batch, where a ``convert`` loop lets each
-        document see only its predecessors. The two agree for a batch of
-        one."""
+        Semantics match per-datum ``convert`` exactly, with ONE
+        documented difference under ``update_weights=True``: document
+        frequencies for the WHOLE batch are observed first (one
+        ``observe_batch`` call — the idf batch-collapse fix), then every
+        row's idf reflects the full batch's counts. Per-datum convert
+        interleaves observe/lookup per document, so a document sees only
+        its predecessors; intra-batch arrival order was never a contract
+        (the microbatch coalescer already merges concurrent requests in
+        arbitrary order), and the two agree for batch size 1 and
+        converge as counts grow."""
         b = len(data)
         if b == 0:
             return CSRBatch(np.zeros(0, np.int32), np.zeros(0, np.float32),
                             np.zeros(1, np.int64))
         base = [self._base_named_features(d) for d in data]
-        if not self.config.combination_rules:
+        combo = bool(self.config.combination_rules)
+
+        row_idx: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+        row_val: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+        row_kind: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+        if not combo:
             flat_names: List[str] = []
             counts = np.empty(b, dtype=np.int64)
             for i, nd in enumerate(base):
                 flat_names.extend(nd.keys())
                 counts[i] = len(nd)
-            flat_idx, flat_kind = self._resolve_names(flat_names)
-            flat_val = np.empty(len(flat_names), dtype=np.float64)
+            idx, kind = self._resolve_names(flat_names)
+            val = np.empty(len(flat_names), dtype=np.float64)
             pos = 0
             for nd in base:
                 for v in nd.values():
-                    flat_val[pos] = v
+                    val[pos] = v
                     pos += 1
+            flat_idx, flat_val, flat_kind = idx, val, kind
+            entry_rows = np.repeat(np.arange(b, dtype=np.int64), counts)
         else:
-            # rows grouped by base-name schema; the cross product becomes
-            # one vectorized bilinear evaluation per group
-            row_idx: List[np.ndarray] = [None] * b  # type: ignore[list-item]
-            row_val: List[np.ndarray] = [None] * b  # type: ignore[list-item]
-            row_kind: List[np.ndarray] = [None] * b  # type: ignore[list-item]
+            # group rows by base-name schema; the cross product becomes
+            # one vectorized bilinear evaluation per group (fixed key
+            # schemas — the production shape — form a single group)
             groups: Dict[tuple, List[int]] = {}
             for i, nd in enumerate(base):
                 groups.setdefault(tuple(nd.keys()), []).append(i)
@@ -612,12 +762,14 @@ class DatumToFVConverter:
                     row_val[r] = np.concatenate([bvals[gi], svals[gi]])
             counts = np.fromiter((a.shape[0] for a in row_idx),
                                  dtype=np.int64, count=b)
-            flat_idx = np.concatenate(row_idx)
+            flat_idx = np.concatenate(row_idx) if b else np.zeros(0, np.int32)
             flat_val = np.concatenate(row_val)
             flat_kind = np.concatenate(row_kind)
-        entry_rows = np.repeat(np.arange(b, dtype=np.int64), counts)
+            entry_rows = np.repeat(np.arange(b, dtype=np.int64), counts)
 
-        # global weights; the batch is observed once, before any lookup
+        # global weights — vectorized gathers instead of per-index calls.
+        # observe() runs ONCE for the whole batch (before any lookup), so
+        # every row sees the post-batch document counts.
         idf_mask = flat_kind == _GW_IDF
         if idf_mask.any():
             if update_weights:
@@ -629,9 +781,25 @@ class DatumToFVConverter:
             flat_val[user_mask] *= self.weights.user_weight_many(
                 flat_idx[user_mask])
 
-        # per-row merge by hashed index (``convert``'s sorted dict): the
-        # stable lexsort keeps insertion order for colliding entries, so
-        # they sum in the order ``convert`` sums them
+        hook = self.quality_hook
+        if hook is not None:
+            try:
+                if not combo:
+                    hook(flat_names, flat_val)
+                else:
+                    row_names: List[List[str]] = [[]] * b
+                    for names_t, members in groups.items():
+                        nm = list(names_t) + \
+                            list(self._combo_plan_for(names_t).slot_names)
+                        for r in members:
+                            row_names[r] = nm
+                    hook([n for rn in row_names for n in rn], flat_val)
+            except Exception:  # broad-ok — quality stats must not break FV
+                pass
+
+        # per-row merge by hashed index (convert()'s sorted-dict
+        # semantics): stable lexsort keeps insertion order for colliding
+        # entries, so float accumulation order matches the per-datum dict
         if flat_idx.shape[0] == 0:
             return CSRBatch(np.zeros(0, np.int32), np.zeros(0, np.float32),
                             np.zeros(b + 1, np.int64))
@@ -644,22 +812,20 @@ class DatumToFVConverter:
         starts = np.flatnonzero(boundary)
         midx = sidx[starts].astype(np.int32)
         mval = np.add.reduceat(sval, starts)
-        mcounts = np.bincount(srow[starts], minlength=b)
+        mrows = srow[starts]
+        mcounts = np.bincount(mrows, minlength=b)
         off = np.zeros(b + 1, dtype=np.int64)
         np.cumsum(mcounts, out=off[1:])
         return CSRBatch(midx, mval.astype(np.float32), off)
 
-    def convert_named(self, datum: Datum,
-                      update_weights: bool = False) -> Dict[str, float]:
-        """Named (unhashed) features with global weights applied, for the
-        weight engine's ``update`` / ``calc_weight``. update_weights=True
-        records the document frequencies first."""
+    def convert_named(self, datum: Datum, update_weights: bool = False) -> Dict[str, float]:
+        """Named (unhashed) features with global weights applied — for the
+        weight engine's calc_weight/update and for tests. Runs the extraction
+        pipeline once; update_weights records document frequencies first."""
         named = self._named_features(datum)
-        entries = [(name, self.hasher.index(name), value)
-                   for name, value in named.items()]
+        entries = [(name, self.hasher.index(name), value) for name, value in named.items()]
         if update_weights:
-            idf_idx = {i for name, i, _ in entries
-                       if _global_weight_kind(name) == "idf"}
+            idf_idx = {i for name, i, _ in entries if _global_weight_kind(name) == "idf"}
             if idf_idx:
                 self.weights.observe(idf_idx)
         out = {}
@@ -673,8 +839,7 @@ class DatumToFVConverter:
         return out
 
     def revert_feature(self, index: int) -> Optional[Tuple[str, str]]:
-        """Best-effort hash→(key, value) decode through the hasher's
-        reverse table, for ``complete_row_*``."""
+        """Best-effort hash→(key, value) decode, for decode_row-style APIs."""
         name = self.hasher.name_of(index)
         if name is None:
             return None
@@ -683,7 +848,6 @@ class DatumToFVConverter:
             value = rest.split("@", 1)[0]
             return key, value
         return name.split("@", 1)[0], ""
-
 
 
 def _format_num(v: float) -> str:
@@ -700,11 +864,19 @@ def make_fv_converter(
     converter_block: Optional[dict],
     dim_bits: int = 20,
     weights: Optional[WeightManager] = None,
+    cache_size: int = DEFAULT_CACHE_SIZE,
 ) -> DatumToFVConverter:
-    """Build a converter from a config's "converter" block; a
-    "hash_max_size" there overrides ``dim_bits``."""
+    """Factory mirroring core::fv_converter::make_fv_converter
+    (reference usage: jubatus/server/server/classifier_serv.cpp:110).
+
+    A "hash_max_size" in the converter block overrides ``dim_bits`` — the
+    config is the deployment's statement of model scale, same as the
+    reference core's converter_config member. ``cache_size`` bounds the
+    tokenization/name memo caches (--fv-cache-size)."""
     config = ConverterConfig(converter_block)
     if config.dim_bits is not None:
         dim_bits = config.dim_bits
     hasher = FeatureHasher(dim_bits=dim_bits)
-    return DatumToFVConverter(config, hasher, weights or WeightManager(hasher.dim))
+    return DatumToFVConverter(config, hasher,
+                              weights or WeightManager(hasher.dim),
+                              cache_size=cache_size)

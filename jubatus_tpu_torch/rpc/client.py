@@ -25,8 +25,10 @@ client class per engine (``NearestNeighborClient``, ``RecommenderClient``,
 ``ClusteringClient``, ``GraphClient``, ``StatClient``, ``BanditClient``,
 ``BurstClient``, ``WeightClient``) wraps its engine's methods, and the
 built-ins get_config, get_status, save, load and do_mix, with the cluster
-name every jubatus call carries first. Not carried over: ``notify``, the
-usage ledger's retry attribution and the reducer fold of ``RpcMClient``.
+name every jubatus call carries first. A retried attempt is billed to the
+caller's principal in every usage ledger of the process
+(``utils/usage.py`` ``note_retry``). Not carried over: ``notify`` and the
+reducer fold of ``RpcMClient``.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from jubatus_tpu_torch.rpc.server import (
     _to_wire,
     msgpack_span_end,
 )
-from jubatus_tpu_torch.utils import faults, tracing
+from jubatus_tpu_torch.utils import faults, tracing, usage
 
 #: transport-level failures an idempotent call may retry (FaultInjected
 #: included: injected faults stand in for the IO errors they model)
@@ -151,6 +153,9 @@ class RpcClient:
                     self._registry.count("rpc.retry_budget_exhausted")
                     raise
                 self._registry.count("rpc.retries")
+                # the server sees another request; only the client knows
+                # this attempt is amplification, so bill it here
+                usage.note_retry(method)
                 sleep = self.retry_policy.sleep_for(attempt, rem)
                 if sleep > 0:
                     time.sleep(sleep)

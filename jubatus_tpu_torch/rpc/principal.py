@@ -3,10 +3,9 @@
 
 A **principal** is the tenant id a request is billed to. Clients stamp
 it once at the edge; every hop it fans into (client → proxy → server →
-peer) inherits it. The JAX package's usage ledger bills CPU-seconds,
-device time and bytes to it at dispatch; the port carries it through
-every hop (a mixed fleet's JAX members bill it) and has no ledger of its
-own yet. Traffic that never names one folds into ``(untagged)``; the
+peer) inherits it. The usage ledger (``utils/usage.py``) bills
+CPU-seconds, queue and flush time, rows and bytes to it at dispatch, in
+either package's servers. Traffic that never names one folds into ``(untagged)``; the
 system's own work folds into ``(system)``.
 
 Mechanics mirror the trace and deadline planes exactly:

@@ -27,8 +27,11 @@ params as raw msgpack bytes, never decoded here, and may answer with a
 ``RawResult`` (an already-encoded result span, spliced into the response
 frame) or decline with ``RAW_FALLBACK`` (the request is then decoded and
 served by the method's registered handler). The proxy's zero-decode relay
-uses it. Not carried over: fault sites other than the dispatch's, the
-usage ledger and the legacy-wire scan.
+uses it. ``usage_recorder``, when set (a ``utils/usage.py`` ledger),
+is told each dispatch's bytes in and out and each failure, billed to the
+request's principal; the ledger's CPU-seconds come from the registry's
+``usage_sink``. Not carried over: fault sites other than the dispatch's
+and the legacy-wire scan.
 
 A handler may answer with a ``concurrent.futures.Future`` (``deferred``
 wraps one that runs on a thread of its own): the worker returns to the
@@ -260,6 +263,9 @@ class RpcServer:
         #: change (the drain plane rejects effectful methods with the
         #: retryable NodeDraining so callers re-route)
         self.dispatch_gate: Optional[Callable[[str], None]] = None
+        #: usage ledger (utils/usage.py): notes per-method errors and
+        #: bytes in/out; CPU-seconds arrive via the registry's usage_sink
+        self.usage_recorder: Optional[Any] = None
 
     def register(self, name: str, fn: Callable[..., Any],
                  arity: Optional[int] = None) -> None:
@@ -387,7 +393,7 @@ class RpcServer:
                     params_span, trace, dl, pr = split_extras(raw, off)
                 self._work.put((self._dispatch, (
                     conn, wlock, msgid, method, params_span, True, peer,
-                    trace, dl, pr)))
+                    trace, dl, pr, len(raw))))
                 return
         msg = _unpack(raw)
         if not isinstance(msg, (list, tuple)) or not msg:
@@ -401,12 +407,13 @@ class RpcServer:
             pr = msg[6] if len(msg) == 7 else None
             self._work.put((self._dispatch, (
                 conn, wlock, msgid, method, params, False, peer, trace, dl,
-                pr)))
+                pr, len(raw))))
         elif msg[0] == NOTIFY and len(msg) == 3:
             self._work.put((self._invoke_silent, (msg[1], msg[2])))
 
     def _dispatch(self, conn, wlock, msgid, method, params, raw: bool,
-                  peer: str, trace: Any, dl: Any, pr: Any) -> None:
+                  peer: str, trace: Any, dl: Any, pr: Any,
+                  nbytes: int = 0) -> None:
         # adopt the caller's trace context (or root a fresh one), its
         # deadline AND its principal for the duration of the dispatch;
         # restore after — worker threads are reused
@@ -414,7 +421,8 @@ class RpcServer:
         ctx.peer = peer
         prev = tracing.swap_trace(ctx)
         prev_dl = deadlines.swap(deadlines.adopt_wire(dl))
-        prev_pr = principals.swap(principals.adopt_wire(pr))
+        p_req = principals.adopt_wire(pr)
+        prev_pr = principals.swap(p_req)
         try:
             if raw:
                 error, result = self._execute_fast(method, params)
@@ -424,15 +432,23 @@ class RpcServer:
             tracing.swap_trace(prev)
             deadlines.swap(prev_dl)
             principals.swap(prev_pr)
+        bill = (method, p_req, nbytes)
         if error is None and isinstance(result, concurrent.futures.Future):
             result.add_done_callback(
                 lambda fut: self._reply_deferred(conn, wlock, msgid,
-                                                 method, fut))
+                                                 method, fut, bill))
             return
-        self._reply(conn, wlock, msgid, error, result)
+        self._reply(conn, wlock, msgid, error, result, bill)
 
-    def _reply(self, conn, wlock, msgid, error, result) -> None:
+    def _reply(self, conn, wlock, msgid, error, result,
+               bill: Optional[tuple] = None) -> None:
         payload = build_response(msgid, error, result)
+        rec = self.usage_recorder
+        if rec is not None and bill is not None:
+            method, p_req, nbytes = bill
+            rec.account(method, principal=p_req, resolve=False,
+                        bytes_in=float(nbytes),
+                        bytes_out=float(len(payload)))
         try:
             with wlock:
                 conn.sendall(payload)
@@ -440,16 +456,17 @@ class RpcServer:
             pass
 
     def _reply_deferred(self, conn, wlock, msgid, method: str,
-                        fut: "concurrent.futures.Future") -> None:
+                        fut: "concurrent.futures.Future",
+                        bill: Optional[tuple] = None) -> None:
         """The response of a handler that answered with a future."""
         error, result = None, None
         try:
             result = fut.result()
         except BaseException as e:  # broad-ok — every failure must answer
             log.debug("rpc method %s raised", method, exc_info=True)
-            self.trace.count(f"rpc.{method}.errors")
+            self._note_error(method)
             error = error_to_wire(e)
-        self._reply(conn, wlock, msgid, error, result)
+        self._reply(conn, wlock, msgid, error, result, bill)
 
     def _execute_fast(self, method: str, raw_params: bytes):
         """Raw-span invoke; falls back to the generic decode + handler when
@@ -463,7 +480,7 @@ class RpcServer:
                 result = fn(raw_params)
             except Exception as e:  # broad-ok — every failure must answer
                 log.debug("rpc raw method %s raised", method, exc_info=True)
-                self.trace.count(f"rpc.{method}.errors")
+                self._note_error(method)
                 return error_to_wire(e), None
             if result is not RAW_FALLBACK:
                 return None, result
@@ -478,11 +495,18 @@ class RpcServer:
         except Exception as e:  # broad-ok — every failure must answer
             if not isinstance(e, RpcMethodNotFound):
                 log.debug("rpc method %s raised", method, exc_info=True)
-            # per-method failure counter: the dispatch span times success
-            # and failure alike, so the error rate needs its own series
-            self.trace.count(f"rpc.{method}.errors")
+            self._note_error(method)
             error = error_to_wire(e)
         return error, result
+
+    def _note_error(self, method: str) -> None:
+        """Per-method failure counter (the dispatch span times success and
+        failure alike, so the error rate needs its own series), and the
+        usage ledger's error count."""
+        self.trace.count(f"rpc.{method}.errors")
+        rec = self.usage_recorder
+        if rec is not None:
+            rec.note_error(method)
 
     def _invoke(self, method: str, params: Any) -> Any:
         fn = self._methods.get(method)

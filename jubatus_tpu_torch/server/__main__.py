@@ -11,6 +11,10 @@
         -n c1 -x collective_mixer --jax-processes 2 --jax-process-id 0 \
         --jax-coordinator 127.0.0.1:8476     # one rank of a collective fleet
 
+Logging goes to stderr, to ``<logdir>/juba<engine>.log`` with
+``-l/--logdir``, or as a logging dictConfig JSON file ``-g/--log-config``
+says, which SIGHUP re-reads (utils/logger.py).
+
 With ``--jax-processes N > 1`` the server first joins the process world of
 the collective mixer (parallel/multihost.py) — the rendezvous at
 ``--jax-coordinator``, or the address process 0 published in the
@@ -34,10 +38,14 @@ import sys
 
 from jubatus_tpu_torch.server.args import parse_server_args
 from jubatus_tpu_torch.server.base import EngineServer
+from jubatus_tpu_torch.utils.logger import install_sighup_reload, setup
 
 
 def main(argv=None) -> int:
     args = parse_server_args(argv)
+    setup(f"juba{args.engine}", args.eth, args.rpc_port,
+          logdir=args.logdir, log_config=args.log_config)
+    install_sighup_reload(args.log_config)
     coord = None
     if args.jax_processes > 1 and not args.config_test:
         # the coordinator session stays open and goes to the server:

@@ -1,7 +1,9 @@
 """Server command-line flags (lean counterpart of ``jubatus_tpu/server/args.py``).
 
 The reference's flag names and defaults for what the port's server uses:
-the standalone flags, save/load (``-d/--datadir``, ``-m/--model-file``),
+the standalone flags (with ``-t/--timeout``, ``-l/--logdir``,
+``-g/--log-config`` and ``-D/--daemon``, which is parsed and changes
+nothing, as in the JAX server), save/load (``-d/--datadir``, ``-m/--model-file``),
 the mix plane with its coordinator (``-z/--coordinator``, ``-x/--mixer``,
 ``-s/--interval-sec``, ``-i/--interval-count``, ``--interconnect-timeout``,
 ``--coordinator-timeout``, ``--mix-quorum``, ``--mix-async``,
@@ -19,10 +21,19 @@ snapshot ring (``--model-snapshot-interval``), elastic membership
 ``--fault`` rules, the forensics plane (``--metrics-port``,
 ``--slowlog-capacity``, ``--slowlog-quantile``, ``--slowlog-min-count``,
 ``--telemetry-interval``, ``--profile-hz``, ``--profile-dir``,
-``--profile-trigger-breaches``, ``--profile-trigger-window``), plus
-``--device``, with
+``--profile-trigger-breaches``, ``--profile-trigger-window``), the
+converter's memo caches (``--fv-cache-size``), the model-health plane
+(``--timeseries-capacity``, ``--slo``, ``--slo-fast-window``,
+``--slo-slow-window``, ``--slo-burn-threshold``), the event plane and its
+incident bundles (``--event-capacity``, ``--incident-dir``,
+``--incident-window``), the data-quality plane (``--quality-sample``,
+``--quality-window``, ``--quality-ref-windows``) and the usage ledger
+(``--usage-top``, ``--usage-gauge-principals``), plus ``--device``, with
 the JAX package's defaults and checks. ``--mixer`` takes the JAX
-package's names. No flag is accepted and then ignored.
+package's names. The JAX server's flags the port lacks are the perf
+tuner's (``--auto-tune``, ``--tune-interval-floor``,
+``--tune-interval-ceiling``) and the legacy wire's (``--legacy-wire``,
+``--modern-wire``).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import socket
 from typing import Any, Dict, List, Optional
 
 from jubatus_tpu_torch.utils.faults import parse_rule
+from jubatus_tpu_torch.utils.slo import parse_slo
 
 #: the JAX package's --mixer names
 MIXERS = ("linear_mixer", "collective_mixer", "random_mixer",
@@ -45,9 +57,15 @@ class ServerArgs:
     rpc_port: int = 9199                # -p
     listen_addr: str = ""               # -b
     thread: int = 2                     # -c (RPC worker threads)
+    #: -t: the RPC timeout; a coalesced train waits 6x it for its flush
+    #: (0 = no timeout)
+    timeout: float = 10.0
     datadir: str = "/tmp"               # -d
+    logdir: str = ""                    # -l
+    log_config: str = ""                # -g (server_util.cpp:70-127)
     configpath: str = ""                # -f
     model_file: str = ""                # -m
+    daemon: bool = False                # -D (parsed; changes nothing)
     config_test: bool = False
     coordinator: str = ""               # -z; "" = standalone
     name: str = ""                      # -n cluster name
@@ -129,6 +147,39 @@ class ServerArgs:
     #: sampling-profile snapshot (once per window; 0 = no tail trigger)
     profile_trigger_breaches: int = 3
     profile_trigger_window: float = 10.0
+    #: --fv-cache-size: bound (entries) of the converter's filter, token
+    #: and name memo caches; 0 disables memoization
+    fv_cache_size: int = 65536
+    #: --slo (repeatable): declarative SLOs evaluated as multi-window
+    #: burn rates over the time-series ring (utils/slo.py)
+    slo: List[str] = dataclasses.field(default_factory=list)
+    #: the multi-window burn-rate pair (seconds) and the threshold both
+    #: windows must reach for an alert to fire
+    slo_fast_window: float = 300.0
+    slo_slow_window: float = 3600.0
+    slo_burn_threshold: float = 2.0
+    #: points retained in the metric time-series ring, one a telemetry
+    #: tick (0 disables the ring, the SLOs and get_timeseries)
+    timeseries_capacity: int = 360
+    #: events retained in the cluster event journal (0 disables emission)
+    event_capacity: int = 2048
+    #: debounce window (seconds) of automatic incident bundles
+    #: (utils/incidents.py; 0 disables auto-capture)
+    incident_window: float = 300.0
+    #: capped artifacts dir of incident bundles; "" =
+    #: <datadir>/jubatus_incidents_<engine>_<port>
+    incident_dir: str = ""
+    #: fraction of train / convert batches the data-quality plane
+    #: (utils/quality.py) records and scores prequentially; 0 disarms it
+    quality_sample: float = 0.05
+    #: seconds a quality window; completed windows pinned as reference
+    quality_window: float = 60.0
+    quality_ref_windows: int = 2
+    #: principals the usage ledger (utils/usage.py) tracks exactly before
+    #: the tail folds into (other); 0 disarms the ledger
+    usage_top: int = 64
+    #: top-demand principals published as usage.<principal>.* gauges
+    usage_gauge_principals: int = 8
     #: "cuda" (default) or "cpu"; never falls back on its own
     device: str = "cuda"
     #: most examples one coalesced train flush takes; 0 = the direct
@@ -186,11 +237,22 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("-p", "--rpc-port", type=int, default=9199)
     p.add_argument("-b", "--listen-addr", default="")
     p.add_argument("-c", "--thread", type=int, default=2)
+    p.add_argument("-t", "--timeout", type=float, default=10.0,
+                   help="RPC timeout in seconds; a coalesced train waits "
+                        "six times it for its flush (0 = no timeout)")
     p.add_argument("-d", "--datadir", default="/tmp",
                    help="directory save/load use for model files")
+    p.add_argument("-l", "--logdir", default="",
+                   help="write the log to <logdir>/juba<engine>.log "
+                        "instead of stderr")
+    p.add_argument("-g", "--log-config", default="",
+                   help="logging dictConfig JSON; hot-reloaded on SIGHUP")
     p.add_argument("-f", "--configpath", default="")
     p.add_argument("-m", "--model-file", default="",
                    help="model file to load at start")
+    p.add_argument("-D", "--daemon", action="store_true",
+                   help="accepted for the reference's command lines; "
+                        "the server stays in the foreground")
     p.add_argument("--config-test", action="store_true")
     p.add_argument("-z", "--coordinator", default="",
                    help="coordination backend: a shared directory path "
@@ -293,7 +355,7 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("--no-store-warmboot", dest="store_warmboot",
                    action="store_false",
                    help="boot cold even when --store-dir is set")
-    p.add_argument("--fault", action="append", default=[],
+    p.add_argument("--fault", action="append", default=None,
                    help="arm a fault-injection rule at boot (repeatable; "
                         "site:action[:arg], e.g. mix.diff.poison*:nan) — "
                         "for chaos drills, never in production")
@@ -338,6 +400,78 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("--profile-trigger-window", type=float, default=10.0,
                    help="breach-counting window (seconds) for the "
                         "tail-triggered profile snapshot")
+    p.add_argument("--fv-cache-size", type=int, default=65536,
+                   help="entry bound for the feature pipeline's "
+                        "tokenization/filter/name memo caches (repeated "
+                        "hot strings skip re-splitting and re-hashing); "
+                        "0 disables memoization")
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="declarative SLO evaluated as a multi-window "
+                        "burn rate (repeatable). SPEC is "
+                        "latency:<span>:p<QQ>:<threshold_ms>[:<objective>]"
+                        " (e.g. latency:rpc.classify:p99:50), "
+                        "error_rate:<span|*>:<objective> "
+                        "(e.g. error_rate:*:0.01), or "
+                        "gauge:<key>:<ceiling>; an optional name= prefix "
+                        "names the alert. Firing alerts surface as "
+                        "slo.* gauges on /metrics, degrade /healthz, and "
+                        "list under get_alerts")
+    p.add_argument("--slo-fast-window", type=float, default=300.0,
+                   help="fast burn-rate window in seconds (proves the "
+                        "burn is current; clears alerts after recovery)")
+    p.add_argument("--slo-slow-window", type=float, default=3600.0,
+                   help="slow burn-rate window in seconds (proves the "
+                        "burn is significant, not one blip)")
+    p.add_argument("--slo-burn-threshold", type=float, default=2.0,
+                   help="fire an alert when BOTH windows burn error "
+                        "budget at/above this multiple of the "
+                        "sustainable rate")
+    p.add_argument("--timeseries-capacity", type=int, default=360,
+                   help="points retained in the metric time-series ring "
+                        "(one per telemetry tick; default = 1 h at the "
+                        "10 s interval). 0 disables the ring, SLO "
+                        "evaluation, and get_timeseries")
+    p.add_argument("--event-capacity", type=int, default=2048,
+                   help="events retained in the cluster event journal "
+                        "(typed, HLC-stamped state-transition events "
+                        "served by get_events); 0 disables emission "
+                        "entirely")
+    p.add_argument("--incident-window", type=float, default=300.0,
+                   help="debounce window (seconds) for automatic "
+                        "incident forensics bundles: an SLO firing, "
+                        "/healthz going degraded or a rollback captures "
+                        "ONE correlated snapshot (event window, "
+                        "timeseries, slow log, flight records, profiler "
+                        "tail) per window; 0 disables auto-capture")
+    p.add_argument("--incident-dir", default="",
+                   help="capped artifacts dir for incident bundles "
+                        "(oldest pruned past a fixed cap; get_incidents "
+                        "lists and returns them); empty = under "
+                        "--datadir")
+    p.add_argument("--quality-sample", type=float, default=0.05,
+                   help="fraction of train/FV batches the data-quality "
+                        "plane records into its drift sketches and "
+                        "scores prequentially (test-then-train); "
+                        "0 disarms the plane")
+    p.add_argument("--quality-window", type=float, default=60.0,
+                   help="seconds per data-quality window: the live "
+                        "sketches roll into the reference-vs-live ring "
+                        "at this cadence and PSI drift is recomputed "
+                        "against the pinned reference")
+    p.add_argument("--quality-ref-windows", type=int, default=2,
+                   help="completed windows merged into the pinned "
+                        "reference before drift scoring starts")
+    p.add_argument("--usage-top", type=int, default=64,
+                   help="principals (tenant ids) the usage ledger "
+                        "tracks exactly before the long tail folds "
+                        "into (other); the heavy-hitter sketch still "
+                        "ranks everyone. 0 disarms per-tenant "
+                        "attribution entirely")
+    p.add_argument("--usage-gauge-principals", type=int, default=8,
+                   help="top-demand principals published as "
+                        "usage.<principal>.* gauges per telemetry "
+                        "tick (bounds the gauge namespace under high "
+                        "tenant cardinality)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device the model runs on; cuda unless cpu is asked "
                         "for (no fallback)")
@@ -383,6 +517,8 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
 
 def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
     ns = build_parser().parse_args(argv)
+    ns.slo = ns.slo or []  # argparse's append default stays None (a
+    ns.fault = ns.fault or []  # shared mutable [] would leak across parses)
     args = ServerArgs(**{f.name: getattr(ns, f.name)
                          for f in dataclasses.fields(ServerArgs)})
     if args.thread < 1:
@@ -399,12 +535,39 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
         raise SystemExit("--slowlog-quantile must be in (0, 1]")
     if args.telemetry_interval < 0:
         raise SystemExit("--telemetry-interval must be >= 0")
+    if args.fv_cache_size < 0:
+        raise SystemExit("--fv-cache-size must be >= 0")
+    if args.timeseries_capacity < 0:
+        raise SystemExit("--timeseries-capacity must be >= 0")
+    if args.slo_fast_window <= 0 or args.slo_slow_window <= 0:
+        raise SystemExit("--slo-*-window must be > 0")
+    if args.slo_burn_threshold <= 0:
+        raise SystemExit("--slo-burn-threshold must be > 0")
     if args.profile_hz < 0 or args.profile_hz > 1000:
         raise SystemExit("--profile-hz must be in [0, 1000]")
     if args.profile_trigger_breaches < 0:
         raise SystemExit("--profile-trigger-breaches must be >= 0")
     if args.profile_trigger_window <= 0:
         raise SystemExit("--profile-trigger-window must be > 0")
+    if args.event_capacity < 0:
+        raise SystemExit("--event-capacity must be >= 0")
+    if args.incident_window < 0:
+        raise SystemExit("--incident-window must be >= 0")
+    if not 0.0 <= args.quality_sample <= 1.0:
+        raise SystemExit("--quality-sample must be in [0, 1]")
+    if args.quality_window <= 0:
+        raise SystemExit("--quality-window must be > 0")
+    if args.quality_ref_windows < 1:
+        raise SystemExit("--quality-ref-windows must be >= 1")
+    if args.usage_top < 0:
+        raise SystemExit("--usage-top must be >= 0")
+    if args.usage_gauge_principals < 1:
+        raise SystemExit("--usage-gauge-principals must be >= 1")
+    for spec in args.slo:
+        try:  # reject bad grammar at argv time, not at first tick
+            parse_slo(spec)
+        except ValueError as e:
+            raise SystemExit(str(e))
     if args.shard_devices < 0:
         raise SystemExit("--shard-devices must be >= 0")
     if args.shard_features < 0:

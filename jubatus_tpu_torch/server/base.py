@@ -54,11 +54,32 @@ and kernel builds, ``runtime.*`` in get_status); the always-on stack
 sampler (``--profile-hz``, ``get_profile``) with its slow-log tail
 trigger (``--profile-trigger-*``); ``profile_device``, a torch.profiler
 capture into ``--profile-dir``; and with ``--metrics-port`` the
-``/metrics``, ``/healthz`` and ``/slowlog`` endpoints. Not carried over:
-the incident bundles a rollback triggers (the event is emitted), and the
-time series, SLO, quality, usage, tuner and event views;
-``health.status`` / ``health.reasons`` in get_status carry the mix
-plane's part of the JAX server's degraded reasons.
+``/metrics``, ``/healthz`` and ``/slowlog`` endpoints.
+
+The model-health, event, data-quality and usage planes, as in the JAX
+server, all ticked by the runtime telemetry sampler (one thread owns the
+periodic observability work):
+
+- **the time series and SLOs** (utils/timeseries.py, utils/slo.py,
+  ``--timeseries-capacity``, ``--slo*``): each tick gauges the
+  coalescers' load, the shard and IVF layout, then samples the registry
+  into the ring and re-evaluates every SLO's burn rates; ``get_timeseries``
+  and ``get_alerts`` serve them, and a firing SLO degrades ``/healthz``;
+- **the event journal and incident bundles** (utils/events.py,
+  utils/incidents.py, ``--event-capacity``, ``--incident-*``):
+  ``get_events`` merges this server's journal with the process's, and an
+  SLO going to firing, ``/healthz`` going from ok to degraded, or a
+  rollback captures one bundle a window, served by ``get_incidents``;
+- **data quality** (utils/quality.py, ``--quality-*``): the converter's
+  ``quality_hook`` feeds the drift sketches, the train path scores a
+  sampled batch on the current model before it trains (server/service.py),
+  and ``get_quality`` serves the mergeable doc;
+- **usage** (utils/usage.py, ``--usage-*``): the registry's
+  ``usage_sink`` bills each dispatch's CPU-seconds, the RPC server its
+  bytes and errors, the coalescers each ticket's rows, queue and flush
+  seconds, all by principal; ``get_usage`` serves the ledger.
+
+The tuner's view is not carried over.
 """
 
 from __future__ import annotations
@@ -92,10 +113,15 @@ from jubatus_tpu_torch.rpc.errors import EpochMismatch
 from jubatus_tpu_torch.rpc.server import RpcServer
 from jubatus_tpu_torch.server.args import ServerArgs
 from jubatus_tpu_torch.server.factory import create_driver
-from jubatus_tpu_torch.utils import faults
+from jubatus_tpu_torch.utils import events, faults, tracing
+from jubatus_tpu_torch.utils import usage as usage_mod
+from jubatus_tpu_torch.utils.incidents import IncidentManager
 from jubatus_tpu_torch.utils.profiler import DeviceCapture, SamplingProfiler
+from jubatus_tpu_torch.utils.quality import QualityPlane
 from jubatus_tpu_torch.utils.runtime_telemetry import RuntimeTelemetry
 from jubatus_tpu_torch.utils.serialization import unpack_obj
+from jubatus_tpu_torch.utils.slo import SloEngine, parse_slo
+from jubatus_tpu_torch.utils.timeseries import TimeSeriesRing
 from jubatus_tpu_torch.utils.tracing import Registry
 
 log = logging.getLogger(__name__)
@@ -131,6 +157,10 @@ class EngineServer:
             engine, json.loads(config), device=device, mesh=mesh,
             shard_features=self.args.shard_features, ann=self.args.ann,
             ann_cells=self.args.ann_cells, ann_nprobe=self.args.ann_nprobe)
+        # --fv-cache-size: rebound the converter's memo caches
+        conv = getattr(self.driver, "converter", None)
+        if conv is not None and hasattr(conv, "set_cache_size"):
+            conv.set_cache_size(self.args.fv_cache_size)
         self.start_time = time.time()  # wall-clock
         self.last_saved = 0.0
         self.last_loaded = 0.0
@@ -157,6 +187,7 @@ class EngineServer:
         #: carries the bound rpc port, which an ephemeral start resolves
         #: only at serve time
         self.device_capture: Optional[DeviceCapture] = None
+        self._init_health_planes()
         #: the /metrics endpoint, with --metrics-port
         self.metrics = None
         #: method -> its microbatch coalescer (server/service.py)
@@ -238,6 +269,55 @@ class EngineServer:
                 self.mixer.updated(n)
 
             self.driver.event_model_updated = chained  # type: ignore[assignment]
+
+    def _init_health_planes(self) -> None:
+        """The time-series ring and SLO engine, the event journal's bound
+        and the incident manager, the data-quality plane and the usage
+        ledger, from their flags (jubatus_tpu/server/base.py:122-195)."""
+        interval = self.telemetry.interval_sec
+        self.timeseries: Optional[TimeSeriesRing] = None
+        self.slo: Optional[SloEngine] = None
+        if self.args.timeseries_capacity > 0:
+            self.timeseries = TimeSeriesRing(
+                capacity=self.args.timeseries_capacity,
+                min_spacing_s=min(1.0, interval / 2) if interval > 0
+                else 0.0)
+            self.slo = SloEngine(
+                [parse_slo(spec) for spec in self.args.slo],
+                self.timeseries, self.trace,
+                fast_window_s=self.args.slo_fast_window,
+                slow_window_s=self.args.slo_slow_window,
+                burn_threshold=self.args.slo_burn_threshold)
+            self.telemetry.hooks.append(self._model_health_tick)
+        self.trace.events.set_capacity(self.args.event_capacity)
+        self.incidents = IncidentManager(
+            self.trace, self._incident_state, self._incident_dir,
+            window_s=self.args.incident_window, journal=self.trace.events)
+        if self.slo is not None:
+            self.slo.on_fire = self._on_slo_fire
+        self._was_degraded = False
+        #: the incident collector reads _health(), whose telemetry.status()
+        #: may run the sampler hooks again: the tick must not recurse
+        self._in_health_tick = False
+        self.quality: Optional[QualityPlane] = None
+        if self.args.quality_sample > 0:
+            self.quality = QualityPlane(
+                sample=self.args.quality_sample,
+                window_s=self.args.quality_window,
+                ref_windows=self.args.quality_ref_windows,
+                registry=self.trace)
+            conv = getattr(self.driver, "converter", None)
+            if conv is not None and hasattr(conv, "quality_hook"):
+                conv.quality_hook = self.quality.record_named
+        self.usage: Optional[usage_mod.UsageLedger] = None
+        if self.args.usage_top > 0:
+            self.usage = usage_mod.UsageLedger(
+                top=self.args.usage_top,
+                gauge_principals=self.args.usage_gauge_principals,
+                registry=self.trace)
+            self.rpc.usage_recorder = self.usage
+            self.trace.usage_sink = self.usage.span_sink
+            usage_mod.attach(self.usage)
 
     @classmethod
     def from_args(cls, args: ServerArgs,
@@ -497,6 +577,8 @@ class EngineServer:
         self.trace.events.emit(
             "mix", "rollback", severity="error", reason=reason,
             model_version=version)
+        # a rollback is a forensics moment: bundle the window around it
+        self.incidents.trigger(f"rollback:{reason}")
         log.error("model rolled back to snapshot v%d (%s)", version, reason)
         return {"rolled_back": True, "model_version": version,
                 "snapshot_ts": entry["ts"], "reason": reason,
@@ -825,6 +907,172 @@ class EngineServer:
             self.trace.count("profiler.device_captures")
         return {self._node_key(): doc}
 
+    # -- event plane + incident bundles ---------------------------------------
+    def get_events(self, _name: str = "", since: int = 0,
+                   grep: str = "") -> Dict[str, Any]:
+        """This node's cluster-event view, keyed like get_status: the
+        server registry's journal merged with the process's default
+        journal, causally ordered by HLC. ``since`` is an HLC cursor (the
+        events strictly after it); ``grep`` a substring filter."""
+        since = int(since or 0)
+        grep = _text(grep) if grep else ""
+        recs = events.merge_events([
+            self.trace.events.snapshot(since=since, grep=grep),
+            events.default_journal().snapshot(since=since, grep=grep)])
+        return {self._node_key(): {"events": recs,
+                                   "hlc_now": events.hlc_now(),
+                                   "stats": self.trace.events.stats()}}
+
+    def get_incidents(self, _name: str = "",
+                      incident_id: str = "") -> Dict[str, Any]:
+        """Incident bundles (utils/incidents.py): an empty id lists the
+        capped artifacts dir, an id returns that bundle's document."""
+        incident_id = _text(incident_id) if incident_id else ""
+        if incident_id:
+            return {self._node_key(): self.incidents.get(incident_id)}
+        return {self._node_key(): self.incidents.list()}
+
+    def _incident_dir(self) -> str:
+        return self.args.incident_dir or os.path.join(
+            self.args.datadir,
+            f"jubatus_incidents_{self.engine}_"
+            f"{self.rpc.port or self.args.rpc_port}")
+
+    def _on_slo_fire(self, name: str, _state: Dict[str, Any]) -> None:
+        """An SLO went to firing: capture one incident bundle, seeded with
+        the breaching trace ids of the slow log."""
+        ids = [r.get("trace_id", "")
+               for r in self.trace.slowlog.snapshot(last=16)]
+        self.incidents.trigger(f"slo_firing:{name}",
+                               trace_ids=[t for t in ids if t][-8:])
+
+    def _incident_state(self) -> Dict[str, Any]:
+        """What one bundle holds: the event window, the time-series
+        window, the slow log, the quality and usage slices, the mix
+        flight records and breakers, the profiler's tail, the health
+        verdict."""
+        doc: Dict[str, Any] = {
+            "node": self._node_key(),
+            "events": events.merge_events([
+                self.trace.events.snapshot(limit=256),
+                events.default_journal().snapshot(limit=64)]),
+            "slow_log": self.trace.slowlog.snapshot(last=64),
+            "health": self._health(),
+        }
+        if self.timeseries is not None:
+            doc["timeseries"] = self.timeseries.points(last=60)
+        if self.quality is not None:
+            doc["quality"] = self.quality.incident_doc()
+        if self.usage is not None:
+            doc["usage"] = self.usage.incident_doc()
+        if self.mixer is not None and \
+                getattr(self.mixer, "flight", None) is not None:
+            doc["mix_history"] = self.mixer.flight.snapshot(last=32)
+            breakers = getattr(getattr(self.mixer, "comm", None),
+                               "breakers", None)
+            if breakers is not None:
+                doc["breakers"] = breakers.snapshot()
+        try:
+            prof = self.profiler.profile(30.0)
+            folded = prof.get("folded") or {}
+            top = dict(sorted(folded.items(), key=lambda kv: -kv[1])[:50])
+            doc["profile"] = {"folded_top": top,
+                              "snapshots": prof.get("snapshots") or [],
+                              "stats": prof.get("stats") or {}}
+        except Exception:  # broad-ok — a sick profiler must not block capture
+            log.debug("incident profile fold failed", exc_info=True)
+        return doc
+
+    # -- model-health plane ----------------------------------------------------
+    def _model_health_tick(self) -> None:
+        """One telemetry tick: gauge the coalescers' load and the index
+        layout, roll the quality windows and the usage demand, sample the
+        registry into the ring, re-evaluate the SLOs, and bundle an
+        incident when /healthz goes from ok to degraded."""
+        if self.timeseries is None or self._in_health_tick:
+            return
+        self._in_health_tick = True
+        try:
+            self._model_health_tick_inner()
+        finally:
+            self._in_health_tick = False
+
+    def _model_health_tick_inner(self) -> None:
+        if self.coalescers:
+            depth = arrival = 0.0
+            for name, co in self.coalescers.items():
+                depth += co.queue_depth()
+                arrival += co.arrival_per_sec()
+                fm = co.stats().get("flush_ms_ewma")
+                if isinstance(fm, (int, float)) and fm > 0:
+                    self.trace.gauge(f"microbatch.{name}.flush_ms_ewma",
+                                     float(fm))
+            self.trace.gauge("microbatch.queue_depth", depth)
+            self.trace.gauge("microbatch.arrival_per_sec", round(arrival, 1))
+        self._publish_index_gauges()
+        # quality and usage gauges land BEFORE the ring samples, so
+        # quality.drift.* and capacity.saturation are SLO-able this tick
+        if self.quality is not None:
+            self.quality.tick()
+        if self.usage is not None:
+            self.usage.tick(self._capacity_rows_per_sec())
+        self.timeseries.sample(self.trace.snapshot())
+        if self.slo is not None:
+            self.slo.evaluate()
+        # /healthz going from ok to degraded bundles an incident (the SLO
+        # trigger usually beats it; the debounce window keeps it to one)
+        reasons = self._degraded_reasons()
+        if reasons and not self._was_degraded:
+            self.incidents.trigger(
+                "healthz_degraded:" + ",".join(
+                    sorted({str(r.get("kind", "?")) for r in reasons})))
+        self._was_degraded = bool(reasons)
+
+    def get_timeseries(self, _name: str = "") -> Dict[str, Any]:
+        """This node's metric time-series ring, keyed like get_status:
+        its stats and raw points."""
+        if self.timeseries is None:
+            return {self._node_key(): {"stats": {}, "points": []}}
+        return {self._node_key(): {"stats": self.timeseries.stats(),
+                                   "points": self.timeseries.points()}}
+
+    def _capacity_rows_per_sec(self) -> float:
+        """This replica's capacity estimate: rows each queue drains a busy
+        second (its flush EWMA times its average batch); 0 until a flush
+        has run."""
+        total = 0.0
+        for co in self.coalescers.values():
+            st = co.stats()
+            flush_ms = float(st.get("flush_ms_ewma", 0.0))
+            avg_batch = float(st.get("avg_batch", 0.0))
+            if flush_ms > 0.0 and avg_batch > 0.0:
+                total += avg_batch / (flush_ms / 1e3)
+        return total
+
+    def get_usage(self, _name: str = "") -> Dict[str, Any]:
+        """This node's usage ledger (utils/usage.py): the principal x
+        method table, the heavy-hitter sketch and the capacity picture,
+        mergeable with ``merge_usage``."""
+        if self.usage is None:
+            return {self._node_key(): {}}
+        return {self._node_key(): self.usage.snapshot()}
+
+    def get_quality(self, _name: str = "") -> Dict[str, Any]:
+        """This node's data-quality doc (utils/quality.py): reference and
+        live sketches, drift scores, prequential totals and trend,
+        mergeable with ``merge_quality``."""
+        if self.quality is None:
+            return {self._node_key(): {}}
+        return {self._node_key(): self.quality.snapshot()}
+
+    def get_alerts(self, _name: str = "") -> Dict[str, Any]:
+        """This node's SLO state: the firing alerts and every SLO's last
+        burn rates."""
+        if self.slo is None:
+            return {self._node_key(): {"alerts": [], "slos": []}}
+        return {self._node_key(): {"alerts": self.slo.alerts(),
+                                   "slos": self.slo.status()}}
+
     def _health(self) -> Dict[str, Any]:
         """The /healthz document: ``status`` degrades to "degraded" with a
         structured reason list while the process keeps its 200."""
@@ -838,6 +1086,9 @@ class EngineServer:
             "rpc_port": self.rpc.port or self.args.rpc_port,
             "update_count": self.driver.update_count,
         }
+        if self.slo is not None:
+            doc["slo_count"] = len(self.slo.specs)
+            doc["slo_firing"] = len(self.slo.alerts())
         if self.mixer is not None:
             doc["mix_count"] = getattr(self.mixer, "mix_count", 0)
         doc["cluster_epoch"] = self.membership_epoch()
@@ -850,6 +1101,7 @@ class EngineServer:
         doc["profiler_hz"] = pstats["hz"]
         doc["profiler_samples"] = pstats["samples"]
         doc["profiler_snapshots"] = pstats["snapshots_taken"]
+        doc["incidents_captured"] = self.incidents.stats()["captured"]
         doc["model_snapshots"] = self.snapshots.stats()["count"]
         doc["model_rollbacks"] = self.rollbacks
         # runtime telemetry summary (the full key set is in get_status)
@@ -928,16 +1180,45 @@ class EngineServer:
                    for k, v in self.trace.slowlog.stats().items()})
         st.update({f"profiler.{k}": v
                    for k, v in self.profiler.stats().items()})
+        if self.timeseries is not None:
+            st.update({f"timeseries.{k}": v
+                       for k, v in self.timeseries.stats().items()})
+        if self.slo is not None:
+            st["slo.configured"] = len(self.slo.specs)
+            st["slo.firing"] = len(self.slo.alerts())
+        if self.quality is not None:
+            st.update({f"quality.{k}": v
+                       for k, v in self.quality.stats().items()})
+        if self.usage is not None:
+            st.update({f"usage.{k}": v
+                       for k, v in self.usage.stats().items()})
+        conv = getattr(self.driver, "converter", None)
+        if conv is not None and hasattr(conv, "memo_stats"):
+            memo = conv.memo_stats()
+            st["fv.memo_hit_rate"] = round(memo["hit_rate"], 6)
+            for cache in ("filter", "token", "name"):
+                st.update({f"fv.memo.{cache}.{k}": v
+                           for k, v in memo[cache].items()})
+        st.update({f"events.{k}": v
+                   for k, v in self.trace.events.stats().items()})
+        st.update({f"incident.{k}": v
+                   for k, v in self.incidents.stats().items()})
+        for k, v in tracing.default_registry().counters().items():
+            st.setdefault(f"trace.counter.{k}", v)
         self._publish_index_gauges()
         st.update(self.trace.gauges())
         return {self._node_key(): st}
 
     def _degraded_reasons(self) -> list:
-        """The mix plane's degraded reasons (the JAX server's list, less
-        the planes the port has not reached): open mix breakers, a
-        quorum-degraded last round, an obsolete model, a destroyed
-        collective process group, a drain."""
+        """The structured degraded reasons of /healthz and get_status:
+        firing SLOs, open mix breakers, a quorum-degraded last round, an
+        obsolete model, a destroyed collective process group, a drain."""
         reasons: list = []
+        if self.slo is not None:
+            for a in self.slo.alerts():
+                reasons.append({"kind": "slo_firing", "name": a["name"],
+                                "burn_fast": a.get("burn_fast"),
+                                "burn_slow": a.get("burn_slow")})
         m = self.mixer
         if m is not None:
             breakers = getattr(getattr(m, "comm", None), "breakers", None)
@@ -1121,6 +1402,10 @@ class EngineServer:
         # stop() from different threads
         if not self._stop_once.acquire(blocking=False):
             return
+        if self.usage is not None:
+            # a stopped server's ledger must not keep collecting another
+            # server's client retries (multi-server processes)
+            usage_mod.detach(self.usage)
         try:
             for step in (
                     (self.mixer.stop if self.mixer is not None else None),

@@ -3,8 +3,7 @@
 Config is the reference's JSON config verbatim. All eleven engines map to a
 driver. The classifier splits by method family: NN / cosine / euclidean go
 to the instance-based driver, the linear methods (perceptron, PA, PA1, PA2,
-CW, AROW, NHERD) to the linear one. Features within an engine that the
-port has not reached raise ``NotYetPorted``.
+CW, AROW, NHERD) to the linear one.
 
 ``--shard-devices`` routes by engine family, as in the JAX package:
 feature-sharded tables for the linear classifier and regression,
@@ -16,7 +15,6 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, Type
 
-from jubatus_tpu_torch import NotYetPorted  # noqa: F401 (raised by drivers)
 from jubatus_tpu_torch.models.anomaly import AnomalyDriver
 from jubatus_tpu_torch.models.bandit import BanditDriver
 from jubatus_tpu_torch.models.burst import BurstDriver

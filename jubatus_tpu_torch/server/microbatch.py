@@ -1,6 +1,6 @@
 """Adaptive microbatch coalescing for the ingest hot path (copy of
-``jubatus_tpu/server/microbatch.py``; the usage billing by principal and
-the tracing spans are left out, with the planes they feed).
+``jubatus_tpu/server/microbatch.py``, without the tuner's
+``set_max_batch``).
 
 The reference applies each datum under a write lock as it arrives
 (classifier_serv.cpp:127-146) — fine when an update is a few hundred ns
@@ -23,6 +23,14 @@ Coalescing depth is bounded by RPC worker concurrency: with the
 reference-parity default of 2 worker threads (``-c``), at most one call
 can queue behind a flush, so flushes ≈ RPCs. Ingest deployments
 should raise ``-c`` toward their client concurrency.
+
+Usage billing: with ``usage_hook`` set, each ticket carries its
+submitting thread's principal and its enqueue and claim times, and at the
+end of its flush the hook gets (principal, rows, queue seconds, the
+flush's seconds times the ticket's share of the rows). The flush's
+seconds are host wall time around ``flush_fn``: on the card a flush that
+returns before its kernels finish bills their launch time only, and no
+synchronisation is added for billing.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Any, Callable, List, Sequence
+
+from jubatus_tpu_torch.rpc import principal as principals
 
 __all__ = ["Coalescer", "PipelinedCoalescer"]
 
@@ -39,14 +49,23 @@ FLUSH_EWMA_ALPHA = 0.2
 
 
 class _Ticket:
-    __slots__ = ("event", "result", "error", "count", "weight")
+    __slots__ = ("event", "result", "error", "count", "weight",
+                 "principal", "enq", "claimed")
 
-    def __init__(self, count: int, weight: int) -> None:
+    def __init__(self, count: int, weight: int,
+                 principal: str | None = None, enq: float = 0.0) -> None:
         self.event = threading.Event()
         self.result: Any = None
         self.error: BaseException | None = None
         self.count = count    # item-list slots (queue bookkeeping)
         self.weight = weight  # examples represented (max_batch accounting)
+        #: usage billing: the submitting RPC thread's principal rides the
+        #: ticket into the flush (the flusher runs on ANOTHER ticket's
+        #: thread, so the thread-local is useless by flush time), plus
+        #: the enqueue / claim stamps queue residency derives from
+        self.principal = principal
+        self.enq = enq
+        self.claimed = 0.0
 
 
 class Coalescer:
@@ -96,6 +115,11 @@ class Coalescer:
         #: The single-stage coalescer folds the whole flush in, the
         #: pipelined one folds only the device stage: the drain rate
         self._flush_ms_ewma = 0.0
+        #: usage billing: when set, called once per completed ticket as
+        #: hook(principal, rows, queue_seconds, device_share_seconds);
+        #: the service layer binds it to the usage ledger
+        self.usage_hook: Callable[[str | None, int, float, float],
+                                  None] | None = None
 
     def submit(self, items: Sequence[Any],
                timeout: float | None = 60.0) -> Any:
@@ -117,7 +141,12 @@ class Coalescer:
             timeout = None
         weight = (sum(self._weigher(i) for i in items)
                   if self._weigher is not None else len(items))
-        ticket = _Ticket(len(items), weight)
+        # stamp the principal HERE, on the submitting RPC thread, where
+        # the dispatch still holds it (only when billing is on)
+        billing = self.usage_hook is not None
+        ticket = _Ticket(len(items), weight,
+                         principal=principals.current() if billing else None,
+                         enq=time.perf_counter() if billing else 0.0)
         with self._lock:
             self._pending_items.extend(items)
             self._pending_tickets.append(ticket)
@@ -175,7 +204,28 @@ class Coalescer:
             batch.extend(self._pending_items[:t.count])
             del self._pending_items[:t.count]
         self._pending_weight -= batch_weight
+        if self.usage_hook is not None:
+            now = time.perf_counter()
+            for t in tickets:
+                t.claimed = now
         return batch, tickets, batch_weight
+
+    def _bill(self, tickets: List[_Ticket], batch_weight: int,
+              device_dt: float) -> None:
+        """Per-ticket usage billing at flush completion: queue residency
+        (claim - enqueue) plus the flush's seconds shared by rows. Never
+        raises: billing must not fail a flush that succeeded."""
+        hook = self.usage_hook
+        if hook is None:
+            return
+        for t in tickets:
+            share = (device_dt * t.weight / batch_weight
+                     if batch_weight else 0.0)
+            queued = max(0.0, t.claimed - t.enq) if t.enq else 0.0
+            try:
+                hook(t.principal, t.weight, queued, share)
+            except Exception:  # broad-ok — billing is best-effort
+                pass
 
     def _note_flush_ms(self, dt_s: float) -> None:
         """Fold one flush's duration into the trailing EWMA (under the
@@ -221,6 +271,8 @@ class Coalescer:
                     self.flush_count += 1
                     self.item_count += batch_weight  # examples, not items
                 self._note_flush_ms(dt)
+                # single-stage flush: the whole flush is the device step
+                self._bill(tickets, batch_weight, dt)
                 for t in tickets:
                     t.event.set()
 
@@ -275,6 +327,10 @@ class PipelinedCoalescer(Coalescer):
     stage-1 error fails exactly that batch's tickets immediately, a
     stage-2 error fails them when the device stage completes.
 
+    Span stamping: when ``trace`` (a tracing Registry) is given, stage 1
+    records ``fv.convert`` and stage 2 ``fv.upload`` — the featurize vs
+    device split in get_status and the span store.
+
     Overlap accounting: ``stats()`` adds prep/device seconds and
     ``overlap_fraction`` — the share of host featurize time that ran
     while the device stage was busy (time the pipeline hid)."""
@@ -282,9 +338,11 @@ class PipelinedCoalescer(Coalescer):
     def __init__(self, prep_fn: Callable[[List[Any]], Any],
                  flush_fn: Callable[[Any], Any],
                  max_batch: int = 8192,
-                 weigher: Callable[[Any], int] | None = None) -> None:
+                 weigher: Callable[[Any], int] | None = None,
+                 trace: Any = None) -> None:
         super().__init__(flush_fn, max_batch=max_batch, weigher=weigher)
         self._prep = prep_fn
+        self._trace = trace
         self._dev_lock = threading.Lock()
         self._dev_ready = threading.Condition(self._dev_lock)
         self._dev_queue: List[tuple] = []      # at most 1 prepared batch
@@ -305,10 +363,12 @@ class PipelinedCoalescer(Coalescer):
                 t += time.perf_counter() - self._dev_busy_since
             return t
 
-    def _finish(self, tickets: List[_Ticket], batch_weight: int) -> None:
+    def _finish(self, tickets: List[_Ticket], batch_weight: int,
+                device_dt: float = 0.0) -> None:
         with self._lock:
             self.flush_count += 1
             self.item_count += batch_weight
+        self._bill(tickets, batch_weight, device_dt)
         for t in tickets:
             t.event.set()
 
@@ -328,7 +388,11 @@ class PipelinedCoalescer(Coalescer):
             with self._busy_lock:
                 self._dev_busy_since = time.perf_counter()
             try:
-                result = self._flush(prepared)
+                if self._trace is not None:
+                    with self._trace.span("fv.upload"):
+                        result = self._flush(prepared)
+                else:
+                    result = self._flush(prepared)
                 for t in tickets:
                     t.result = result
             except BaseException as e:  # noqa: BLE001 — deliver to callers
@@ -344,7 +408,7 @@ class PipelinedCoalescer(Coalescer):
                 # the device stage IS the drain rate here — the prep
                 # stage overlaps it, so only stage 2 bounds throughput
                 self._note_flush_ms(dt)
-                self._finish(tickets, batch_weight)
+                self._finish(tickets, batch_weight, device_dt=dt)
                 self._dev_slot.release()
 
     def _drain(self) -> None:
@@ -361,7 +425,11 @@ class PipelinedCoalescer(Coalescer):
             err: BaseException | None = None
             prepared = None
             try:
-                prepared = self._prep(batch)
+                if self._trace is not None:
+                    with self._trace.span("fv.convert"):
+                        prepared = self._prep(batch)
+                else:
+                    prepared = self._prep(batch)
             except BaseException as e:  # noqa: BLE001 — deliver to callers
                 err = e
             d1 = self._device_busy_seconds()

@@ -3,7 +3,9 @@
 
 Registers the built-ins get_config, get_status, save, load and do_mix,
 those of the forensics plane (get_metrics, get_spans, get_slow_log,
-get_profile, profile_device), of the elastic membership plane (get_epoch,
+get_profile, profile_device), of the model-health, event, data-quality and
+usage planes (get_timeseries, get_alerts, get_events, get_incidents,
+get_quality, get_usage), of the elastic membership plane (get_epoch,
 drain, drain_status, rebalance, migrate_range, put_rows, get_row_count),
 of the snapshot ring (rollback) and of the model store (store_restore,
 get_store_status), and the engine's IDL methods, each under its wire
@@ -12,7 +14,11 @@ jubatus call carries (the mixer registers its own ``mix_*`` RPCs). Update
 methods run under the driver lock and bump the driver's update counter
 when the driver did not.
 The classifier's and regression's ``train`` go through the microbatch
-coalescer (``server/microbatch.py``). In a fleet, anomaly's ``add`` and
+coalescer (``server/microbatch.py``), which bills each ticket to its
+principal in the usage ledger and, on the pipelined path, stamps the
+``fv.convert`` and ``fv.upload`` spans; a sampled train batch is first
+scored on the current model for the data-quality plane
+(``_quality_observe_pairs``, test-then-train). In a fleet, anomaly's ``add`` and
 graph's ``create_node`` mint a cluster-unique id and place it on its CHT(2)
 owners by direct peer RPC (``_replicated_write``: ``overwrite`` and
 ``create_node_here`` on each owner, the primary's result answered), as the
@@ -80,6 +86,16 @@ def bind_engine(rpc: RpcServer, server: Any) -> None:
     # a capture runs for seconds: on a thread of its own, holding no worker
     rpc.register("profile_device",
                  deferred(server.profile_device, "device-capture"), arity=2)
+    # model-health plane: the metric time series and the SLO alerts
+    rpc.register("get_timeseries", server.get_timeseries, arity=1)
+    rpc.register("get_alerts", server.get_alerts, arity=1)
+    # data-quality plane and usage ledger: mergeable docs
+    rpc.register("get_quality", server.get_quality, arity=1)
+    rpc.register("get_usage", server.get_usage, arity=1)
+    # event plane: the HLC-ordered journal (cursor-resumable) and the
+    # capped incident bundles
+    rpc.register("get_events", server.get_events, arity=3)
+    rpc.register("get_incidents", server.get_incidents, arity=2)
     rpc.register("do_mix", server.do_mix, arity=1)
     # elastic membership: ring version, drain control and the migration
     # data plane (framework/migration.py); row payloads travel as msgpack
@@ -117,8 +133,42 @@ def _updating(server: Any, fn: Callable,
     return wrapped
 
 
-#: how long a train RPC waits for the flush that holds its examples
-TRAIN_WAIT_S = 60.0
+def _quality_observe_pairs(server: Any, pairs) -> None:
+    """Prequential (test-then-train) hook of the train path: on a sampled
+    batch, score a bounded prefix with the CURRENT model before the update
+    is submitted, and record the label distribution. Failures are logged
+    and never reach ingest."""
+    q = getattr(server, "quality", None)
+    if q is None or not pairs or not q.admit("train"):
+        return
+    d = server.driver
+    sub = pairs[:q.max_score_rows]
+    try:
+        q.record_labels(p[0] for p in pairs)
+        data = [p[1] for p in sub]
+        if isinstance(sub[0][0], str) and hasattr(d, "classify"):
+            for (truth, _dat), ranked in zip(sub, d.classify(data)):
+                q.record_classified(truth, ranked)
+        elif hasattr(d, "estimate"):
+            for (truth, _dat), est in zip(sub, d.estimate(data)):
+                q.record_estimated(float(truth), float(est))
+    except Exception:  # broad-ok — quality scoring must not break ingest
+        server.trace.count("quality.score_errors")
+        log.debug("prequential hook failed", exc_info=True)
+
+
+def _usage_batch_hook(server: Any, method: str):
+    """The coalescer's billing hook: once a ticket a flush, the tenant, its
+    rows, its queue seconds and its share of the flush's seconds go to the
+    usage ledger. None (no hook, no cost) when the ledger is off."""
+    u = getattr(server, "usage", None)
+    if u is None:
+        return None
+
+    def hook(principal, rows, queue_s, device_s):
+        u.record_batch(principal, method, rows, queue_s, device_s)
+
+    return hook
 
 
 def _register_train(rpc: RpcServer, server: Any, decode_pair,
@@ -132,8 +182,12 @@ def _register_train(rpc: RpcServer, server: Any, decode_pair,
     max_batch = getattr(server.args, "microbatch_max", 8192)
     flush = _updating(server, train_fn, count=lambda r: r)
     if not max_batch:
-        rpc.register("train", lambda name, data: flush(
-            [decode_pair(p) for p in data]), arity=2)
+        def train_direct(name, data):
+            pairs = [decode_pair(p) for p in data]
+            _quality_observe_pairs(server, pairs)
+            return flush(pairs)
+
+        rpc.register("train", train_direct, arity=2)
         return
     driver = server.driver
     featurize = getattr(driver, "featurize_train", None)
@@ -141,16 +195,22 @@ def _register_train(rpc: RpcServer, server: Any, decode_pair,
     if featurize is not None and apply_fn is not None:
         device_step = _updating(server, lambda prepared: apply_fn(*prepared),
                                 count=lambda r: r)
-        co = PipelinedCoalescer(featurize, device_step, max_batch=max_batch)
+        co = PipelinedCoalescer(featurize, device_step, max_batch=max_batch,
+                                trace=rpc.trace)
     else:
         co = Coalescer(flush, max_batch=max_batch)
     server.coalescers["train"] = co
+    co.usage_hook = _usage_batch_hook(server, "train")
+    # -t 0 conventionally means "no timeout": an unbounded wait
+    wait_s = server.args.timeout * 6 if server.args.timeout > 0 else None
 
     def train(name, data):
         pairs = [decode_pair(p) for p in data]
         if not pairs:
             return 0
-        co.submit(pairs, timeout=TRAIN_WAIT_S)
+        # test-then-train: prequential scoring sees the pre-update model
+        _quality_observe_pairs(server, pairs)
+        co.submit(pairs, timeout=wait_s)
         return len(pairs)
 
     rpc.register("train", train, arity=2)

@@ -1,2 +1,2 @@
 """Host utilities of the port (copies of ``jubatus_tpu.utils`` modules,
-trimmed to what the checkpoint and mix planes use)."""
+trimmed to what the port's planes use)."""

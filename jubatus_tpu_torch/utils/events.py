@@ -1,20 +1,39 @@
-"""Cluster event plane (copy of ``jubatus_tpu/utils/events.py``, without
-trace-id capture and the cross-node merge, which wait for the tracing
-plane).
+"""Cluster event plane (copy of ``jubatus_tpu/utils/events.py``): one
+causally ordered, queryable record of *what happened, in what order,
+across the fleet*.
 
-Subsystems that own a state transition — membership epoch bumps, mix
-rounds, breaker open/half-open/close, fault arms/fires, the IVF tier's
-cell re-splits and degradations (``ann`` / ``resplit``, ``degraded``) —
-emit one typed
-event into a bounded per-process **EventJournal**. Events are stamped with
-a **hybrid logical clock** timestamp: one sortable int, ``wall_ms << 20 |
-counter``, strictly monotonic per process. The mix plane's put_diff
-payload carries the master's HLC and receivers ``observe()`` it, so a
-member's later events sort after the round that caused them.
+Every state-transition-owning subsystem — membership epoch bumps, drain
+phases, mix rounds/degrades/fallbacks, async-mix master elections,
+breaker open/half-open/close, SLO fire/clear, autoscaler decisions,
+checkpoint save/restore/reshard, fault arms/fires — emits one typed
+event into a bounded per-process **EventJournal**. Events are stamped
+with a **hybrid logical clock** timestamp, so merging journals from
+nodes with skewed wall clocks still yields a causally consistent
+interleaving wherever the clocks were connected by a message (the mix
+plane's put_diff payload carries the master's HLC; receivers
+``observe()`` it).
 
-Each tracing ``Registry`` owns one journal (``registry.events``); a
-module-level default journal catches emissions from code with no registry
-in reach (membership epoch bumps, fault arms/fires).
+HLC encoding: one sortable int, ``wall_ms << 20 | counter``. The
+physical component is the local wall clock in milliseconds; the logical
+counter breaks same-millisecond ties and absorbs observed remote
+timestamps that run ahead of the local clock. ``now()`` is strictly
+monotonic per process — which makes the HLC double as the **cursor**
+for ``get_events(since=...)`` (a follower's cursor): a
+caller re-polls with the max HLC it has seen and receives exactly the
+events emitted after it.
+
+Two journals exist per process: each tracing ``Registry`` owns one
+(``registry.events`` — per-server attribution, like the slow log), and
+a module-level **default journal** catches emissions from code with no
+registry in reach (membership epoch bumps, fault arms/fires, checkpoint
+paths). ``get_events`` serves the merge of both; in the rare
+multi-server test process, default-journal events appear under every
+embedded server — by design (they are process-scoped facts).
+
+Severities: ``debug`` < ``info`` < ``warning`` < ``error``. Each event
+also captures the active trace_id when one exists, which is what lets
+an incident bundle (utils/incidents.py) correlate the event window with
+slow-log records and flight records of the same request.
 """
 
 from __future__ import annotations
@@ -22,13 +41,15 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
-#: default journal depth
+#: default journal depth — ~hours of cluster life at normal event rates,
+#: minutes under a breaker flap storm (the ring bounds the damage)
 DEFAULT_CAPACITY = 2048
 
 #: logical-counter bits in the packed HLC int
 _CTR_BITS = 20
+_CTR_MASK = (1 << _CTR_BITS) - 1
 
 SEVERITIES = ("debug", "info", "warning", "error")
 
@@ -50,20 +71,32 @@ class HLCClock:
 
     def observe(self, remote: int) -> int:
         """Merge a remote HLC: every subsequent local ``now()`` sorts
-        after it. Returns the clock's current value."""
+        after it (and after everything local so far). Returns the
+        clock's current value."""
         try:
             remote = int(remote)
         except (TypeError, ValueError):
-            remote = 0
+            return self.peek()
         with self._lock:
             if remote > self._last:
                 self._last = remote
             return self._last
 
+    def peek(self) -> int:
+        with self._lock:
+            return self._last
+
 
 def hlc_wall_s(hlc: int) -> float:
-    """Wall-clock seconds encoded in an HLC timestamp."""
+    """Wall-clock seconds encoded in an HLC timestamp (the physical
+    component; logical ties collapse to the same instant)."""
     return (int(hlc) >> _CTR_BITS) / 1000.0
+
+
+def wall_to_hlc(ts_s: float) -> int:
+    """Lower bound of every HLC stamped at/after wall time ``ts_s`` —
+    the ``since`` filter for 'events in the last N seconds'."""
+    return max(0, int(ts_s * 1000)) << _CTR_BITS
 
 
 _clock = HLCClock()
@@ -75,13 +108,14 @@ def hlc_now() -> int:
 
 
 def observe(remote: int) -> int:
-    """Merge a remote node's HLC into the process clock."""
+    """Merge a remote node's HLC into the process clock (call when a
+    message carrying a remote timestamp is received)."""
     return _clock.observe(remote)
 
 
 def _rec_matches(rec: Dict[str, Any], grep: str) -> bool:
     """Case-insensitive substring match over the rendered identity of
-    one event (subsystem, type, severity, node, field values)."""
+    one event (subsystem, type, severity, node, trace, field values)."""
     hay = " ".join(
         str(v) for v in rec.values() if isinstance(v, (str, int, float))
     ).lower()
@@ -97,15 +131,29 @@ class EventJournal:
         self.capacity = int(capacity)
         self._ring: deque = deque(maxlen=max(1, self.capacity))
         self._emitted = 0
-        #: owner's node name (set by the server once the port is known)
+        #: owner's node name (set by the server once the port is known,
+        #: like the mix flight recorder)
         self.node = ""
-        #: optional ``count(name)`` callback (the owning Registry's)
+        #: optional ``count(name)`` callback (the owning Registry's) so
+        #: `event.emitted` / `event.dropped` ride /metrics
         self._counter = counter
+
+    def set_capacity(self, capacity: int) -> None:
+        """Re-bound at server start (``--event-capacity``); 0 disables
+        emission entirely (``emit`` becomes a no-op)."""
+        with self._lock:
+            self.capacity = int(capacity)
+            self._ring = deque(self._ring, maxlen=max(1, self.capacity))
+
+    @property
+    def enabled(self) -> bool:
+        return self.capacity > 0
 
     def emit(self, subsystem: str, etype: str, severity: str = "info",
              **fields: Any) -> Optional[Dict[str, Any]]:
-        """Record one event; returns the record (its ``hlc`` is the event
-        id the flight recorder cross-links) or None when disabled."""
+        """Record one event; returns the record (its ``hlc`` is the
+        event id other planes cross-link) or None when disabled. The
+        active trace context's id is captured automatically."""
         if self.capacity <= 0:
             return None
         h = _clock.now()
@@ -117,6 +165,9 @@ class EventJournal:
             "type": str(etype),
             "severity": severity if severity in SEVERITIES else "info",
         }
+        tid = _current_trace_id()
+        if tid:
+            rec["trace_id"] = tid
         for k, v in fields.items():
             if v is not None:
                 rec[k] = v
@@ -156,12 +207,52 @@ class EventJournal:
             self._emitted = 0
 
 
+def merge_events(lists: Iterable[List[Dict[str, Any]]]
+                 ) -> List[Dict[str, Any]]:
+    """Fold event lists from N journals/nodes into one causally ordered
+    timeline: sort by (hlc, node) — HLC order IS causal order wherever
+    the clocks were connected by an observed message, and a stable
+    node tiebreak keeps concurrent events deterministic. Deduplicates
+    by (hlc, node): an HLC is unique per process, so the same record
+    reaching the merge twice (a default-journal event served by every
+    embedded server of a test process, or an overlapping re-poll) is
+    the same event, not two."""
+    out: List[Dict[str, Any]] = []
+    seen: set = set()
+    for lst in lists:
+        for r in lst or []:
+            key = (int(r.get("hlc", 0)), str(r.get("node", "")))
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(r)
+    out.sort(key=lambda r: (int(r.get("hlc", 0)), str(r.get("node", ""))))
+    return out
+
+
+_tracing_mod = None
+
+
+def _current_trace_id() -> str:
+    """Active trace id, if any. Lazy module cache: tracing imports this
+    module (Registry owns an EventJournal), so the reverse import must
+    happen at first use, not at import time."""
+    global _tracing_mod
+    if _tracing_mod is None:
+        from jubatus_tpu_torch.utils import tracing as _t
+
+        _tracing_mod = _t
+    ctx = _tracing_mod.current_trace()
+    return ctx.trace_id if ctx is not None else ""
+
+
 _default = EventJournal()
 
 
 def default_journal() -> EventJournal:
-    """The process-scoped journal for emitters with no Registry in reach
-    (membership, faults)."""
+    """The process-scoped journal for emitters with no Registry in
+    reach (membership, faults, checkpoint plumbing). ``get_events``
+    merges it with the serving registry's journal."""
     return _default
 
 

@@ -1,8 +1,11 @@
 """Fault injection registry (copy of ``jubatus_tpu/utils/faults.py``,
-trimmed to what the mix, migration, store and IVF planes fire).
+trimmed to the sites the port fires).
 
-Named sites in the mix plane call ``fire(site)`` or ``fire_mutate(site)``,
-and a test arms rules against them with ``armed(...)``. Rule syntax:
+Named sites call ``fire(site)`` or ``fire_mutate(site)``. Rules are armed
+by a test with ``armed(...)``, by a server's ``--fault`` flags at boot
+(server/base.py), or by the ``JUBATUS_TPU_FAULTS`` environment variable
+(comma-separated rules, armed when this module is first imported), all
+process-wide. Rule syntax:
 
     <site-glob>:error            raise FaultInjected at matching sites
     <site-glob>:error:<p>        ... with probability p (seeded RNG)
@@ -29,8 +32,9 @@ scan), and the RPC plane's
 ``rpc.dispatch.<method>`` (before the deadline gate),
 ``rpc.call.<method>.<host:port>`` (each client attempt) and
 ``rpc.connect.<host:port>``. ``fire`` is a no-op (one module flag read)
-when nothing is armed. Not carried over: the ``JUBATUS_TPU_FAULTS``
-environment variable and the ``--fault`` flag.
+when nothing is armed. The JAX package's ``autoscale.*`` and ``tune.*``
+sites belong to the controller and the perf tuner, which the port does
+not have yet.
 
     with faults.armed("mix.comm.get_diff:error@1"):
         ...  # the next master-side gather fails once
@@ -39,6 +43,7 @@ environment variable and the ``--fault`` flag.
 from __future__ import annotations
 
 import fnmatch
+import os
 import random
 import threading
 import time
@@ -275,3 +280,12 @@ def flip_byte(buf: bytes) -> bytes:
     out = bytearray(buf)
     out[_rng.randrange(len(out))] ^= 0x40
     return bytes(out)
+
+
+def _arm_from_env() -> None:
+    spec = os.environ.get("JUBATUS_TPU_FAULTS", "")
+    if spec:
+        arm(*[s for s in spec.split(",") if s.strip()])
+
+
+_arm_from_env()

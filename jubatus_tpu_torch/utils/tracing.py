@@ -38,7 +38,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from jubatus_tpu_torch.utils.events import EventJournal
 from jubatus_tpu_torch.utils.slowlog import SlowLog
@@ -309,6 +309,10 @@ class Registry:
         self.events = EventJournal(counter=self.count)
         #: span store + slow log master switch (histograms stay on)
         self._forensics = True
+        #: usage-ledger tap (utils/usage.py): every recorded span duration
+        #: is offered to the ledger, which bills it to the dispatch
+        #: thread's principal; called outside the registry lock
+        self.usage_sink: Optional[Callable[[str, float], None]] = None
 
     @contextlib.contextmanager
     def span(self, name: str) -> Iterator[_SpanHandle]:
@@ -374,6 +378,9 @@ class Registry:
                     self._by_trace.setdefault(ctx.trace_id, []).append(rec)
         if slow_thr is not None:
             self._capture_slow(name, seconds, slow_thr, ctx)
+        sink = self.usage_sink
+        if sink is not None:
+            sink(name, seconds)
 
     def _capture_slow(self, name: str, seconds: float, threshold: float,
                       ctx: Optional[TraceContext]) -> None:

@@ -28,9 +28,9 @@ from jubatus_tpu.core.fv.converter import make_fv_converter as jmake
 from jubatus_tpu.models.classifier_nn import ClassifierNNDriver as JDriver
 from jubatus_tpu_torch import convert
 from jubatus_tpu_torch.core.datum import Datum
-from jubatus_tpu_torch.core.fv.converter import make_fv_converter
+from jubatus_tpu_torch.core.fv.converter import ConverterError, make_fv_converter
 from jubatus_tpu_torch.models.classifier_nn import ClassifierNNDriver
-from jubatus_tpu_torch.server.factory import NotYetPorted, create_driver
+from jubatus_tpu_torch.server.factory import create_driver
 
 CONV = {"num_rules": [{"key": "*", "type": "num"}]}
 DIM_BITS = 12
@@ -86,8 +86,8 @@ def test_factory_routes_nn_methods():
                            device="cpu")
     assert not isinstance(linear, ClassifierNNDriver)
     assert linear.method == "AROW"
-    # every engine maps to a driver now; a feature not yet ported inside
-    # one (a converter plugin) raises NotYetPorted
+    # every engine maps to a driver now; a converter plugin loads by path,
+    # and one that cannot load is a config error (ConverterError)
     assert create_driver("clustering", {"method": "kmeans", "converter": CONV},
                          device="cpu").TYPE == "clustering"
     plugin = {"string_types": {"p": {"method": "dynamic", "path": "libp.so",
@@ -95,7 +95,7 @@ def test_factory_routes_nn_methods():
               "string_rules": [{"key": "*", "type": "p",
                                 "sample_weight": "bin",
                                 "global_weight": "bin"}]}
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(ConverterError, match="not found"):
         create_driver("classifier", _conf("cosine") | {"converter": plugin},
                       device="cpu")
 

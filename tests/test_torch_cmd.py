@@ -223,6 +223,38 @@ def test_jubavisor_appends_its_server_flags(coordd, monkeypatch):
                             "--telemetry-interval", "0"]
 
 
+def test_jubavisor_forwards_timeout_and_logdir(coordd, monkeypatch, tmp_path):
+    """The argv map's ``timeout`` and ``logdir`` reach each child as
+    ``--timeout`` / ``--logdir`` (as the JAX jubavisor sends them), and
+    the port server's parser takes both."""
+    from jubatus_tpu_torch.cmd import jubavisor
+    from jubatus_tpu_torch.server.args import parse_server_args
+
+    spawned = []
+
+    class _Proc:
+        pid = 1
+
+    monkeypatch.setattr(jubavisor.subprocess, "Popen",
+                        lambda cmd, **_kw: spawned.append(cmd) or _Proc())
+    locator, _ = coordd
+    visor = jubavisor.Jubavisor(locator, 0, 1, device="cpu")
+    visor._pool = [40011]
+    try:
+        assert visor.start_procs(
+            "jubastat/v2", 1,
+            {"timeout": 7, "logdir": str(tmp_path), "thread": 3}) == 0
+    finally:
+        visor._children.clear()
+        visor.coord.close()
+    (cmd,) = spawned
+    assert cmd[cmd.index("--timeout") + 1] == "7"
+    assert cmd[cmd.index("--logdir") + 1] == str(tmp_path)
+    argv = cmd[cmd.index("jubatus_tpu_torch.server") + 1:]
+    args = parse_server_args(argv)
+    assert (args.timeout, args.logdir, args.thread) == (7.0, str(tmp_path), 3)
+
+
 # -- restore, rollback, breakers ---------------------------------------------------
 
 CLF_CONF = {"method": "AROW", "parameter": {"regularization_weight": 1.0},

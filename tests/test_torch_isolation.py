@@ -111,6 +111,19 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.utils.profiler",
     "jubatus_tpu_torch.framework.sharded_checkpoint",
     "jubatus_tpu_torch.cmd.jubadump",
+    "jubatus_tpu_torch.utils.logger",
+    "jubatus_tpu_torch.utils.sketches",
+    "jubatus_tpu_torch.utils.timeseries",
+    "jubatus_tpu_torch.utils.slo",
+    "jubatus_tpu_torch.utils.quality",
+    "jubatus_tpu_torch.utils.usage",
+    "jubatus_tpu_torch.utils.incidents",
+    "jubatus_tpu_torch.core.fv.plugins",
+    "jubatus_tpu_torch.plugins",
+    "jubatus_tpu_torch.plugins.ux_splitter",
+    "jubatus_tpu_torch.plugins.image_feature",
+    "jubatus_tpu_torch.plugins.mecab_splitter",
+    "jubatus_tpu_torch.native",
 )
 
 
@@ -125,6 +138,61 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert lines[1] == "", f"imported: {lines[1]}"
     walked = set(lines[2].split(","))
     assert not set(SLICE_MODULES) - walked
+
+
+_PLANES_PROBE = r"""
+import os, sys, tempfile
+from jubatus_tpu_torch.core.datum import Datum
+from jubatus_tpu_torch.core.fv.converter import make_fv_converter
+from jubatus_tpu_torch.rpc.client import RpcClient
+from jubatus_tpu_torch.server import EngineServer
+from jubatus_tpu_torch.server.args import ServerArgs
+d = tempfile.mkdtemp()
+kw = os.path.join(d, "kw.txt")
+open(kw, "w").write("tpu\nbat\n")
+conv = {"string_types": {"ux": {"method": "dynamic", "path": "ux_splitter",
+                                "dict_path": kw}},
+        "string_rules": [{"key": "*", "type": "ux", "sample_weight": "bin",
+                          "global_weight": "bin"}]}
+print(len(make_fv_converter(conv).convert(Datum({"t": "jubatus tpu"}))))
+plug = [m for m in sys.modules if m.startswith("jubatus_tpu_torch_plugin_")]
+print(sys.modules[plug[0]].__file__)
+srv = EngineServer("classifier", {"method": "AROW", "converter": conv,
+                                  "parameter": {"regularization_weight": 1}},
+                   ServerArgs(engine="classifier", listen_addr="127.0.0.1",
+                              quality_sample=1.0, telemetry_interval=0,
+                              datadir=d), device="cpu")
+port = srv.start(0)
+with RpcClient("127.0.0.1", port) as c:
+    c.call("train", "", [["a", Datum({"t": "tpu bat"}).to_msgpack()]])
+    srv._model_health_tick()
+    for m in ("get_quality", "get_usage", "get_alerts", "get_timeseries"):
+        c.call(m, "")
+    c.call("get_events", "", 0, "")
+    c.call("get_incidents", "", "")
+srv.stop()
+print(",".join(sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                      or m == "jubatus_tpu" or m.startswith("jubatus_tpu.")
+                      or m in ("cv2", "MeCab"))))
+"""
+
+
+def test_plugins_and_planes_load_nothing_of_jax_or_the_reference():
+    """A bare-name plugin resolves to the port's own plugin file, and a
+    server with every new plane on answers their RPCs, and still neither
+    jax, jubatus_tpu nor an optional plugin library is imported."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _PLANES_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    n, plugin_file, bad = proc.stdout.splitlines()[-3:]
+    assert n == "2"  # "tpu", and "bat" inside "jubatus"
+    assert os.path.samefile(plugin_file, os.path.join(
+        ROOT, "jubatus_tpu_torch", "plugins", "ux_splitter.py"))
+    assert bad == "", f"imported: {bad}"
 
 
 _TELEMETRY_PROBE = r"""
@@ -218,6 +286,41 @@ def test_chip_smoke_refuses_to_run_without_cuda(no_cuda):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("extra,own", [((), False),
+                                       (("-d", "given"), True),
+                                       (("--datadir", "given"), True)])
+def test_chip_smoke_servers_keep_their_files_in_the_output_dir(
+        monkeypatch, tmp_path, extra, own):
+    """Every server chip_smoke.py starts gets a datadir of its own under
+    its output directory (incident bundles and captures go there), unless
+    the caller names one."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(ROOT)
+    seen = []
+
+    def popen(cmd, **_kw):
+        seen.append(cmd)
+        return None
+
+    monkeypatch.setattr(cs, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(cs.subprocess, "Popen", popen)
+    _proc, port, _log = cs.start_server("classifier", "cfg.json", "_t",
+                                        extra=extra)
+    (cmd,) = seen
+    flags = [i for i, a in enumerate(cmd) if a in ("-d", "--datadir")]
+    assert len(flags) == 1
+    datadir = cmd[flags[0] + 1]
+    if own:
+        assert datadir == "given"
+        return
+    assert datadir == os.path.join(str(tmp_path), "data",
+                                   f"classifier_t_{port}")
+    assert os.path.isdir(datadir) and not os.listdir(datadir)
 
 
 @pytest.mark.parametrize("engine,conf", [

@@ -23,10 +23,10 @@ from jubatus_tpu.client import NearestNeighborClient
 from jubatus_tpu.rpc.errors import RpcMethodNotFound, RpcTypeError
 from jubatus_tpu.server import EngineServer as JEngineServer
 from jubatus_tpu_torch.core.datum import Datum
+from jubatus_tpu_torch.core.fv.converter import ConverterError
 from jubatus_tpu_torch.rpc import client as port_client
 from jubatus_tpu_torch.rpc import errors as port_errors
 from jubatus_tpu_torch.server import EngineServer
-from jubatus_tpu_torch.server.factory import NotYetPorted
 
 NAME = "e2e"
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -132,8 +132,8 @@ def test_port_client_round_trips_and_errors():
         srv.stop()
 
 
-#: a converter whose string type is a plugin (``dynamic``), which the port
-#: has not reached
+#: a converter whose string type is a plugin (``dynamic``) naming a ``.so``
+#: that does not exist
 PLUGIN_CONVERTER = {
     "string_types": {"p": {"method": "dynamic", "path": "libp.so",
                            "function": "create"}},
@@ -143,11 +143,11 @@ PLUGIN_CONVERTER = {
 
 def test_unported_engine_is_refused():
     """Every engine of the JAX package is served now; an unknown engine is
-    refused, and a feature within an engine that is not ported yet (here a
-    converter plugin) raises NotYetPorted."""
+    refused, and a converter plugin that cannot load (here a missing
+    ``.so``) is a config error, ConverterError."""
     with pytest.raises(KeyError, match="unknown engine"):
         EngineServer("no_such_engine", {}, device="cpu")
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(ConverterError, match="not found"):
         EngineServer("clustering", {"method": "kmeans",
                                     "converter": PLUGIN_CONVERTER},
                      device="cpu")
@@ -348,9 +348,8 @@ def test_server_exits_on_sigterm_with_a_stalled_client_and_an_idle_one():
 
 def test_server_main_refuses_an_unported_engine(tmp_path):
     """Every engine is ported now (config/clustering/kmeans.json passes
-    --config-test); what the port has not reached within an engine (a
-    converter plugin) exits 1 with "not yet ported", as a whole engine did
-    before it was ported."""
+    --config-test); a converter plugin that cannot load exits 1 with the
+    converter's "not found", as a config error."""
     with open(os.path.join(ROOT, "config", "clustering", "kmeans.json")) as f:
         conf = json.load(f)
     path = tmp_path / "plugin.json"
@@ -362,7 +361,7 @@ def test_server_main_refuses_an_unported_engine(tmp_path):
              "--config-test", "-f", config, "--device", "cpu"],
             cwd=ROOT, capture_output=True, text=True, timeout=120)
         assert proc.returncode == rc, proc.stderr
-    assert "not yet ported" in proc.stderr
+    assert "config error" in proc.stderr and "not found" in proc.stderr
 
 
 # -- the linear classifier and regression (tests/test_server_e2e.py) -----------
@@ -550,7 +549,8 @@ def test_new_engines_bind_the_jax_wire_names_and_arities(engine):
                 migrate_range=5, put_rows=2, get_row_count=1, rollback=2,
                 store_restore=2, get_store_status=1, get_metrics=1,
                 get_spans=2, get_slow_log=1, get_profile=2,
-                profile_device=2)
+                profile_device=2, get_timeseries=1, get_alerts=1,
+                get_quality=1, get_usage=1, get_events=3, get_incidents=2)
     assert dict(rpc._arity) == want
 
 
