@@ -38,12 +38,12 @@ each of which fails the run (non-zero exit, no result line) on error:
    queries under torch.profiler split the device-busy time per query into
    signature, scan, live mask, top-k and copies;
 4. server: ``python -m jubatus_tpu_torch.server nearest_neighbor -f
-   config/nearest_neighbor/lsh.json`` on the card, 10^4 set_row and the
+   config/nearest_neighbor/lsh.json`` on the card, 2,500 set_row and the
    four query methods plus get_all_rows over the port's RpcClient, compared
    with the port's driver on the CPU fed the same rows; the server's
    scan-launch count (get_status) must move;
 5. recommender: ``config/recommender/{lsh,minhash,default}.json`` (default
-   is inverted_index) with the first REC_HASH_ROWS (1.25·10^5; lsh and
+   is inverted_index) with the first REC_HASH_ROWS (6.25·10^4; lsh and
    minhash) or REC_ROWS (2.5·10^5; default) rows of phase 3 through
    ``backend.set_row``;
    50 ``similar_row_from_datum`` (k = 10) and 50
@@ -63,8 +63,9 @@ each of which fails the run (non-zero exit, no result line) on error:
 7. servers: the recommender (default.json, 10^4 update_row), anomaly (LOF
    over lsh, 200 add: each add rebuilds the support) and classifier
    (``config/classifier/nn.json`` as shipped and with nested lsh, 10^4
-   examples) servers on the card, every answer compared with the port's
-   driver on the CPU fed the same datums;
+   examples) servers on the card, all four started at once and each
+   driven alone once all four answer, every answer compared with the
+   port's driver on the CPU fed the same datums;
 8. classifier: AROW ``train_batch_parallel`` at the JAX package's bench
    shape (L = 2, K = 64, B = 32768, D = 2^20 and 2^24): examples/s (median
    of 10 steps after 2), one step under torch.profiler (device busy and
@@ -73,7 +74,8 @@ each of which fails the run (non-zero exit, no result line) on error:
    (D = 2^20); the driver's ``train_hashed`` examples/s and
    ``classify_hashed`` p50/p99 at B = 1 and B = 32768;
 9. linear servers: ``config/classifier/arow.json`` and
-   ``config/regression/default.json`` on the card; 10^4 rows through
+   ``config/regression/default.json`` on the card (both started at once,
+   each driven alone once both answer); 10^4 rows through
    ``train`` in calls of 256 from 4 clients at once (the coalescer merges
    them), then again from one client after ``clear`` beside a CPU driver
    fed the same calls; 50 ``classify`` / ``estimate`` calls (p50/p99,
@@ -136,23 +138,29 @@ each of which fails the run (non-zero exit, no result line) on error:
    (answers equal, its flushes launch S1); two ``arow.json`` servers
    under ``--mix-guard quarantine``, one armed with ``--fault
    mix.diff.poison*:nan``, rolling back on the refused total;
-13. the fleet, every process on the card: a port ``jubacoordd``
+13. the fleet, every member on the card: a port ``jubacoordd``
    (``python -m jubatus_tpu_torch.coord.server --journal``), three configs
    written with ``jubaconfig`` (nearest_neighbor lsh.json, phase 6's LOF
    config over lsh, regression default.json), one ``jubavisor``,
    ``jubactl -c start -N 2`` per engine and one routing proxy per engine
-   (``python -m jubatus_tpu_torch.server.proxy``). nearest_neighbor: each
-   member filled with 1.25·10^5 rows on their CHT(1) owner by ``put_rows``
-   (2.5·10^5 in all), 2,000 ``set_row`` through the proxy,
+   (``python -m jubatus_tpu_torch.server.proxy``, its planes on).
+   nearest_neighbor: each member filled with 3.125·10^4 rows on their
+   CHT(1) owner by ``put_rows`` (6.25·10^4 in all), 2,000 ``set_row``
+   through the proxy,
    200 each of ``neighbor_row_from_datum`` and ``similar_row_from_datum``
    through the proxy and directly to both members (every proxied answer
    equal to one member's exactly; p50/p99 both ways; the proxy's forwards
-   through the raw relay and the generic path); anomaly: 200 ``add``
+   through the raw relay and the generic path); anomaly: 50 ``add``
    through the proxy, each id held by both CHT(2) owners, ``calc_score``;
    regression: 10^4 rows through the proxy in calls of 256, ``estimate``;
    the broadcasts (``get_status`` and ``save`` merged, ``clear``
-   all_and); ``jubactl -c drain`` of one NN member while a client writes
-   through the proxy (no client error, every row on the survivor), then
+   all_and); the views through the proxies (a traced NN query assembled
+   by ``jubactl -c trace``, ``metrics``, ``alerts`` with the NN proxy's
+   SLO firing, ``quality``, ``usage``, ``profile``, ``timeline``,
+   ``incident`` with its one bundle, a live ``watch``, ``/metrics``, each
+   forensics RPC timed, no proxy holding a /dev/nvidia* node open where
+   every member holds one); ``jubactl -c drain`` of one NN member while a
+   client writes through the proxy (no client error, every row on the survivor), then
    ``rebalance``, ``rollback`` (refused by every member: jubactl start
    forwards no snapshot interval), ``status --all``, one ``watch`` frame
    and ``stop``, after which the visor has no children. K1 and S1
@@ -172,7 +180,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    once a shard), IVF with every cell probed equal to them; LOF (phase
    6's config over lsh, 4096 rows) on the shards, bit-equal to the CPU
    port's sharded driver, its agreement with the flat LOF counted. Then
-   two ``--ann ivf`` lsh.json servers: one filled with 1.25·10^5 rows by
+   two ``--ann ivf`` lsh.json servers: one filled with 6.25·10^4 rows by
    ``put_rows`` and queried 200 times over RPC, its ``ann.*`` status
    read, saved; the other loads the file (centroids byte for byte, equal
    answers); and ``--shard-devices 2`` on one card exits with the JAX
@@ -219,9 +227,10 @@ each of which fails the run (non-zero exit, no result line) on error:
    ``save_model`` / ``load_model`` of the same state; then servers started
    with ``-c 2 --metrics-port 0 --telemetry-interval 1 --profile-dir``: two
    nearest_neighbor lsh.json (the stack sampler at 67 Hz and off, each
-   with phase 4's 10^4 rows; query p50/p99 in turns) and a regression
-   default.json; ``profile_device``, twice on each (a process's first
-   capture and a later one), under a querying (training) client
+   with 10^4 set_row; query p50/p99 in turns) and a regression
+   default.json; ``profile_device`` once on each (a process's first
+   capture; ``--forensics-ab`` takes a later one too), under a querying
+   (training) client
    must name K1 (S1) in its artifact, no more often than the server's
    launch count rose, its wall split into start / window / stop / export,
    and ``get_status`` must answer while it is in flight (a capture holds
@@ -281,6 +290,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -307,12 +317,16 @@ ROWS = 1_000_000              # rows of each full-size backend
 QUERIES = 200                 # timed neighbors() queries per backend
 PROFILED_QUERIES = 20         # further queries under torch.profiler
 SERVER_ROWS = 10_000          # rows written over the wire per server
+NN_SERVER_ROWS = 2_500        # phase 4's set_row fill (cut from 10^4 for
+                              # the run's limit: phase 17 fills two servers
+                              # of its config with 10^4 rows and times
+                              # queries on each)
 REC_ROWS = 250_000            # rows of the exact recommender (phase 5; cut
                               # from 10^6 to keep the run inside its time
                               # limit; phase 14 builds IVF over it)
-REC_HASH_ROWS = 125_000       # rows of the lsh and minhash recommenders:
+REC_HASH_ROWS = 62_500        # rows of the lsh and minhash recommenders:
                               # their scan and signature repeat phase 3's
-                              # at 10^6 rows
+                              # at 10^6 rows (cut from 1.25·10^5)
 REC_QUERIES = 50              # timed similar_row / complete_row calls each
 REC_PROFILED = 10             # further similar_row calls under the profiler
 REC_CONFIGS = ("lsh.json", "minhash.json", "default.json")
@@ -321,8 +335,8 @@ LOF_ADDS = 2                  # each add rebuilds the support, whose cold
                               # rebuild the phase times and splits
 LOF_SCORES = 50
 LOF_METHODS = ("euclid_lsh", "lsh", "minhash")
-ANOMALY_SERVER_ROWS = 200     # adds over the wire (each rebuilds the support;
-                              # phase 13 makes as many through the proxy)
+ANOMALY_SERVER_ROWS = 200     # adds over the wire (each rebuilds the support)
+CLASSIFIER_NN_METHODS = ("euclid_lsh", "lsh")  # phase 7's nn.json servers
 REPS = 30                     # timed kernel launches per shape (median)
 EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
 EDGE_W = (2, 3, 64, 70)
@@ -836,33 +850,62 @@ def serving(engine: str, config_path: str, started=None):
     started by ``start_server``); yields an RpcClient once it answers. On
     an error the server log's tail goes to stderr; the server is stopped
     either way."""
-    proc, port, log_path = started or start_server(engine, config_path)
+    started = started or start_server(engine, config_path)
+    proc, port, log_path = started
     from jubatus_tpu_torch.rpc.client import RpcClient
 
     cli = RpcClient("127.0.0.1", port, timeout=120.0)
     try:
-        deadline = time.time() + 180
-        while True:
-            check(proc.poll() is None,
-                  f"{engine} server exited with {proc.returncode}; see "
-                  f"{log_path}")
-            try:
-                cli.call("get_status", "smoke")
-                break
-            except Exception:  # broad-ok — the server is still starting
-                check(time.time() < deadline,
-                      f"{engine} server did not answer in 180 s")
-                time.sleep(0.5)
+        await_answer(engine, started, cli)
         yield cli
     except Exception:
-        with open(log_path) as f:
-            tail = f.read()[-4000:]
-        print(f"--- server log ({log_path}), last lines:\n{tail}",
-              file=sys.stderr)
+        print_server_log(log_path)
         raise
     finally:
         cli.close()
         stop_server(proc)
+
+
+def await_answer(engine: str, started, cli) -> None:
+    """Wait until the server ``started`` (start_server's tuple) answers
+    ``get_status`` on ``cli``; fails if it exits or takes 180 s."""
+    proc, _, log_path = started
+    deadline = time.time() + 180
+    while True:
+        check(proc.poll() is None,
+              f"{engine} server exited with {proc.returncode}; see "
+              f"{log_path}")
+        try:
+            cli.call("get_status", "smoke")
+            return
+        except Exception:  # broad-ok — the server is still starting
+            check(time.time() < deadline,
+                  f"{engine} server did not answer in 180 s")
+            time.sleep(0.5)
+
+
+def await_started(started: dict) -> None:
+    """Wait until every server of ``started`` ({tag: start_server's
+    tuple}, started at once) answers, so that none is driven while
+    another still boots."""
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    for tag, st in started.items():
+        cli = RpcClient("127.0.0.1", st[1], timeout=120.0)
+        try:
+            await_answer(tag, st, cli)
+        except Exception:
+            print_server_log(st[2])
+            raise
+        finally:
+            cli.close()
+
+
+def print_server_log(log_path: str) -> None:
+    with open(log_path) as f:
+        tail = f.read()[-4000:]
+    print(f"--- server log ({log_path}), last lines:\n{tail}",
+          file=sys.stderr)
 
 
 def server_status(cli) -> dict:
@@ -890,7 +933,7 @@ def phase_server(torch, Datum, NearestNeighborDriver, seed: int) -> dict:
         config = json.load(f)
     with serving("nearest_neighbor", config_path) as cli:
         return _drive_server(Datum, NearestNeighborDriver, config, cli,
-                             SERVER_ROWS, seed)
+                             NN_SERVER_ROWS, seed)
 
 
 def _drive_server(Datum, NearestNeighborDriver, config, cli, rows,
@@ -1348,17 +1391,19 @@ def write_config(name: str, config: dict) -> str:
     return path
 
 
-def phase_recommender_server(Datum, RecommenderDriver, seed: int) -> dict:
+def phase_recommender_server(Datum, RecommenderDriver, seed: int,
+                             started) -> dict:
     """config/recommender/default.json (inverted_index, cosine), 10^4
     update_row calls; every query method against the CPU driver.
     complete_row averages the 128 nearest rows: its values are compared
     where the CPU's 128th and 129th distances differ by more than
-    ``EXACT_TOL`` (else the rows at the boundary may differ by a tie)."""
+    ``EXACT_TOL`` (else the rows at the boundary may differ by a tie).
+    ``started``: the server, started by ``start_phase7_servers``."""
     path = os.path.join(ROOT, "config", "recommender", "default.json")
     config = load_config("recommender", "default.json")
     ref = RecommenderDriver(config, device="cpu")
     rng = np.random.default_rng(seed + 11)
-    with serving("recommender", path) as cli:
+    with serving("recommender", path, started) as cli:
         t0 = time.perf_counter()
         for i in range(SERVER_ROWS):
             d = server_datum(rng, Datum, i)
@@ -1415,16 +1460,23 @@ def phase_recommender_server(Datum, RecommenderDriver, seed: int) -> dict:
                 launches=server_launches(st))
 
 
-def phase_anomaly_server(Datum, AnomalyDriver, seed: int) -> dict:
+def anomaly_server_config():
+    """(config, path) of phase 7's anomaly server."""
+    config = lof_config("lsh")
+    return config, write_config("anomaly_lof_lsh.json", config)
+
+
+def phase_anomaly_server(Datum, AnomalyDriver, seed: int,
+                         started) -> dict:
     """LOF over nested lsh (lof_unlearner_lru.json's settings), fed through
     ``add``: every add rebuilds the support (per store version), so the
     whole fill costs ~n^3 host work and runs at ANOMALY_SERVER_ROWS, not
-    10^4. Scores must equal the CPU driver's bit for bit."""
-    config = lof_config("lsh")
-    path = write_config("anomaly_lof_lsh.json", config)
+    10^4. Scores must equal the CPU driver's bit for bit. ``started``: the
+    server, started by ``start_phase7_servers``."""
+    config, path = anomaly_server_config()
     ref = AnomalyDriver(config, device="cpu")
     rng = np.random.default_rng(seed + 13)
-    with serving("anomaly", path) as cli:
+    with serving("anomaly", path, started) as cli:
         st0 = server_status(cli)
         lat = []
         t0 = time.perf_counter()
@@ -1458,26 +1510,45 @@ def phase_anomaly_server(Datum, AnomalyDriver, seed: int) -> dict:
                 launches=launched)
 
 
+def classifier_server_config(nn_method: str):
+    """(config, path) of phase 7's NN classifier server over ``nn_method``."""
+    config = load_config("classifier", "nn.json")
+    if nn_method == config["parameter"]["method"]:
+        return config, os.path.join(ROOT, "config", "classifier", "nn.json")
+    config["parameter"]["method"] = nn_method
+    return config, write_config(f"classifier_nn_{nn_method}.json", config)
+
+
+def start_phase7_servers(out: dict) -> None:
+    """Phase 7's four servers, started at once into ``out`` ({tag:
+    start_server's tuple}); returns once all of them answer, so their
+    boots overlap and each is driven alone afterwards."""
+    out["recommender"] = start_server(
+        "recommender", os.path.join(ROOT, "config", "recommender",
+                                    "default.json"))
+    out["anomaly"] = start_server("anomaly", anomaly_server_config()[1])
+    for m in CLASSIFIER_NN_METHODS:
+        out[f"classifier_{m}"] = start_server(
+            "classifier", classifier_server_config(m)[1], tag=f"_{m}")
+    await_started(out)
+
+
 def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
-                            seed: int) -> dict:
+                            seed: int, started) -> dict:
     """config/classifier/nn.json (k = 128), its nested method as shipped
     (euclid_lsh) or lsh; 10^4 examples through ``train``. Tie rule: where
     the CPU's k-th and (k+1)-th distances differ (by more than
     ``EXACT_TOL`` for euclid_lsh), the per-label scores are compared;
     where they tie, the scores' sum over the labels, which depends only on
-    the k nearest distances."""
-    config = load_config("classifier", "nn.json")
-    if nn_method != config["parameter"]["method"]:
-        config["parameter"]["method"] = nn_method
-        path = write_config(f"classifier_nn_{nn_method}.json", config)
-    else:
-        path = os.path.join(ROOT, "config", "classifier", "nn.json")
+    the k nearest distances. ``started``: the server, started by
+    ``start_phase7_servers``."""
+    config, path = classifier_server_config(nn_method)
     exact = nn_method in ("lsh", "minhash")
     rtol = 1e-9 if exact else 1e-4
     gap = 0.0 if exact else EXACT_TOL
     ref = ClassifierNNDriver(config, device="cpu")
     rng = np.random.default_rng(seed + 17)
-    with serving("classifier", path) as cli:
+    with serving("classifier", path, started) as cli:
         t0 = time.perf_counter()
         for lo in range(0, SERVER_ROWS, 200):
             batch = [[f"l{int(rng.integers(5))}", server_datum(rng, Datum, i)]
@@ -1886,14 +1957,14 @@ def linear_example(rng, Datum, engine: str, i: int):
 
 
 def phase_linear_server(Datum, Driver, engine: str, config_name: str,
-                        seed: int, extra=()) -> dict:
+                        seed: int, extra=(), started=None) -> dict:
     """config/<engine>/<config_name> on the card. First SERVER_ROWS rows
     in LINEAR_BATCH-row train calls from LINEAR_THREADS clients at once
     (the coalescer merges them; each call must return its own count); then
     ``clear`` and the same rows from one client, so each call is one flush
     and a CPU driver fed the same batches holds the same model; then
     LINEAR_QUERIES classify / estimate calls against it. ``extra``: more
-    server flags."""
+    server flags; ``started``: the server, already started with them."""
     path = os.path.join(ROOT, "config", engine, config_name)
     config = load_config(engine, config_name)
     ref = Driver(config, device="cpu")
@@ -1904,8 +1975,8 @@ def phase_linear_server(Datum, Driver, engine: str, config_name: str,
     query = "classify" if engine == "classifier" else "estimate"
     from jubatus_tpu_torch.rpc.client import RpcClient
 
-    with serving(engine, path, start_server(engine, path,
-                                            extra=extra)) as cli:
+    with serving(engine, path, started or start_server(
+            engine, path, extra=extra)) as cli:
         st0 = server_status(cli)
         counts, errors = [], []
 
@@ -2418,7 +2489,9 @@ SL_SERVERS = (
     ("weight", "default.json", 0.0),
 )
 SL_ROWS = 2_000               # rows written to each row / linear server
-SL_LOF_ROWS = 200             # anomaly adds (each rebuilds the support)
+SL_LOF_ROWS = 50              # anomaly adds (each rebuilds the support;
+                              # cut from 200: the adds set the saved model
+                              # up, and phase 7 times 200 of them)
 SL_QUERIES = 20
 #: methods that change a model; every other call of a session is a query
 UPDATES = frozenset((
@@ -2963,8 +3036,7 @@ PUSH_ROWS = 3_000             # arow.json rows, a third per member
 ASYNC_ROWS = 2_000            # arow.json rows, half per member
 ASYNC_STREAM_STEPS = 4        # train + do_mix on each member, in turns
 ELASTIC_ROWS = 62_500         # cut from phase 3's 10^6 to keep the run inside
-                              # its limit; phase 13 fills and drains 1.25·10^5
-                              # rows a member
+                              # its limit
 ELASTIC_FILL = 20_000         # rows per put_rows call of the fill
 ELASTIC_QUERIES = 5
 STORE_ROWS = 2_000            # regression rows before the warm boot
@@ -3567,20 +3639,72 @@ def phase_quarantine(Datum, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # phase 13: the fleet — jubacoordd, jubaconfig, jubavisor, jubactl and one
-# routing proxy per engine, every process on the card
+# routing proxy per engine, every member on the card; then the fleet's views
 # ---------------------------------------------------------------------------
-FLEET_NN_ROWS = 125_000       # put_rows per NN member (cut from 5·10^5,
-                              # then 2.5·10^5 until PR 12: the run's limit)
+FLEET_NN_ROWS = 31_250        # put_rows per NN member (cut from 5·10^5,
+                              # then 2.5·10^5 and 1.25·10^5, for the run's
+                              # limit: phase 12 times the same put_rows
+                              # fill, pull and drain)
 FLEET_NN_FILL = 20_000        # rows per put_rows call
 FLEET_SETS = 2_000            # set_row calls through the proxy
 FLEET_QUERIES = 200           # each NN query method through the proxy
-FLEET_ADDS = 200              # anomaly adds through the proxy
+FLEET_ADDS = 50               # anomaly adds through the proxy (cut from
+                              # 200: phase 7 times 200 adds of the same
+                              # config over the wire)
 FLEET_SCORES = 20             # calc_score through the proxy
 FLEET_TRAIN = 10_000          # regression rows through the proxy
 FLEET_ESTIMATES = 50
 FLEET_WAIT_S = 300            # longest wait for a fleet, a drain, a stop
 FLEET_ENGINES = (("nearest_neighbor", "fleet_nn"), ("anomaly", "fleet_lof"),
                  ("regression", "fleet_reg"))
+#: the NN proxy's SLO: every proxied NN query's dispatch exceeds 50 µs, so
+#: it burns from the first tick that sees one (the windows are short and
+#: the incident window long: one bundle for the phase)
+FLEET_SLO = "latency:rpc.neighbor_row_from_datum:p99:0.05"
+FLEET_VIEW_QUERIES = 20       # proxied NN queries just before the views
+FLEET_FORENSICS_REPS = 5      # timed calls of each forensics RPC
+#: the forensics RPCs a proxy folds: method -> its arguments after the name
+FLEET_FORENSICS = (("get_spans", ("",)), ("get_slow_log", ()),
+                   ("get_timeseries", ()), ("get_alerts", ()),
+                   ("get_quality", ()), ("get_usage", ()),
+                   ("get_profile", (60.0,)), ("get_events", (0, "")),
+                   ("get_incidents", ("",)))
+
+
+def cuda_device_fds(pid: int) -> list:
+    """The /dev/nvidia* nodes that process ``pid`` holds open (from /proc).
+    Once a process has initialised the CUDA driver (a context, or no more
+    than ``torch.cuda.is_available()``) it holds /dev/nvidiactl and its
+    card's node; ``import torch`` opens none, though it maps libcuda."""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:  # closed since the listing
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def rss_split_mb(pid: int) -> dict:
+    """Process ``pid``'s resident set in MiB (/proc/<pid>/smaps): in mapped
+    files (the shared libraries) and in the rest (heap, anonymous)."""
+    files = other = 0
+    name = ""
+    with open(f"/proc/{pid}/smaps") as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if not parts[0].endswith(":"):  # a mapping's header line
+                name = parts[5] if len(parts) > 5 else ""
+            elif parts[0] == "Rss:":
+                if name.startswith("/"):
+                    files += int(parts[1])
+                else:
+                    other += int(parts[1])
+    return dict(files=round(files / 1024, 1), other=round(other / 1024, 1))
 
 
 def spawn(tag: str, *argv):
@@ -3661,8 +3785,9 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
     each id held by both CHT(2) owners, then ``calc_score``. regression:
     FLEET_TRAIN rows in calls of LINEAR_BATCH through the proxy, then
     ``estimate``. The broadcasts (``get_status`` merge, ``save`` merge,
-    ``clear`` all_and), then ``jubactl -c drain`` of one NN member under a
-    writer through the proxy (no client error, every row handed off),
+    ``clear`` all_and), the views (``fleet_views``), then ``jubactl -c
+    drain`` of one NN member under a writer through the proxy (no client
+    error, every row handed off),
     ``rebalance``, ``rollback``, ``status --all``, ``watch --once`` and
     ``stop``: the visor is left with no children. ``member_flags``: more
     server flags for every member (the visor's ``--server-flags``)."""
@@ -3721,15 +3846,24 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
                            "-C", "4", "-D", d, "-S", str(10 ** 9),
                            "-I", str(1 << 30))
             check(rc == 0, f"jubactl start {engine}: {text}")
-        proxies = {}
+        proxies, proxy_pids = {}, {}
         for engine, name in FLEET_ENGINES:
             pport = free_port()
-            procs.append(spawn(f"proxy_{engine}",
-                               "jubatus_tpu_torch.server.proxy", engine,
-                               "-z", locator, "-p", str(pport), "-b",
-                               "127.0.0.1", "-c", "8", "-t", "300",
-                               "--interconnect-timeout", "300"))
+            planes = ["--telemetry-interval", "1", "--metrics-port", "0",
+                      "--slowlog-min-count", "8", "--incident-dir",
+                      server_datadir(f"proxy_{engine}_{pport}")]
+            if engine == "nearest_neighbor":
+                planes += ["--slo", FLEET_SLO, "--slo-fast-window", "30",
+                           "--slo-slow-window", "60", "--incident-window",
+                           "3600"]
+            proc = spawn(f"proxy_{engine}",
+                         "jubatus_tpu_torch.server.proxy", engine,
+                         "-z", locator, "-p", str(pport), "-b",
+                         "127.0.0.1", "-c", "8", "-t", "300",
+                         "--interconnect-timeout", "300", *planes)
+            procs.append(proc)
             proxies[engine] = pport
+            proxy_pids[engine] = proc[0].pid
         for engine, name in FLEET_ENGINES:
             wait_for(lambda e=engine, n=name: len(membership.get_all_actives(
                 view, e, n)) == 2, f"two {engine} members never joined",
@@ -3898,6 +4032,9 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
                   "a regression member kept its model after clear")
         bc["regression"]["clear_ms"] = ms
         out["broadcasts"] = bc
+        out["views"] = fleet_views(Datum, seed, locator, view, proxies,
+                                   proxy_pids, children_of(visor[0].pid),
+                                   pcli, direct)
 
         # -- operations: a drain under a writer through the proxy; the
         # drained member exits (--stop), so its counts are read first
@@ -4008,6 +4145,191 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
             stop_server(proc)
 
 
+def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
+                proxy_pids: dict, member_pids: list, pcli: dict,
+                direct: dict) -> dict:
+    """The fleet's observability views through phase 13's proxies, after
+    its traffic: one traced NN query through the proxy, assembled by
+    ``jubactl -c trace`` into one tree (proxy dispatch -> the proxy's
+    client call -> the member's dispatch) while K1's count moves on the
+    member; ``-c metrics``, ``-c alerts`` (the NN proxy's SLO fires),
+    ``-c quality``, ``-c usage``, ``-c profile`` (folded, and the
+    ``--device`` listing: no new capture), a live ``watch`` process's
+    frames, ``-c timeline`` and ``-c incident`` (one ``slo_firing`` bundle
+    at the NN proxy, in its directory under OUT_DIR); ``/metrics`` on each
+    proxy; each forensics RPC through the NN proxy timed; no proxy holds a
+    CUDA context (no /dev/nvidia* node open, where each of
+    ``member_pids`` holds one), and each proxy's resident set split by
+    kind. Host work: the views move no device time."""
+    import io
+    import urllib.request
+
+    from jubatus_tpu_torch.cmd import jubactl
+    from jubatus_tpu_torch.utils import tracing
+
+    t_views = time.perf_counter()
+    nn_name, reg_name = FLEET_ENGINES[0][1], FLEET_ENGINES[2][1]
+    nn = pcli["nearest_neighbor"]
+    members = direct["nearest_neighbor"]
+    rng = np.random.default_rng(seed + 1304)
+    res: dict = {}
+
+    def k1() -> int:
+        return sum(next(iter(c.call("get_status", nn_name).values()))[
+            "kernel.sig_scan.hamming.launches"] for c in members)
+
+    for i in range(FLEET_VIEW_QUERIES):
+        nn.call("neighbor_row_from_datum", nn_name,
+                server_datum(rng, Datum, i), 10)
+    before = k1()
+    ctx = tracing.new_root()
+    with tracing.use_trace(ctx):
+        got, ms = timed(nn.call, "neighbor_row_from_datum", nn_name,
+                        server_datum(rng, Datum, FLEET_VIEW_QUERIES), 10)
+    check(len(got) == 10, f"traced query: {len(got)} answers")
+    res["traced_query_ms"] = ms
+    res["traced_query_k1_launches"] = k1() - before
+    check(res["traced_query_k1_launches"] > 0,
+          "the traced query launched no K1 on a member")
+    # two telemetry ticks: the NN proxy's ring and SLO see the queries
+    time.sleep(2.5)
+
+    def run(*argv) -> str:
+        rc, text = ctl(jubactl, *argv, "-z", locator)
+        check(rc == 0, f"jubactl {' '.join(argv)}: rc {rc}: {text[-600:]}")
+        return text
+
+    t0 = time.perf_counter()
+    text = run("-c", "trace", "-t", "nearest_neighbor", "-n", nn_name,
+               ctx.trace_id)
+    res["trace_ms"] = (time.perf_counter() - t0) * 1e3
+    pnode = f"127.0.0.1_{proxies['nearest_neighbor']}"
+    check("1 root(s)" in text and f"rpc.neighbor_row_from_datum" in text
+          and "rpc.client.neighbor_row_from_datum" in text
+          and f"@{pnode}" in text
+          and any(f"@{c.host}_{c.port}" in text for c in members),
+          f"jubactl trace: {text}")
+    res["trace_tree"] = text.splitlines()
+    text = run("-c", "metrics", "-t", "nearest_neighbor", "-n", nn_name)
+    check("merged metrics from 2 node(s)" in text
+          and "rpc.neighbor_row_from_datum" in text, f"metrics: {text}")
+    text = run("-c", "alerts", "-t", "nearest_neighbor", "-n", nn_name)
+    check("1 alert(s) firing" in text and re.search(
+        rf"{pnode}\s+rpc\.neighbor_row_from_datum\.p99\s+FIRING", text)
+        is not None, f"alerts: {text}")
+    res["alerts"] = text.splitlines()
+    text = run("-c", "quality", "-t", "regression", "-n", reg_name)
+    check("data quality across 2 node(s)" in text, f"quality: {text}")
+    res["quality"] = text.splitlines()
+    text = run("-c", "usage", "-t", "nearest_neighbor", "-n", nn_name)
+    check("usage across 5 node(s)" in text and "(untagged)" in text,
+          f"usage: {text}")
+    res["usage"] = text.splitlines()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        text = run("-c", "profile", "-t", "nearest_neighbor", "-n", nn_name,
+                   "--folded")
+    folded = [ln for ln in text.splitlines() if ln.strip()]
+    check(folded and all(int(ln.rpartition(" ")[2]) > 0 for ln in folded)
+          and pnode in err.getvalue(), f"profile: {err.getvalue()}")
+    res["profile_folded_stacks"] = len(folded)
+    text = run("-c", "profile", "-t", "nearest_neighbor", "-n", nn_name,
+               "--device")
+    check(text.count("capture(s) in") == 2, f"profile --device: {text}")
+    text = run("-c", "timeline", "-t", "nearest_neighbor", "-n", nn_name)
+    check("slo.firing" in text and "membership." in text,
+          f"timeline: {text[-800:]}")
+    res["timeline_events"] = len(text.splitlines())
+    text = run("-c", "incident", "-t", "nearest_neighbor", "-n", nn_name)
+    fired = [ln for ln in text.splitlines() if "slo_firing:" in ln]
+    check(len(fired) == 1 and pnode in fired[0],
+          f"incident: one slo_firing bundle at the NN proxy: {text}")
+    res["incident"] = text.splitlines()
+    # the bundle is on disk in the proxy's directory under OUT_DIR
+    inc = nn.call("get_proxy_incidents", nn_name, "")[pnode]
+    check(os.path.realpath(inc["dir"]).startswith(
+        os.path.realpath(OUT_DIR)) and len(inc["incidents"]) == 1,
+        f"the NN proxy's bundles: {inc}")
+    # a live watch: the CLI refreshes its frame every second
+    frame_log = os.path.join(OUT_DIR, "chip_smoke_watch_live.log")
+    with open(frame_log, "w") as f:
+        live = subprocess.Popen(
+            [sys.executable, "-m", "jubatus_tpu_torch.cmd.jubactl", "-c",
+             "watch", "-t", "nearest_neighbor", "-n", nn_name, "-z",
+             locator, "--interval", "1", "--window", "60"], cwd=ROOT,
+            stdout=f, stderr=subprocess.STDOUT)
+    try:
+        def frames() -> int:
+            with open(frame_log) as f:
+                return f.read().count("\x1b[2J\x1b[H")
+
+        wait_for(lambda: frames() >= 2, "the live watch drew two frames",
+                 60.0)
+    finally:
+        stop_server(live)
+    with open(frame_log) as f:
+        # the first frame: complete, since a second one followed it
+        first = f.read().split("\x1b[2J\x1b[H")[1]
+    check("(2 server(s), 3 proxy(ies))" in first
+          and "alerts firing:" in first, f"watch frame: {first}")
+    t0 = time.perf_counter()
+    frame = jubactl.render_watch_frame(jubactl.collect_watch(
+        view, "nearest_neighbor", nn_name, 60.0))
+    res["watch_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    res["watch_frame"] = frame.splitlines()
+    # /metrics on every proxy
+    for engine, client in pcli.items():
+        (st,) = client.call("get_proxy_status",
+                            dict(FLEET_ENGINES)[engine]).values()
+        url = f"http://127.0.0.1:{st['argv.metrics_port']}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            body = r.read().decode()
+        check(f'engine="{engine}_proxy"' in body
+              and "jubatus_span_duration_seconds_bucket" in body,
+              f"{engine} proxy /metrics")
+    # each forensics RPC through the NN proxy: its own hop and the
+    # members' broadcast, timed from here
+    calls = {}
+    for method, args in FLEET_FORENSICS:
+        lat = []
+        for _ in range(FLEET_FORENSICS_REPS):
+            doc, ms = timed(nn.call, method, nn_name, *args)
+            lat.append(ms)
+        want = 2 if method == "get_quality" else 3
+        check(isinstance(doc, dict) and len(doc) == want,
+              f"{method} through the proxy: {sorted(doc)}")
+        calls[method] = statistics.median(lat)
+    res["forensics_call_ms"] = calls
+    # no proxy process holds a CUDA context: none holds a /dev/nvidia* node
+    # open, as every member does (the witness's control), and none reports
+    # the runtime's torch_* rows, which a process carries only once it has
+    # initialised CUDA
+    member_fds = {pid: cuda_device_fds(pid) for pid in member_pids}
+    check(len(member_fds) == sum(map(len, direct.values()))
+          and all(member_fds.values()),
+          f"a member holds no /dev/nvidia* node open: {member_fds}")
+    proxy_fds = {e: cuda_device_fds(pid) for e, pid in proxy_pids.items()}
+    check(not any(proxy_fds.values()), f"a proxy opened the card: {proxy_fds}")
+    res["member_nvidia_nodes"] = sorted(set().union(*member_fds.values()))
+    res["proxy_rss_mb"], res["proxy_rss_split_mb"] = {}, {}
+    for engine, pid in proxy_pids.items():
+        res["proxy_rss_split_mb"][engine] = rss_split_mb(pid)
+    for engine, c in pcli.items():
+        (st,) = c.call("get_proxy_status",
+                       dict(FLEET_ENGINES)[engine]).values()
+        cuda_rows = sorted(k for k in st if k.startswith("runtime.torch_"))
+        check(not cuda_rows, f"the {engine} proxy initialised CUDA: "
+              f"{cuda_rows}")
+        res["proxy_rss_mb"][engine] = round(
+            st["runtime.rss_bytes"] / 2 ** 20, 1)
+    (st,) = members[0].call("get_status", nn_name).values()
+    res["member_rss_mb"] = round(st["runtime.rss_bytes"] / 2 ** 20, 1)
+    res["member_device_reserved_mb"] = round(st.get(
+        "runtime.torch_device_bytes_reserved", 0) / 2 ** 20, 1)
+    res["views_s"] = time.perf_counter() - t_views
+    return res
+
+
 def answers_ok(cli, method: str, name: str) -> bool:
     try:
         cli.call(method, name)
@@ -4061,8 +4383,9 @@ IVF_NPROBE = 8                # --ann-nprobe's default
 SHARDS = 4                    # logical shards on cuda:0
 SHARD_IVF_CELLS = 16          # the sharded full-probe check's cells
 SHARD_IVF_QUERIES = 20
-IVF_SERVER_ROWS = 125_000     # the --ann ivf server's put_rows fill (the IVF
-                              # query at 10^6 rows is the flat index's)
+IVF_SERVER_ROWS = 62_500      # the --ann ivf server's put_rows fill (cut
+                              # from 2.5·10^5, then 1.25·10^5: the IVF query
+                              # at 10^6 rows is the flat index's)
 IVF_SERVER_QUERIES = 200
 IVF_LOAD_QUERIES = 50
 SHARD_LOF_SCORES = 20
@@ -5272,12 +5595,14 @@ def phase_collective_fleets(Datum, seed: int) -> dict:
 # phase 17: sharded checkpoints and the forensics plane
 # ---------------------------------------------------------------------------
 CK_SHARDS = (4, 2, 1)         # restore layouts of the 2^24 checkpoint
-FX_ROWS = SERVER_ROWS         # phase 4's 10^4 set_row per NN server
+FX_ROWS = SERVER_ROWS         # set_row calls per NN server
 FX_FILL_THREADS = 4
 FX_QUERIES = 200              # NN queries per server for p50/p99
 FX_CAPTURE_S = 2.0            # profile_device seconds
-FX_CAPTURES = 2               # captures per server: a process's first
-                              # pays the profiler's set-up, a later one not
+FX_CAPTURES = 2               # captures per server under --forensics-ab:
+                              # a process's first pays the profiler's
+                              # set-up, a later one not (the main path
+                              # takes the first only, for the run's limit)
 FX_TRAIN_ROWS = 256           # regression rows per train call
 FX_WARM_TRAINS = 96           # train calls before the capture: past the
 #                               slow log's first threshold refresh (64)
@@ -5573,11 +5898,11 @@ def nn_fill(port: int, Datum, seed: int) -> None:
             fut.result()
 
 
-def phase_forensics(torch, Datum, seed: int) -> dict:
+def phase_forensics(torch, Datum, seed: int, captures: int = 1) -> dict:
     """Servers on the card with ``-c 2 --metrics-port 0
     --telemetry-interval 1 --profile-dir <dir>``: two nearest_neighbor
     lsh.json servers (the stack sampler at its default 67 Hz and off)
-    filled with phase 4's 10^4 rows, and a regression default.json
+    filled with FX_ROWS rows, and a regression default.json
     server. On the sampled NN server a client keeps querying while
     ``profile_device`` captures FX_CAPTURE_S
     (K1 named in the artifact), likewise the regression server under a
@@ -5585,7 +5910,7 @@ def phase_forensics(torch, Datum, seed: int) -> dict:
     slow log and folded profile. FX_QUERIES queries in turns on the two
     NN servers give the sampler's cost on the query p50/p99; the telemetry
     sample's cost is timed in this process. Each capture is taken
-    FX_CAPTURES times (``*_recaptures``: those after the process's
+    ``captures`` times (``*_recaptures``: those after the process's
     first)."""
     from jubatus_tpu_torch.utils.runtime_telemetry import RuntimeTelemetry
     from jubatus_tpu_torch.utils.tracing import Registry
@@ -5640,7 +5965,7 @@ def phase_forensics(torch, Datum, seed: int) -> dict:
             clis["nn"], ports["nn"], "kernel.sig_scan.hamming.launches",
             lambda c: c.call("neighbor_row_from_datum", "smoke",
                              queries[next(nth) % FX_QUERIES], 10),
-            "sig_scan") for _ in range(FX_CAPTURES)]
+            "sig_scan") for _ in range(captures)]
         out["nn_capture"] = nn_caps[0]
         rows = [linear_example(rng, Datum, "regression", i)
                 for i in range(8 * FX_TRAIN_ROWS)]
@@ -5655,7 +5980,7 @@ def phase_forensics(torch, Datum, seed: int) -> dict:
         reg_caps = [capture_under_load(
             clis["regression"], ports["regression"],
             "kernel.online_scan.launches", train, "pa_scan")
-            for _ in range(FX_CAPTURES)]
+            for _ in range(captures)]
         out["regression_capture"] = reg_caps[0]
         out["nn_recaptures"] = nn_caps[1:]
         out["regression_recaptures"] = reg_caps[1:]
@@ -5784,16 +6109,20 @@ def run_forensics_ab(torch, Datum, ClassifierDriver, RegressionDriver,
                 f"| {kind} | {smi}")
     medians = {arm: median_tree(v) for arm, v in results.items()}
     log(f"[forensics_ab] medians {json.dumps(medians)} | {kind} | {smi}")
-    log_forensics(torch, Datum, seed, kind, smi)
+    log_forensics(torch, Datum, seed, kind, smi, FX_CAPTURES)
 
 
-def log_forensics(torch, Datum, seed: int, kind: str, smi: str) -> dict:
+def log_forensics(torch, Datum, seed: int, kind: str, smi: str,
+                  captures: int = 1) -> dict:
     """Phase 17's servers (``phase_forensics``), printed as ``[forensics]``
     lines: each capture on a line of its own."""
-    res = phase_forensics(torch, Datum, seed)
+    res = phase_forensics(torch, Datum, seed, captures)
     for key in ("nn_capture", "regression_capture", "nn_recaptures",
                 "regression_recaptures"):
-        log(f"[forensics] {key} {json.dumps(res.pop(key))} | {kind} | {smi}")
+        if res[key]:
+            log(f"[forensics] {key} {json.dumps(res[key])} | {kind} | "
+                f"{smi}")
+        del res[key]
     log(f"[forensics] {json.dumps(res)} | {kind} | {smi}")
     return res
 
@@ -6398,20 +6727,27 @@ def main(argv=None) -> int:
 
         def servers_path():
             total = {m: 0 for m in KERNELS}
-            runs = [lambda: phase_recommender_server(Datum, RecommenderDriver,
-                                                     args.seed),
-                    lambda: phase_anomaly_server(Datum, AnomalyDriver,
-                                                 args.seed)]
+            started: dict = {}
+            runs = [lambda: phase_recommender_server(
+                Datum, RecommenderDriver, args.seed, started["recommender"]),
+                lambda: phase_anomaly_server(Datum, AnomalyDriver, args.seed,
+                                             started["anomaly"])]
             runs += [lambda m=m: phase_classifier_server(
-                Datum, ClassifierNNDriver, m, args.seed)
-                for m in ("euclid_lsh", "lsh")]
-            for run in runs:
-                res = run()
-                tag = {"classifier": "classifier_nn"}.get(
-                    res["engine"], res["engine"] + "_server")
-                log(f"[{tag}] {json.dumps(res)} | {kind} | {smi}")
-                for m in KERNELS:
-                    total[m] += res["launches"][m]
+                Datum, ClassifierNNDriver, m, args.seed,
+                started[f"classifier_{m}"])
+                for m in CLASSIFIER_NN_METHODS]
+            try:
+                start_phase7_servers(started)
+                for run in runs:
+                    res = run()
+                    tag = {"classifier": "classifier_nn"}.get(
+                        res["engine"], res["engine"] + "_server")
+                    log(f"[{tag}] {json.dumps(res)} | {kind} | {smi}")
+                    for m in KERNELS:
+                        total[m] += res["launches"][m]
+            finally:  # each run stopped its own; this stops the rest
+                for proc, _, _ in started.values():
+                    stop_server(proc)
             return {"server_launches": total}
 
         def classifier_path():
@@ -6425,17 +6761,31 @@ def main(argv=None) -> int:
 
         def linear_servers_path():
             total = {m: 0 for m in RECORDED}
-            for engine, driver, config in (
-                    ("classifier", ClassifierDriver, "arow.json"),
-                    ("regression", RegressionDriver, "default.json")):
-                res = phase_linear_server(Datum, driver, engine, config,
-                                          args.seed)
-                log(f"[{engine}_server] {json.dumps(res)} | {kind} | {smi}")
-                query = "classify" if engine == "classifier" else "estimate"
-                flat_servers[engine] = dict(sequential=res["sequential"],
-                                            **{query: res[query]})
-                for m in RECORDED:
-                    total[m] += res["launches"][m]
+            engines = (("classifier", ClassifierDriver, "arow.json"),
+                       ("regression", RegressionDriver, "default.json"))
+            # both boots overlap; each server is driven alone once both
+            # answer
+            started: dict = {}
+            try:
+                for engine, _, config in engines:
+                    started[engine] = start_server(engine, os.path.join(
+                        ROOT, "config", engine, config))
+                await_started(started)
+                for engine, driver, config in engines:
+                    res = phase_linear_server(Datum, driver, engine, config,
+                                              args.seed,
+                                              started=started[engine])
+                    log(f"[{engine}_server] {json.dumps(res)} | {kind} | "
+                        f"{smi}")
+                    query = ("classify" if engine == "classifier"
+                             else "estimate")
+                    flat_servers[engine] = dict(sequential=res["sequential"],
+                                                **{query: res[query]})
+                    for m in RECORDED:
+                        total[m] += res["launches"][m]
+            finally:  # each run stopped its own; this stops the rest
+                for proc, _, _ in started.values():
+                    stop_server(proc)
             return {"server_launches": total}
 
         def clustering_graph_path():
@@ -6524,6 +6874,12 @@ def main(argv=None) -> int:
                 f"stop {res['visor_children_after_stop']}")
             for line in res["watch_frame"]:
                 log(f"[deploy] watch | {line}")
+            views = res["views"]
+            for key in ("trace_tree", "alerts", "quality", "usage",
+                        "incident", "watch_frame"):
+                for line in views.pop(key):
+                    log(f"[fleet_views] {key} | {line}")
+            log(f"[fleet_views] {json.dumps(views)} | {kind} | {smi}")
             return {"server_launches": res["server_launches"]}
 
         run_path("push_async_elastic_store", p12_path)

@@ -16,7 +16,11 @@ the JAX package's client:
   retry budget (rpc/retry.py); effectful calls propagate their first
   failure;
 - ``call_raw`` forwards an already-encoded params span and returns the
-  response's raw result span (the proxy's zero-decode relay).
+  response's raw result span (the proxy's zero-decode relay);
+- a call made under a trace context is a span of its own in the client's
+  registry, ``rpc.client.<method>`` under the child span id it ships, on
+  both paths, so an assembled trace shows each hop's wire and queue time
+  between the caller's dispatch and the callee's.
 
 ``RpcMClient`` fans one call out to N hosts in parallel, carrying the
 caller's trace context, deadline and principal into its executor. One
@@ -33,6 +37,7 @@ reducer fold of ``RpcMClient``.
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import threading
 import time
@@ -184,6 +189,17 @@ class RpcClient:
                 f"{method} @ {self.host}:{self.port}: deadline expired")
         return RpcTimeoutError(f"{method} @ {self.host}:{self.port}: timed out")
 
+    @contextlib.contextmanager
+    def _hop_span(self, child: Optional[tracing.TraceContext], method: str):
+        """The send and the read of one attempt as ``rpc.client.<method>``
+        under the child id the envelope ships (nothing without a trace)."""
+        if child is None:
+            yield
+            return
+        with tracing.use_trace(child), \
+                self._registry.span(f"rpc.client.{method}"):
+            yield
+
     # -- calls ---------------------------------------------------------------
     def call(self, method: str, *args: Any) -> Any:
         return self._with_retries(method, lambda: self._call_once(method, args))
@@ -216,9 +232,10 @@ class RpcClient:
                                     unicode_errors="surrogateescape")
             sock = self._connect()
             try:
-                sock.settimeout(eff_timeout)
-                sock.sendall(payload)
-                msg = self._read_response(sock, msgid)
+                with self._hop_span(child, method):
+                    sock.settimeout(eff_timeout)
+                    sock.sendall(payload)
+                    msg = self._read_response(sock, msgid)
             except socket.timeout as e:
                 self.close()
                 raise self._timeout_error(method) from e
@@ -269,19 +286,20 @@ class RpcClient:
                 bufs.append(msgpack.packb(pr))
             sock = self._connect()
             try:
-                sock.settimeout(eff_timeout)
-                # scatter-gather: no concat copy of a possibly large span
-                # (sendmsg may write short — finish with sendall)
-                sent = sock.sendmsg(bufs)
-                if sent < sum(len(b) for b in bufs):
-                    off = sent
-                    for b in bufs:
-                        if off >= len(b):
-                            off -= len(b)
-                            continue
-                        sock.sendall(memoryview(b)[off:])
-                        off = 0
-                frame = self._read_raw_response(sock)
+                with self._hop_span(child, method):
+                    sock.settimeout(eff_timeout)
+                    # scatter-gather: no concat copy of a possibly large
+                    # span (sendmsg may write short — finish with sendall)
+                    sent = sock.sendmsg(bufs)
+                    if sent < sum(len(b) for b in bufs):
+                        off = sent
+                        for b in bufs:
+                            if off >= len(b):
+                                off -= len(b)
+                                continue
+                            sock.sendall(memoryview(b)[off:])
+                            off = 0
+                    frame = self._read_raw_response(sock)
             except socket.timeout as e:
                 self.close()
                 raise self._timeout_error(method) from e

@@ -41,18 +41,42 @@ Beyond the reference, as in the JAX proxy:
   response, so train/classify payloads never materialize as Python
   objects here; anything irregular declines to the generic path.
 
-Not carried over: the C++ relay of the native transport, the legacy wire,
-and the observability planes (the metrics HTTP port, slow log, runtime
-telemetry, profiler, SLOs and time series, events and incidents, usage,
-quality, the forensics views and their RPCs). The flags that would switch
-one of those on make the main exit 1 with "not yet ported" and the
-ROADMAP item that ports it.
+The observability planes at the proxy hop, as in the JAX proxy (one
+telemetry thread ticks them, started and stopped with the listener):
+
+- **forensics**: the slow-request ring (``--slowlog-*``), the runtime
+  telemetry sampler (``--telemetry-interval``), the always-on stack
+  sampler (``--profile-hz``) with the slow log's tail trigger
+  (``--profile-trigger-*``), and ``/metrics`` + ``/healthz`` on
+  ``--metrics-port``;
+- **model health**: the time-series ring and the SLO engine
+  (``--timeseries-capacity``, ``--slo*``) over the proxy's own dispatch
+  and per-backend client-call spans;
+- **events and incidents**: the event journal (``--event-capacity``;
+  breaker transitions, SLO edges) and incident bundles on a firing SLO or
+  a degraded ``/healthz`` (``--incident-*``);
+- **usage**: the proxy's own per-tenant ledger (``--usage-*``): both
+  forward paths, the decoded one and the raw relay, bill the caller's
+  principal, the dispatch's CPU-seconds and the request and response
+  bytes.
+
+The forensics RPCs (``get_spans``, ``get_slow_log``, ``get_timeseries``,
+``get_alerts``, ``get_quality``, ``get_usage``, ``get_profile``,
+``get_events``, ``get_incidents``) broadcast to the backends and fold the
+proxy's own record in, keyed by node, so one call against the proxy
+returns the cluster's view; ``get_metrics`` and ``profile_device`` are
+plain broadcasts, and ``get_proxy_*`` answer for the proxy alone. No plane
+touches the card: the proxy never creates a CUDA context.
+
+Not carried over: the C++ relay of the native transport and the legacy
+wire (``--legacy-wire`` exits 1 with "not yet ported" and ROADMAP A23).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import random
 import threading
 import time
@@ -83,7 +107,13 @@ from jubatus_tpu_torch.rpc.errors import (
 )
 from jubatus_tpu_torch.rpc.retry import RetryBudget
 from jubatus_tpu_torch.rpc.server import RAW_FALLBACK, RawResult, RpcServer
-from jubatus_tpu_torch.utils import faults, tracing
+from jubatus_tpu_torch.utils import events, faults, tracing
+from jubatus_tpu_torch.utils import usage as usage_mod
+from jubatus_tpu_torch.utils.incidents import IncidentManager
+from jubatus_tpu_torch.utils.profiler import SamplingProfiler
+from jubatus_tpu_torch.utils.runtime_telemetry import RuntimeTelemetry
+from jubatus_tpu_torch.utils.slo import SloEngine, parse_slo
+from jubatus_tpu_torch.utils.timeseries import TimeSeriesRing
 
 log = logging.getLogger(__name__)
 
@@ -162,8 +192,8 @@ class _RingCache:
 
 @dataclasses.dataclass
 class ProxyArgs:
-    """≙ proxy_argv (server_util.cpp:440-557), for the planes the port's
-    proxy has. Same defaults: 4 worker threads vs the server's 2, 10 s
+    """≙ proxy_argv (server_util.cpp:440-557), with the JAX proxy's plane
+    flags and defaults: 4 worker threads vs the server's 2, 10 s
     timeouts, session-pool knobs."""
 
     engine: str = ""
@@ -176,6 +206,8 @@ class ProxyArgs:
     interconnect_timeout: float = 10.0
     session_pool_expire: float = 60.0   # --pool-expire
     session_pool_size: int = 0          # --pool-size, 0 = unbounded
+    #: Prometheus /metrics + /healthz HTTP port: -1 = off, 0 = ephemeral
+    metrics_port: int = -1
     #: circuit breaker tuning (rpc/breaker.py): this many transport
     #: failures to one backend inside the window open its breaker for
     #: the cooldown; half-open probes re-admit it
@@ -184,10 +216,47 @@ class ProxyArgs:
     breaker_cooldown: float = 5.0
     #: retry budget: failover retries per first-attempt forward
     retry_budget_ratio: float = 0.1
+    #: --slowlog-*: tail-based slow-request capture at the proxy hop
+    #: (utils/slowlog.py), the servers' semantics
+    slowlog_capacity: int = 256
+    slowlog_quantile: float = 0.99
+    slowlog_min_count: int = 64
+    #: runtime telemetry sampler period (0 disables the thread)
+    telemetry_interval: float = 10.0
+    #: --slo et al.: SLOs over the proxy's own spans, the servers'
+    #: grammar (utils/slo.py)
+    slo: List[str] = dataclasses.field(default_factory=list)
+    slo_fast_window: float = 300.0
+    slo_slow_window: float = 3600.0
+    slo_burn_threshold: float = 2.0
+    #: metric time-series ring depth (0 disables ring + SLO evaluation)
+    timeseries_capacity: int = 360
+    #: --profile-hz: the always-on stack sampler at the proxy hop; its
+    #: routing and fan-out stacks fold into the cluster profile beside
+    #: the backends'; 0 = off
+    profile_hz: float = 67.0
+    #: --profile-trigger-*: slow-log breach trigger for the proxy's spans
+    profile_trigger_breaches: int = 3
+    profile_trigger_window: float = 10.0
     #: --handoff-window: seconds after a membership change during which
     #: CHT-routed EFFECTFUL calls double-dispatch to the union of old
     #: and new ring owners; idempotent reads fail over new->old instead
     handoff_window: float = 15.0
+    #: --event-capacity: event journal depth at the proxy hop (breaker
+    #: transitions, SLO edges); 0 disables emission
+    event_capacity: int = 2048
+    #: --incident-window: debounce window (seconds) of the automatic
+    #: incident bundles at the proxy hop (0 disables auto-capture)
+    incident_window: float = 300.0
+    #: --incident-dir: capped bundle artifacts dir; empty = under /tmp
+    #: keyed by the bound port, as the JAX proxy's
+    incident_dir: str = ""
+    #: --usage-top: exact per-principal ledger rows at the proxy hop
+    #: (utils/usage.py); 0 disables the ledger
+    usage_top: int = 64
+    #: --usage-gauge-principals: top-N principals published as
+    #: usage.<principal>.* gauges each telemetry tick
+    usage_gauge_principals: int = 8
 
     @property
     def bind_host(self) -> str:
@@ -318,7 +387,68 @@ class Proxy:
         self._idempotent = idempotent_methods(self.engine)
         #: member-list-keyed ring cache + the double-dispatch window
         self.rings = _RingCache(handoff_window=args.handoff_window)
+        #: the /metrics + /healthz endpoint, with --metrics-port >= 0
+        self.metrics = None
+        self._init_planes()
         self._register_methods()
+
+    def _init_planes(self) -> None:
+        """The observability planes at the proxy hop, from their flags
+        (jubatus_tpu/server/proxy.py:366-447): the slow-request ring, the
+        runtime telemetry sampler, the stack sampler and its tail
+        trigger, the time series and SLOs, the event journal and incident
+        bundles, the usage ledger. None reads the card: the proxy has no
+        device work, and no capture is made here."""
+        args = self.args
+        self.rpc.trace.slowlog.configure(capacity=args.slowlog_capacity,
+                                         quantile=args.slowlog_quantile,
+                                         min_count=args.slowlog_min_count)
+        self.telemetry = RuntimeTelemetry(
+            self.rpc.trace, interval_sec=args.telemetry_interval)
+        self.profiler = SamplingProfiler(self.rpc.trace, hz=args.profile_hz)
+        if args.profile_trigger_breaches > 0 and self.profiler.enabled:
+            self.rpc.trace.slowlog.set_trigger(
+                self.profiler.tail_snapshot,
+                breaches=args.profile_trigger_breaches,
+                window_s=args.profile_trigger_window)
+        interval = self.telemetry.interval_sec
+        self.timeseries: Optional[TimeSeriesRing] = None
+        self.slo: Optional[SloEngine] = None
+        if args.timeseries_capacity > 0:
+            self.timeseries = TimeSeriesRing(
+                capacity=args.timeseries_capacity,
+                min_spacing_s=min(1.0, interval / 2) if interval > 0
+                else 0.0)
+            self.slo = SloEngine(
+                [parse_slo(spec) for spec in args.slo or []],
+                self.timeseries, self.rpc.trace,
+                fast_window_s=args.slo_fast_window,
+                slow_window_s=args.slo_slow_window,
+                burn_threshold=args.slo_burn_threshold)
+            self.telemetry.hooks.append(self._model_health_tick)
+        self.rpc.trace.events.set_capacity(args.event_capacity)
+        self.incidents = IncidentManager(
+            self.rpc.trace, self._incident_state, self._incident_dir,
+            window_s=args.incident_window, journal=self.rpc.trace.events)
+        if self.slo is not None:
+            self.slo.on_fire = self._on_slo_fire
+        # the proxy is in the request path: its own ledger bills each
+        # forward's dispatch span and bytes to the caller's principal
+        # (the RPC server accounts the raw relay and the decoded path
+        # alike), and jubactl -c usage folds it with the backends'
+        self.usage: Optional[usage_mod.UsageLedger] = None
+        if args.usage_top > 0:
+            self.usage = usage_mod.UsageLedger(
+                top=args.usage_top,
+                gauge_principals=args.usage_gauge_principals,
+                registry=self.rpc.trace)
+            self.rpc.usage_recorder = self.usage
+            self.rpc.trace.usage_sink = self.usage.span_sink
+            usage_mod.attach(self.usage)
+        self._was_degraded = False
+        #: the incident collector reads _health(), whose telemetry.status()
+        #: may run the sampler hooks again: the tick must not recurse
+        self._in_health_tick = False
 
     # -- session pool (proxy.hpp:502-593) ------------------------------------
     # Borrow/return: each in-flight forward owns a connection, so N
@@ -747,17 +877,226 @@ class Proxy:
         self._register("save", 2, "broadcast", aggregators.merge)
         self._register("load", 2, "broadcast", aggregators.all_and)
         self._register("get_status", 1, "broadcast", aggregators.merge)
+        self._register("get_metrics", 1, "broadcast", aggregators.merge)
         self._register("get_mix_history", 1, "broadcast", aggregators.concat)
+        # the forensics views: broadcast, then the proxy's own record
+        # folded in, so one call returns every hop (name, own, arity)
+        for name, own, arity in (
+                ("get_spans", self.get_proxy_spans, 2),
+                ("get_slow_log", self.get_proxy_slow_log, 1),
+                ("get_timeseries", self.get_proxy_timeseries, 1),
+                ("get_alerts", self.get_proxy_alerts, 1),
+                ("get_quality", self.get_proxy_quality, 1),
+                ("get_usage", self.get_proxy_usage, 1),
+                ("get_profile", self.get_proxy_profile, 2),
+                ("get_events", self.get_proxy_events, 3),
+                ("get_incidents", self.get_proxy_incidents, 2)):
+            self.rpc.register(name, self._forensics_handler(name, own),
+                              arity=arity)
+            self.rpc.register(name.replace("get_", "get_proxy_", 1), own,
+                              arity=arity)
+        # a device capture on every backend (jubactl -c profile --device)
+        self._register("profile_device", 2, "broadcast", aggregators.merge)
         self._register("do_mix", 1, "random", aggregators.pass_)
         # ring-version probe routes like any read (all backends agree
         # modulo watch latency)
         self._register("get_epoch", 1, "random", aggregators.pass_)
         self.rpc.register("get_proxy_status", self.get_proxy_status, arity=1)
+        self.rpc.register("get_proxy_metrics", self.get_metrics, arity=1)
         self.rpc.register("get_breakers", self.get_breakers, arity=1)
+
+    def _forensics_handler(self, name: str,
+                           own_fn: Callable[..., Dict[str, Any]]
+                           ) -> Callable[..., Dict[str, Any]]:
+        """Broadcast ``name`` to the backends and fold the proxy's own
+        record in. Backend failures (no actives, a partial cluster)
+        degrade to whatever answered plus the proxy's view: a forensics
+        query against a sick cluster is when partial data matters most."""
+        fan = self._handler(name, "broadcast", 2, aggregators.merge)
+
+        def handle(*params: Any) -> Dict[str, Any]:
+            out: Dict[str, Any] = {}
+            try:
+                folded = fan(*params)
+                if isinstance(folded, dict):
+                    out.update(folded)
+            except Exception:  # broad-ok — partial forensics beat none
+                log.debug("%s backend broadcast failed", name,
+                          exc_info=True)
+            out.update(own_fn(*params))
+            return out
+
+        return handle
 
     # -- own status (proxy_common::get_status) --------------------------------
     def _node(self) -> NodeInfo:
         return NodeInfo(self.args.bind_host, self.rpc.port or self.args.rpc_port)
+
+    def get_proxy_spans(self, _name: str = "",
+                        trace_id: str = "") -> Dict[str, Any]:
+        """This proxy's own span records of one trace (its dispatch and
+        per-backend client-call spans), keyed by proxy node name."""
+        return {self._node().name: self.rpc.trace.get_spans(_text(trace_id))}
+
+    def get_proxy_slow_log(self, _name: str = "") -> Dict[str, Any]:
+        """This proxy's slow-request ring."""
+        return {self._node().name: self.rpc.trace.slowlog.snapshot()}
+
+    def get_proxy_timeseries(self, _name: str = "") -> Dict[str, Any]:
+        """This proxy's metric time-series ring: its stats and points."""
+        if self.timeseries is None:
+            return {self._node().name: {"stats": {}, "points": []}}
+        return {self._node().name: {"stats": self.timeseries.stats(),
+                                    "points": self.timeseries.points()}}
+
+    def get_proxy_alerts(self, _name: str = "") -> Dict[str, Any]:
+        """This proxy's SLO state: firing alerts and burn rates."""
+        if self.slo is None:
+            return {self._node().name: {"alerts": [], "slos": []}}
+        return {self._node().name: {"alerts": self.slo.alerts(),
+                                    "slos": self.slo.status()}}
+
+    def get_proxy_quality(self, _name: str = "") -> Dict[str, Any]:
+        """The proxy hop has no train path, so no quality doc of its
+        own: the routed ``get_quality`` is the backends' fold alone."""
+        return {}
+
+    def get_proxy_usage(self, _name: str = "") -> Dict[str, Any]:
+        """This proxy's per-tenant ledger doc (every forward dispatches
+        here, so the hop has real cost to report)."""
+        if self.usage is None:
+            return {self._node().name: {}}
+        return {self._node().name: self.usage.snapshot()}
+
+    def get_proxy_profile(self, _name: str = "",
+                          seconds: float = 0.0) -> Dict[str, Any]:
+        """This proxy's folded stack profile over the last ``seconds``."""
+        return {self._node().name: self.profiler.profile(
+            float(seconds or 0.0))}
+
+    def get_proxy_events(self, _name: str = "", since: int = 0,
+                         grep: str = "") -> Dict[str, Any]:
+        """This proxy's event journal (breaker transitions, SLO edges)
+        merged with the process default journal, after the HLC ``since``
+        and filtered by ``grep``."""
+        since = int(since or 0)
+        grep = _text(grep) if grep else ""
+        recs = events.merge_events([
+            self.rpc.trace.events.snapshot(since=since, grep=grep),
+            events.default_journal().snapshot(since=since, grep=grep)])
+        return {self._node().name: {"events": recs,
+                                    "hlc_now": events.hlc_now(),
+                                    "stats": self.rpc.trace.events.stats()}}
+
+    def get_proxy_incidents(self, _name: str = "",
+                            incident_id: str = "") -> Dict[str, Any]:
+        """This proxy's incident bundles: an empty id lists them, an id
+        returns that bundle's document."""
+        incident_id = _text(incident_id) if incident_id else ""
+        if incident_id:
+            return {self._node().name: self.incidents.get(incident_id)}
+        return {self._node().name: self.incidents.list()}
+
+    def get_metrics(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
+        """This proxy's own mergeable metrics snapshot (the routed
+        ``get_metrics`` broadcasts to the backends instead)."""
+        return {self._node().name: self.rpc.trace.snapshot()}
+
+    # -- model health, events and incidents at the proxy hop ------------------
+    def _model_health_tick(self) -> None:
+        """One telemetry tick: the usage demand (capacity 0: a proxy has
+        no device plane), a ring sample, the SLOs, and an incident when
+        /healthz goes from ok to degraded."""
+        if self.timeseries is None or self._in_health_tick:
+            return
+        self._in_health_tick = True
+        try:
+            if self.usage is not None:
+                self.usage.tick(0.0)
+            self.timeseries.sample(self.rpc.trace.snapshot())
+            if self.slo is not None:
+                self.slo.evaluate()
+            degraded = bool(self._health().get("degraded_reasons"))
+            if degraded and not self._was_degraded:
+                self.incidents.trigger("healthz_degraded")
+            self._was_degraded = degraded
+        finally:
+            self._in_health_tick = False
+
+    def _incident_dir(self) -> str:
+        return self.args.incident_dir or os.path.join(
+            "/tmp", f"jubatus_incidents_{self.engine}_proxy_"
+            f"{self.rpc.port or self.args.rpc_port}")
+
+    def _on_slo_fire(self, name: str, _state: Dict[str, Any]) -> None:
+        """An SLO went to firing: one bundle, seeded with the breaching
+        trace ids of the slow log."""
+        ids = [r.get("trace_id", "")
+               for r in self.rpc.trace.slowlog.snapshot(last=16)]
+        self.incidents.trigger(f"slo_firing:{name}",
+                               trace_ids=[t for t in ids if t][-8:])
+
+    def _incident_state(self) -> Dict[str, Any]:
+        """What one proxy bundle holds: events, the slow log, the
+        per-backend breakers, the health verdict, the usage slice, the
+        time-series window and the profiler's tail."""
+        doc: Dict[str, Any] = {
+            "node": self._node().name,
+            "events": events.merge_events([
+                self.rpc.trace.events.snapshot(limit=256),
+                events.default_journal().snapshot(limit=64)]),
+            "slow_log": self.rpc.trace.slowlog.snapshot(last=64),
+            "breakers": self.breakers.snapshot(),
+            "health": self._health(),
+        }
+        if self.usage is not None:
+            doc["usage"] = self.usage.incident_doc()
+        if self.timeseries is not None:
+            doc["timeseries"] = self.timeseries.points(last=60)
+        try:
+            prof = self.profiler.profile(30.0)
+            folded = prof.get("folded") or {}
+            top = dict(sorted(folded.items(), key=lambda kv: -kv[1])[:50])
+            doc["profile"] = {"folded_top": top,
+                              "snapshots": prof.get("snapshots") or [],
+                              "stats": prof.get("stats") or {}}
+        except Exception:  # broad-ok — a sick profiler must not block capture
+            log.debug("incident profile fold failed", exc_info=True)
+        return doc
+
+    def _health(self) -> Dict[str, Any]:
+        """The /healthz document: open backend breakers and firing SLOs
+        as structured degraded reasons, the servers' shape."""
+        with self._counters_lock:
+            fwd, errs = self.forward_count, self.forward_errors
+        breakers = self.breakers.snapshot()
+        reasons: List[Dict[str, Any]] = []
+        open_backends = sorted(
+            str(k) for k, b in breakers.items() if b["state"] == "open")
+        if open_backends:
+            reasons.append({"kind": "breaker_open",
+                            "count": len(open_backends),
+                            "backends": open_backends})
+        if self.slo is not None:
+            for a in self.slo.alerts():
+                reasons.append({"kind": "slo_firing", "name": a["name"],
+                                "burn_fast": a.get("burn_fast"),
+                                "burn_slow": a.get("burn_slow")})
+        doc = {"engine": f"{self.engine}_proxy",
+               "status": "degraded" if reasons else "ok",
+               "degraded_reasons": reasons,
+               "uptime_s": int(time.time() - self.start_time),  # wall-clock
+               "rpc_port": self.rpc.port or self.args.rpc_port,
+               "forward_count": fwd, "forward_errors": errs,
+               "breaker_open": len(open_backends)}
+        pstats = self.profiler.stats()
+        doc["profiler_hz"] = pstats["hz"]
+        doc["profiler_samples"] = pstats["samples"]
+        rt = self.telemetry.status()
+        for k in ("rss_bytes", "open_fds", "threads", "slowlog_depth"):
+            if k in rt:
+                doc[k] = rt[k]
+        return doc
 
     def get_breakers(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
         """Breaker + retry-budget state, keyed by proxy node name — the
@@ -768,11 +1107,13 @@ class Proxy:
         }}
 
     def get_proxy_status(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
-        """This proxy's counters (the JAX proxy's keys for the planes the
-        port has): requests per method, forwards and forward errors, the
-        forwards the raw relay served (``relay_count``), the session
-        pool, the breakers, the ring cache, the retry budget, the flags,
-        and the dispatch spans and counters of its registry."""
+        """This proxy's counters (the JAX proxy's keys): requests per
+        method, forwards and forward errors, the forwards the raw relay
+        served (``relay_count``), the session pool, the breakers, the
+        ring cache, the retry budget, the flags, the dispatch spans and
+        counters of its registry, and the planes' ``runtime.*``,
+        ``slowlog.*``, ``profiler.*``, ``events.*``, ``incident.*`` and
+        ``usage.*`` rows."""
         breakers = self.breakers.snapshot()
         with self._counters_lock, self._pool_lock:
             st: Dict[str, Any] = {
@@ -799,6 +1140,15 @@ class Proxy:
             st[f"retry_budget.{k}"] = v
         st.update(self.args.flags_status())
         st.update(self.rpc.trace.trace_status())
+        for prefix, rows in (
+                ("runtime", self.telemetry.status()),
+                ("slowlog", self.rpc.trace.slowlog.stats()),
+                ("profiler", self.profiler.stats()),
+                ("events", self.rpc.trace.events.stats()),
+                ("incident", self.incidents.stats()),
+                ("usage", self.usage.stats() if self.usage is not None
+                 else {})):
+            st.update({f"{prefix}.{k}": v for k, v in rows.items()})
         return {self._node().name: st}
 
     # -- lifecycle ------------------------------------------------------------
@@ -809,6 +1159,23 @@ class Proxy:
             host=self.args.bind_host,
         )
         self.args.rpc_port = actual
+        # events carry this proxy's bound node name
+        self.rpc.trace.events.node = NodeInfo(self.args.bind_host,
+                                              actual).name
+        self.telemetry.start()
+        self.profiler.start()
+        if self.args.metrics_port >= 0:
+            from jubatus_tpu_torch.utils.metrics_http import MetricsServer
+
+            self.metrics = MetricsServer(
+                self.rpc.trace,
+                labels={"engine": f"{self.engine}_proxy",
+                        "node": f"{self.args.bind_host}_{actual}"},
+                health_fn=self._health, host=self.args.bind_host,
+                port=self.args.metrics_port)
+            self.args.metrics_port = self.metrics.start()
+            log.info("proxy metrics endpoint on %s:%d", self.args.bind_host,
+                     self.args.metrics_port)
         try:
             membership.register_proxy(self.coord, self.args.bind_host, actual)
         except Exception:  # broad-ok — registry is informational for proxies
@@ -820,7 +1187,16 @@ class Proxy:
         return self._stop_event.wait(timeout)
 
     def stop(self) -> None:
+        if self.usage is not None:
+            usage_mod.detach(self.usage)
         self.rpc.stop()
+        self.telemetry.stop()
+        self.profiler.stop()
+        if self.metrics is not None:
+            try:
+                self.metrics.stop()
+            except Exception:  # broad-ok — teardown must finish
+                log.debug("metrics endpoint stop failed", exc_info=True)
         with self._pool_lock:
             sessions = [s for lst in self._pool.values() for s in lst]
             self._pool.clear()
@@ -831,51 +1207,8 @@ class Proxy:
         self._stop_event.set()
 
 
-def _on(value: Any) -> bool:
-    return value > 0
-
-
-def _given(_value: Any) -> bool:
-    return True
-
-
-#: the JAX proxy's flags of the planes not ported here: flag -> (the
-#: ROADMAP item that ports it, its type — bool for a switch, list for a
-#: repeatable one —, the predicate that is true when the value switches
-#: the plane on). An explicit value that switches one on is refused.
-_UNPORTED_FLAGS: Dict[str, Tuple[str, Any, Callable[[Any], bool]]] = {
-    "--legacy-wire": ("A23 (the legacy wire)", bool, bool),
-    "--metrics-port": ("A20 (the proxy's metrics port)", int,
-                       lambda v: v >= 0),
-    "--slowlog-capacity": ("A20 (the proxy's slow-request log)", int, _on),
-    "--slowlog-quantile": ("A20 (the proxy's slow-request log)", float,
-                           _given),
-    "--slowlog-min-count": ("A20 (the proxy's slow-request log)", int,
-                            _given),
-    "--telemetry-interval": ("A20 (the proxy's telemetry and profiling)",
-                             float, _on),
-    "--slo": ("A20 (the proxy's SLOs and time series)", list, bool),
-    "--slo-fast-window": ("A20 (the proxy's SLOs and time series)", float,
-                          _given),
-    "--slo-slow-window": ("A20 (the proxy's SLOs and time series)", float,
-                          _given),
-    "--slo-burn-threshold": ("A20 (the proxy's SLOs and time series)",
-                             float, _given),
-    "--timeseries-capacity": ("A20 (the proxy's SLOs and time series)", int,
-                              _on),
-    "--profile-hz": ("A20 (the proxy's telemetry and profiling)", float,
-                     _on),
-    "--profile-trigger-breaches": (
-        "A20 (the proxy's telemetry and profiling)", int, _on),
-    "--profile-trigger-window": (
-        "A20 (the proxy's telemetry and profiling)", float, _given),
-    "--event-capacity": ("A22 (events and incident bundles)", int, _on),
-    "--incident-window": ("A22 (events and incident bundles)", float, _on),
-    "--incident-dir": ("A22 (events and incident bundles)", str, bool),
-    "--usage-top": ("A20 (the proxy's usage ledger)", int, _on),
-    "--usage-gauge-principals": ("A20 (the proxy's usage ledger)", int,
-                                 _given),
-}
+def _text(x: Any) -> str:
+    return x.decode() if isinstance(x, bytes) else str(x)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -895,6 +1228,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--interconnect-timeout", type=float, default=10.0)
     p.add_argument("--pool-expire", dest="session_pool_expire", type=float, default=60.0)
     p.add_argument("--pool-size", dest="session_pool_size", type=int, default=0)
+    p.add_argument("--metrics-port", type=int, default=-1,
+                   help="serve Prometheus /metrics + /healthz on this "
+                        "HTTP port (0 = ephemeral; default off)")
     p.add_argument("--breaker-failures", type=int, default=5,
                    help="transport failures within --breaker-window that "
                         "open a backend's circuit breaker")
@@ -905,30 +1241,86 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--retry-budget-ratio", type=float, default=0.1,
                    help="failover retries allowed per first-attempt "
                         "forward (token bucket; 0 disables failover)")
+    p.add_argument("--slowlog-capacity", type=int, default=256,
+                   help="slow-request ring size at the proxy hop "
+                        "(0 disables tail-based capture)")
+    p.add_argument("--slowlog-quantile", type=float, default=0.99,
+                   help="per-span histogram quantile at/above which a "
+                        "forwarded request is captured in the slow log")
+    p.add_argument("--slowlog-min-count", type=int, default=64,
+                   help="samples a span needs before slow-log "
+                        "thresholding starts")
+    p.add_argument("--telemetry-interval", type=float, default=10.0,
+                   help="runtime telemetry sampling period in seconds "
+                        "(0 disables the sampler thread)")
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="declarative SLO at the proxy hop, evaluated as "
+                        "a multi-window burn rate (repeatable; the "
+                        "servers' grammar: latency:<span>:p<QQ>:"
+                        "<threshold_ms>[:<objective>], error_rate:"
+                        "<span|*>:<objective>, gauge:<key>:<ceiling>)")
+    p.add_argument("--slo-fast-window", type=float, default=300.0,
+                   help="fast burn-rate window in seconds")
+    p.add_argument("--slo-slow-window", type=float, default=3600.0,
+                   help="slow burn-rate window in seconds")
+    p.add_argument("--slo-burn-threshold", type=float, default=2.0,
+                   help="fire when BOTH windows burn at/above this "
+                        "multiple of the sustainable budget spend")
+    p.add_argument("--timeseries-capacity", type=int, default=360,
+                   help="metric time-series ring depth (points; 0 "
+                        "disables the ring and SLO evaluation)")
+    p.add_argument("--profile-hz", type=float, default=67.0,
+                   help="always-on stack sampling rate at the proxy hop "
+                        "(Hz); the proxy's samples fold into jubactl -c "
+                        "profile next to the backends'; 0 disables")
+    p.add_argument("--profile-trigger-breaches", type=int, default=3,
+                   help="slow-log captures of the SAME span inside "
+                        "--profile-trigger-window that auto-capture a "
+                        "profile snapshot (once per window; 0 disables)")
+    p.add_argument("--profile-trigger-window", type=float, default=10.0,
+                   help="breach-counting window (seconds) for the "
+                        "tail-triggered profile snapshot")
     p.add_argument("--handoff-window", type=float, default=15.0,
                    help="seconds after a membership change during which "
                         "CHT-routed effectful calls double-dispatch to "
                         "the union of old and new ring owners (no key "
                         "has zero owners while rows migrate); idempotent "
                         "reads fail over new->old instead")
-    # the JAX proxy's flags of planes not ported: a value that switches
-    # one on is refused below
-    for flag, (_, typ, _) in _UNPORTED_FLAGS.items():
-        if typ is bool:
-            p.add_argument(flag, action="store_true", help="not yet ported")
-        elif typ is list:
-            p.add_argument(flag, action="append", default=None,
-                           help="not yet ported")
-        else:
-            p.add_argument(flag, type=typ, default=None,
-                           help="not yet ported")
+    p.add_argument("--event-capacity", type=int, default=2048,
+                   help="event journal depth at the proxy hop (breaker "
+                        "transitions, proxy SLO edges; served by "
+                        "get_events / jubactl -c timeline); 0 disables "
+                        "emission")
+    p.add_argument("--incident-window", type=float, default=300.0,
+                   help="debounce window (seconds) for automatic "
+                        "incident bundles at the proxy hop: a firing "
+                        "proxy SLO or degraded /healthz captures ONE "
+                        "correlated snapshot per window; 0 disables")
+    p.add_argument("--incident-dir", default="",
+                   help="capped incident-bundle artifacts dir (oldest "
+                        "pruned); empty = under /tmp keyed by the "
+                        "bound port")
+    p.add_argument("--usage-top", type=int, default=64,
+                   help="exact per-principal usage-ledger rows at the "
+                        "proxy hop (overflow folds into the '(other)' "
+                        "row backed by a heavy-hitter sketch; 0 "
+                        "disables the ledger)")
+    p.add_argument("--usage-gauge-principals", type=int, default=8,
+                   help="top-N principals published as "
+                        "usage.<principal>.* gauges each telemetry tick")
+    p.add_argument("--legacy-wire", action="store_true",
+                   help="not yet ported (ROADMAP A23)")
     ns = p.parse_args(argv)
-    for flag, (item, _, switches_on) in _UNPORTED_FLAGS.items():
-        value = getattr(ns, flag[2:].replace("-", "_"))
-        if value is not None and switches_on(value):
-            print(f"{flag}: this plane of the proxy is not yet ported "
-                  f"(ROADMAP {item})", file=sys.stderr)
-            return 1
+    if ns.legacy_wire:
+        print("--legacy-wire: this plane of the proxy is not yet ported "
+              "(ROADMAP A23, the legacy wire)", file=sys.stderr)
+        return 1
+    ns.slo = ns.slo or []
+    for spec in ns.slo:
+        try:  # bad grammar is refused at argv time
+            parse_slo(spec)
+        except ValueError as e:
+            raise SystemExit(str(e))
     args = ProxyArgs(**{f.name: getattr(ns, f.name)
                         for f in dataclasses.fields(ProxyArgs)
                         if hasattr(ns, f.name)})

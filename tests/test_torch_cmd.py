@@ -15,6 +15,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -364,6 +365,38 @@ def test_jubactl_unported_commands_exit_with_their_roadmap_item(cmd,
         f"{jubactl.NOT_YET_PORTED[cmd]})" in err
 
 
+def test_jubactl_tune_and_autoscale_wait_for_the_perf_tuner(capsys):
+    """get_tune is the perf tuner's (A21), as is the autoscaler: both
+    commands name A21, and every other JAX command is served."""
+    assert jubactl.NOT_YET_PORTED == {"tune": "A21", "autoscale": "A21"}
+    assert jubactl.main(["-c", "tune", "-t", "stat", "-n", "x"]) == 1
+    assert "jubactl -c tune: not yet ported (ROADMAP A21)" in \
+        capsys.readouterr().err
+    from jubatus_tpu.cmd import jubactl as jjubactl
+
+    def commands(mod):
+        (action,) = [a for a in mod._parser()._actions
+                     if "--cmd" in a.option_strings]
+        return set(action.choices)
+
+    assert commands(jubactl) == commands(jjubactl)
+
+
+def test_jubactl_forwards_timeout_and_logdir_to_the_visor(monkeypatch):
+    """``-T`` / ``-L`` ride the start argv map as the JAX jubactl sends
+    them (the port visor turns them into --timeout / --logdir)."""
+    sent = []
+    monkeypatch.setattr(jubactl, "send2supervisor",
+                        lambda coord, cmd, engine, name, num, argv:
+                        sent.append(argv) or 0)
+    monkeypatch.setattr(jubactl, "create_coordinator",
+                        lambda spec: MemoryCoordinator(_Store()))
+    assert jubactl.main(["-c", "start", "-t", "stat", "-n", "x", "-z",
+                         "memory", "-T", "7", "-L", "/logs"]) == 0
+    (argv,) = sent
+    assert (argv["timeout"], argv["logdir"]) == (7, "/logs")
+
+
 # -- tests/test_elastic.py, on the port ---------------------------------------------
 
 def _boot(store, auto_rebalance=True, drain_grace=0.2):
@@ -459,7 +492,7 @@ def test_jubactl_drain_and_rebalance(capsys):
         s2.stop()
 
 
-def test_status_and_watch_carry_epoch_and_drain_state(capsys):
+def test_status_and_watch_carry_epoch_and_drain_state(capsys, monkeypatch):
     store = _Store()
     s1 = _boot(store)
     s2 = _boot(store)
@@ -477,7 +510,22 @@ def test_status_and_watch_carry_epoch_and_drain_state(capsys):
         # the CLI form prints the same frame
         assert jubactl.show_watch(view, ENGINE, NAME, once=True) == 0
         assert "epoch 2" in capsys.readouterr().out
-        assert jubactl.show_watch(view, ENGINE, NAME) == 1  # live: A20
+        # live: full-frame refreshes every --interval until interrupted
+        naps = []
+        real_sleep = time.sleep
+
+        def sleep(s):
+            if threading.current_thread() is not threading.main_thread():
+                return real_sleep(s)  # the servers' own threads
+            naps.append(s)
+            if len(naps) == 2:
+                raise KeyboardInterrupt
+
+        monkeypatch.setattr(time, "sleep", sleep)
+        assert jubactl.show_watch(view, ENGINE, NAME, interval=1.5) == 0
+        out = capsys.readouterr().out
+        assert out.count("\x1b[2J\x1b[H") == 2 and "epoch 2" in out
+        assert naps == [1.5, 1.5]
     finally:
         s1.stop()
         s2.stop()

@@ -222,6 +222,52 @@ def test_telemetry_sample_never_initializes_cuda():
     assert proc.stdout.split() == ["False", "[]", "True"]
 
 
+_PROXY_PROBE = r"""
+import sys, time
+import torch
+from jubatus_tpu_torch.cmd import jubactl
+from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
+from jubatus_tpu_torch.rpc.client import RpcClient
+from jubatus_tpu_torch.server.proxy import Proxy, ProxyArgs
+from jubatus_tpu_torch.utils import tracing
+store = _Store()
+p = Proxy(ProxyArgs(engine="classifier", listen_addr="127.0.0.1",
+                    metrics_port=0, telemetry_interval=0.05,
+                    slo=["latency:rpc.classify:p99:1"]),
+          coord=MemoryCoordinator(store))
+p.start(0)
+time.sleep(0.3)
+p._model_health_tick()
+p.telemetry.sample()
+with tracing.use_trace(tracing.new_root()), \
+        RpcClient("127.0.0.1", p.args.rpc_port) as c:
+    for m in ("get_proxy_status", "get_usage", "get_timeseries", "get_alerts",
+              "get_quality", "get_slow_log", "get_incidents"):
+        c.call(m, "x", *(("",) if m == "get_incidents" else ()))
+    c.call("get_profile", "x", 0.0)
+    c.call("get_events", "x", 0, "")
+jubactl.render_watch_frame({"nodes": {}, "proxies": {}})
+p.stop()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "jubatus_tpu" or m.startswith("jubatus_tpu."))
+print(torch.cuda.is_initialized(), ",".join(bad) or "-")
+"""
+
+
+def test_proxy_planes_never_initialize_cuda():
+    """A proxy with every plane on (telemetry ticks, SLOs, /metrics, the
+    usage ledger's capacity tick, the stack sampler) answering each
+    forensics RPC creates no CUDA context and loads nothing of jax."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _PROXY_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "-"]
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

@@ -230,13 +230,28 @@ def test_peek_cluster_name_reads_the_first_param_without_decoding():
     assert _peek_cluster_name(msgpack.packb([1, "c"])) is None
 
 
-def test_unported_proxy_flags_exit_with_their_roadmap_item(capsys):
-    from jubatus_tpu_torch.server.proxy import main
+def test_unported_proxy_flags_exit_with_their_roadmap_item(capsys,
+                                                          monkeypatch):
+    """Only the legacy wire (A23) is refused; the planes' flags, such as
+    --metrics-port, serve."""
+    from jubatus_tpu_torch.server import proxy as proxy_mod
 
-    assert main(["classifier", "-z", "memory", "--metrics-port", "0"]) == 1
-    assert "not yet ported (ROADMAP A20" in capsys.readouterr().err
-    assert main(["classifier", "-z", "memory", "--legacy-wire"]) == 1
-    assert "ROADMAP A23" in capsys.readouterr().err
+    assert proxy_mod.main(["classifier", "-z", "memory",
+                           "--legacy-wire"]) == 1
+    assert "not yet ported (ROADMAP A23" in capsys.readouterr().err
+    ports = []
+
+    def join(self, timeout=None):
+        ports.append(self.metrics.port if self.metrics else None)
+        self.stop()
+        return True
+
+    monkeypatch.setattr(proxy_mod.Proxy, "join", join)
+    assert proxy_mod.main(["classifier", "-z", "memory", "-b", "127.0.0.1",
+                           "-p", "0", "--metrics-port", "0",
+                           "--telemetry-interval", "0"]) == 0
+    assert ports and ports[0]
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 # -- tests/test_proxy_engines.py -----------------------------------------------
