@@ -60,9 +60,9 @@ each of which fails the run (non-zero exit, no result line) on error:
    support and every score held against the port's driver on the CPU fed
    the same rows (lsh/minhash exactly, euclid_lsh within LOF_SCORE_RTOL);
    float32 matmul must be at full precision (no TF32);
-7. servers: the recommender (default.json, 10^4 update_row), anomaly (LOF
+7. servers: the recommender (default.json, 2,500 update_row), anomaly (LOF
    over lsh, 200 add: each add rebuilds the support) and classifier
-   (``config/classifier/nn.json`` as shipped and with nested lsh, 10^4
+   (``config/classifier/nn.json`` as shipped and with nested lsh, 2,500
    examples) servers on the card, all four started at once and each
    driven alone once all four answer, every answer compared with the
    port's driver on the CPU fed the same datums;
@@ -227,7 +227,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    ``save_model`` / ``load_model`` of the same state; then servers started
    with ``-c 2 --metrics-port 0 --telemetry-interval 1 --profile-dir``: two
    nearest_neighbor lsh.json (the stack sampler at 67 Hz and off, each
-   with 10^4 set_row; query p50/p99 in turns) and a regression
+   with 2,500 set_row; query p50/p99 in turns) and a regression
    default.json; ``profile_device`` once on each (a process's first
    capture; ``--forensics-ab`` takes a later one too), under a querying
    (training) client
@@ -260,9 +260,36 @@ each of which fails the run (non-zero exit, no result line) on error:
    answers of both against the CPU port's driver, the memo caches' hit
    rate; then the usage ledger's billed "device seconds" beside the
    CUDA-event time of the same flushes (an ``arow.json`` server in this
-   process).
+   process);
+19. the control loops and the legacy wire: (a) two regression
+   ``default.json`` servers in this process, ``--auto-tune on`` and
+   ``--auto-tune observe`` with ``--telemetry-interval 1``, fed one
+   client's stream of phase 9's rows in calls of 256 in bursts and
+   pauses: the ``on`` server's coalescer depth moves and ``get_tune``
+   journals it, the ``observe`` server's stays and its journal holds the
+   dry-run intents, S1 launches on both, 200 ``estimate`` answers agree
+   across the two, and each tuner tick is timed on the host; (b) two
+   ``arow.json`` members under ``--mixer collective_mixer`` as the two
+   gloo ranks of one world on cuda:0 (beside (a)), the master's PerfTuner
+   ticked by
+   hand (cooldown 0) between rounds: each plan change costs exactly one
+   ``prepare_not_viable`` RPC-fallback round (the peer takes the plan a
+   round later), and the members are bit-equal after the last round;
+   (c) on phase 13's fleet (its members tick their telemetry every
+   second), ``jubactl -c autoscale`` as a process against the regression
+   members while 8 clients train through the proxy (``--queue-hot`` set
+   from a short burst, ``--cooldown 20``: above a member's boot): the
+   visor spawns a third member on the card (it holds /dev/nvidia* nodes),
+   which answers through the proxy; the load stops and the loop drains a
+   member; no client error, one scale-out
+   and one scale-in in the journal, one ``--watch`` frame; (d) one
+   ``lsh.json`` server and a proxy started with ``--legacy-wire``:
+   pre-2013 clients (old-format requests, the port's ``legacy.unpackb``)
+   direct and through the proxy get answers equal to a modern client's,
+   a modern client on the detecting server stays modern, K1 launches,
+   and legacy against modern ``neighbor_row_from_datum`` p50.
 
-Phases 3-7 and 8-18 are the main path: each
+Phases 3-7 and 8-19 are the main path: each
 path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -336,6 +363,10 @@ LOF_ADDS = 2                  # each add rebuilds the support, whose cold
 LOF_SCORES = 50
 LOF_METHODS = ("euclid_lsh", "lsh", "minhash")
 ANOMALY_SERVER_ROWS = 200     # adds over the wire (each rebuilds the support)
+SERVER7_ROWS = 2_500          # phase 7's recommender update_row calls and
+#                               nn.json examples (cut from 10^4: phase 11
+#                               writes 2,000 rows to servers of both
+#                               configs, phase 9 10^4 to its own)
 CLASSIFIER_NN_METHODS = ("euclid_lsh", "lsh")  # phase 7's nn.json servers
 REPS = 30                     # timed kernel launches per shape (median)
 EDGE_C = (1, 7, 4099)         # phase 2 edge shapes
@@ -798,6 +829,28 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def free_port_block(n: int) -> int:
+    """A port p with p .. p + n all free and below the ephemeral range
+    (/proc/sys/net/ipv4/ip_local_port_range), so that no connection's
+    local port can take one of them later: jubavisor hands p + 1 .. p + n
+    to the servers it spawns, late ones (an autoscaler's) included."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+
+    def free(port: int) -> bool:
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("0.0.0.0", port))
+            except OSError:
+                return False
+        return True
+
+    for base in range(low - 2 * (n + 1), 1024, -(n + 1)):
+        if all(free(p) for p in range(base, base + n + 1)):
+            return base
+    raise SmokeError(f"no block of {n + 1} free ports below {low}")
+
+
 def server_datum(rng, Datum, i: int):
     d = Datum()
     for j in rng.choice(64, 8, replace=False):
@@ -908,11 +961,21 @@ def print_server_log(log_path: str) -> None:
           file=sys.stderr)
 
 
+def with_gauges(cli, st: dict) -> dict:
+    """A member's status map with its registry gauges (``mix.*``,
+    ``ann.*``, ``shard.*``, served by get_metrics, as the JAX server
+    serves them) folded in under their own names."""
+    (snap,) = cli.call("get_metrics", "smoke").values()
+    for k, v in (snap.get("gauges") or {}).items():
+        st.setdefault(k, v)
+    return st
+
+
 def server_status(cli) -> dict:
     st = next(iter(cli.call("get_status", "smoke").values()))
     check(st.get("driver.device", "").startswith("cuda"),
           f"server runs on {st.get('driver.device')!r}, not the card")
-    return st
+    return with_gauges(cli, st)
 
 
 def server_launches(st: dict) -> dict:
@@ -1393,8 +1456,9 @@ def write_config(name: str, config: dict) -> str:
 
 def phase_recommender_server(Datum, RecommenderDriver, seed: int,
                              started) -> dict:
-    """config/recommender/default.json (inverted_index, cosine), 10^4
-    update_row calls; every query method against the CPU driver.
+    """config/recommender/default.json (inverted_index, cosine),
+    SERVER7_ROWS update_row calls; every query method against the CPU
+    driver.
     complete_row averages the 128 nearest rows: its values are compared
     where the CPU's 128th and 129th distances differ by more than
     ``EXACT_TOL`` (else the rows at the boundary may differ by a tie).
@@ -1405,7 +1469,7 @@ def phase_recommender_server(Datum, RecommenderDriver, seed: int,
     rng = np.random.default_rng(seed + 11)
     with serving("recommender", path, started) as cli:
         t0 = time.perf_counter()
-        for i in range(SERVER_ROWS):
+        for i in range(SERVER7_ROWS):
             d = server_datum(rng, Datum, i)
             check(cli.call("update_row", "smoke", f"u{i}", d) is True,
                   "update_row failed")
@@ -1413,8 +1477,8 @@ def phase_recommender_server(Datum, RecommenderDriver, seed: int,
         t_set = time.perf_counter() - t0
         lat, compared, skipped = [], 0, 0
         for i in range(20):
-            q = server_datum(rng, Datum, SERVER_ROWS + i)
-            rid = f"u{int(rng.integers(SERVER_ROWS))}"
+            q = server_datum(rng, Datum, SERVER7_ROWS + i)
+            rid = f"u{int(rng.integers(SERVER7_ROWS))}"
             for method, arg, local in (
                     ("similar_row_from_datum", q, ref.similar_row_from_datum),
                     ("similar_row_from_id", rid, ref.similar_row_from_id)):
@@ -1453,7 +1517,7 @@ def phase_recommender_server(Datum, RecommenderDriver, seed: int,
         check(compared >= 20, f"complete_row compared {compared} of 40")
         st = server_status(cli)
     return dict(engine="recommender", config="config/recommender/default.json",
-                rows=SERVER_ROWS, update_row_s=t_set, query=pcts(lat),
+                rows=SERVER7_ROWS, update_row_s=t_set, query=pcts(lat),
                 parity=dict(similar_row_abs_tol=EXACT_TOL,
                             complete_compared=compared,
                             complete_tied=skipped),
@@ -1536,7 +1600,8 @@ def start_phase7_servers(out: dict) -> None:
 def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
                             seed: int, started) -> dict:
     """config/classifier/nn.json (k = 128), its nested method as shipped
-    (euclid_lsh) or lsh; 10^4 examples through ``train``. Tie rule: where
+    (euclid_lsh) or lsh; SERVER7_ROWS examples through ``train``. Tie
+    rule: where
     the CPU's k-th and (k+1)-th distances differ (by more than
     ``EXACT_TOL`` for euclid_lsh), the per-label scores are compared;
     where they tie, the scores' sum over the labels, which depends only on
@@ -1550,9 +1615,9 @@ def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
     rng = np.random.default_rng(seed + 17)
     with serving("classifier", path, started) as cli:
         t0 = time.perf_counter()
-        for lo in range(0, SERVER_ROWS, 200):
+        for lo in range(0, SERVER7_ROWS, 200):
             batch = [[f"l{int(rng.integers(5))}", server_datum(rng, Datum, i)]
-                     for i in range(lo, lo + 200)]
+                     for i in range(lo, min(lo + 200, SERVER7_ROWS))]
             check(cli.call("train", "smoke", batch) == len(batch),
                   "train failed")
             ref.train([(lab, d) for lab, d in batch])
@@ -1560,7 +1625,8 @@ def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
         check(cli.call("get_labels", "smoke") == ref.get_labels(),
               "get_labels differs")
         st0 = server_status(cli)
-        queries = [server_datum(rng, Datum, SERVER_ROWS + i) for i in range(20)]
+        queries = [server_datum(rng, Datum, SERVER7_ROWS + i)
+                   for i in range(20)]
         lat, per_label, by_sum = [], 0, 0
         for q in queries:
             (got,), ms = timed(cli.call, "classify", "smoke", [q])
@@ -1587,7 +1653,7 @@ def phase_classifier_server(Datum, ClassifierNNDriver, nn_method: str,
               f"classifier server: {launched} scans for {len(queries)} "
               f"queries")
     return dict(engine="classifier", config=f"config/classifier/nn.json, "
-                f"nested {nn_method}", rows=SERVER_ROWS, train_s=t_train,
+                f"nested {nn_method}", rows=SERVER7_ROWS, train_s=t_train,
                 classify=pcts(lat),
                 parity=dict(rtol=rtol, compared_per_label=per_label,
                             compared_by_sum=by_sum),
@@ -3772,7 +3838,8 @@ def one_of(got, answers, what: str) -> int:
                      f"direct answer")
 
 
-def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
+def phase_fleet(Datum, seed: int, member_flags: str = "",
+                autoscale: bool = False) -> dict:
     """A port ``jubacoordd`` (``--journal``), three configs written with
     ``jubaconfig`` (nearest_neighbor lsh.json, the LOF config of phase 6
     over lsh, regression default.json), one ``jubavisor`` on the card,
@@ -3790,7 +3857,10 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
     error, every row handed off),
     ``rebalance``, ``rollback``, ``status --all``, ``watch --once`` and
     ``stop``: the visor is left with no children. ``member_flags``: more
-    server flags for every member (the visor's ``--server-flags``)."""
+    server flags for every member (the visor's ``--server-flags``).
+    ``autoscale``: phase 19's autoscaler drill (``fleet_autoscale``) on
+    the regression members, once phase 13's own counts are read and
+    before the stop; its result is ``autoscale``."""
     import threading
 
     from jubatus_tpu_torch.cmd import jubaconfig, jubactl
@@ -3800,7 +3870,7 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
     from jubatus_tpu_torch.rpc.client import RpcClient
 
     d = fleet_dir("fleet13")
-    cport, vport = free_port(), free_port()
+    cport, vport = free_port(), free_port_block(8)
     locator = f"tcp://127.0.0.1:{cport}"
     procs = []
     out: dict = {}
@@ -4118,6 +4188,9 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
         # the members' stack samplers: their own wall, summed
         out["members_sampler_ms"] = sum(
             st.get("profiler.sample_ms_total", 0.0) for st in final.values())
+        if autoscale:
+            out["autoscale"] = fleet_autoscale(
+                Datum, seed, locator, view, d, proxies, visor[0].pid, procs)
         for c in pcli.values():
             c.close()
         for engine, name in FLEET_ENGINES:
@@ -4133,10 +4206,12 @@ def phase_fleet(Datum, seed: int, member_flags: str = "") -> dict:
         out["visor_children_after_stop"] = 0
         return dict(out, server_launches=launches)
     except Exception:
-        for _, log_path in procs:
-            with open(log_path) as f:
-                tail = f.read()[-2000:]
-            print(f"--- {log_path}, last lines:\n{tail}", file=sys.stderr)
+        for _, log_path in procs + [(None, os.path.join(d, "children.log"))]:
+            if os.path.exists(log_path):
+                with open(log_path) as f:
+                    tail = f.read()[-2000:]
+                print(f"--- {log_path}, last lines:\n{tail}",
+                      file=sys.stderr)
         raise
     finally:
         if view is not None:
@@ -5074,7 +5149,7 @@ def fs_status(cli, dev) -> dict:
     st = next(iter(cli.call("get_status", "smoke").values()))
     check(st.get("driver.device", "").startswith(dev.type),
           f"server runs on {st.get('driver.device')!r}, not {dev}")
-    return st
+    return with_gauges(cli, st)
 
 
 def phase_fs_servers(torch, ShardMesh, EngineServer, ServerArgs, Datum,
@@ -5595,7 +5670,9 @@ def phase_collective_fleets(Datum, seed: int) -> dict:
 # phase 17: sharded checkpoints and the forensics plane
 # ---------------------------------------------------------------------------
 CK_SHARDS = (4, 2, 1)         # restore layouts of the 2^24 checkpoint
-FX_ROWS = SERVER_ROWS         # set_row calls per NN server
+FX_ROWS = NN_SERVER_ROWS      # set_row calls per NN server (cut from
+#                               10^4: phase 18 fills two lsh.json servers
+#                               with 10^4 set_row each)
 FX_FILL_THREADS = 4
 FX_QUERIES = 200              # NN queries per server for p50/p99
 FX_CAPTURE_S = 2.0            # profile_device seconds
@@ -6607,6 +6684,677 @@ def phase_server_planes(torch, Datum, NearestNeighborDriver,
                 billing=billing, server_launches=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the control loops and the legacy wire
+# ---------------------------------------------------------------------------
+TUNE_BURST_CALLS = 40         # train calls of LINEAR_BATCH rows a burst
+TUNE_MIN_BURSTS = 2           # bursts before the coalescer check
+TUNE_MAX_BURSTS = 12          # bursts before the on server must have moved
+TUNE_PAUSE_S = 1.5            # pause between bursts (a telemetry tick and a half)
+TUNE_ESTIMATES = 200          # estimate calls held across the two servers
+MIXTUNE_ROUNDS = 4            # hand-ticked rounds of the collective pair
+MIXTUNE_ROWS = 512            # arow.json rows a round, half per member
+AS_CLIENTS = 8                # heavy clients at the regression proxy
+AS_BATCH = 1024               # rows a heavy client's train call (the
+#                               coalescer queues behind longer flushes)
+AS_BURST_S = 4.0              # the burst that sets --queue-hot
+AS_COOLDOWN_S = 20.0          # --cooldown: above a member's boot on the
+#                               card (6.8-12.8 s measured from the
+#                               scale-out to answering), so the load may
+#                               run on until the new member answers with
+#                               no 4th spawn
+AS_WAIT_S = 180               # longest wait for a spawn, an answer, a drain
+LEGACY_ROWS = 500             # set_row calls before the legacy sessions
+LEGACY_QUERIES = 200          # timed neighbor_row_from_datum, each wire
+
+
+def phase_tune_coalescer(Datum, EngineServer, ServerArgs, online_scan,
+                         seed: int) -> dict:
+    """Two regression ``default.json`` servers in this process on the card
+    with ``--telemetry-interval 1``, one ``--auto-tune on`` and one
+    ``--auto-tune observe``, fed one client's stream of phase 9's rows in
+    calls of LINEAR_BATCH (each call to both servers in turn, so both see
+    the same order), in bursts of TUNE_BURST_CALLS calls with TUNE_PAUSE_S
+    pauses. The ``on`` server's coalescer depth must move and ``get_tune``
+    journal it (``tune.applies`` >= 1); the ``observe`` server's must not,
+    and its journal must hold the dry-run intents; S1 must launch for
+    both; TUNE_ESTIMATES ``estimate`` answers agree across the two within
+    SCAN_CARD_TOL. Each tuner tick that the telemetry thread runs is timed
+    on the host."""
+    from jubatus_tpu_torch.cmd import jubactl
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    config = load_config("regression", "default.json")
+    servers, clis, tick_ms = {}, {}, {}
+    for mode in ("on", "observe"):
+        srv = EngineServer("regression", config, ServerArgs(
+            engine="regression", listen_addr="127.0.0.1",
+            telemetry_interval=1.0, auto_tune=mode,
+            datadir=server_datadir(f"tune_{mode}")), device="cuda")
+        check(srv.tuner is not None and srv.tuner.dry_run == (
+            mode == "observe"), f"--auto-tune {mode}: no tuner")
+        ticks = tick_ms[mode] = []
+
+        def timed_tick(now=None, _tick=srv.tuner.tick, _out=ticks):
+            t0 = time.perf_counter()
+            _tick(now)
+            _out.append((time.perf_counter() - t0) * 1e3)
+
+        srv.tuner.tick = timed_tick
+        servers[mode] = srv
+    try:
+        for mode, srv in servers.items():
+            clis[mode] = RpcClient("127.0.0.1", srv.start(0), timeout=120.0)
+        depth0 = {m: s.coalescers["train"].max_batch
+                  for m, s in servers.items()}
+        rng = np.random.default_rng(seed + 1901)
+        s1 = {m: 0 for m in servers}
+        bursts, i, t0 = 0, 0, time.perf_counter()
+        while bursts < TUNE_MIN_BURSTS or (
+                servers["on"].coalescers["train"].max_batch == depth0["on"]
+                and bursts < TUNE_MAX_BURSTS):
+            for _ in range(TUNE_BURST_CALLS):
+                batch = [linear_example(rng, Datum, "regression", i + k)
+                         for k in range(LINEAR_BATCH)]
+                i += LINEAR_BATCH
+                for mode in ("on", "observe"):
+                    before = online_scan.pa_scan.launches
+                    check(clis[mode].call("train", "smoke", batch)
+                          == len(batch), f"{mode}: train count")
+                    s1[mode] += online_scan.pa_scan.launches - before
+            bursts += 1
+            time.sleep(TUNE_PAUSE_S)
+        stream_s = time.perf_counter() - t0
+        docs = {m: next(iter(clis[m].call("get_tune", "smoke").values()))
+                for m in servers}
+        depth = {m: s.coalescers["train"].max_batch
+                 for m, s in servers.items()}
+        check(depth["on"] != depth0["on"], f"--auto-tune on: the train "
+              f"coalescer stayed at {depth0['on']} after {bursts} bursts")
+        check(depth["observe"] == depth0["observe"],
+              f"--auto-tune observe moved the coalescer to "
+              f"{depth['observe']}")
+        applied = [r for r in docs["on"]["journal"]
+                   if r.get("target") == "train"
+                   and r["action"] in ("deepen", "shallow")
+                   and not r.get("dry_run")]
+        check(applied and applied[-1]["signals"]["depth"] == depth["on"],
+              f"get_tune journals no applied move: {docs['on']['journal']}")
+        applies = servers["on"].trace.counters().get("tune.applies", 0)
+        check(applies >= 1, f"tune.applies {applies}")
+        intents = [r for r in docs["observe"]["journal"]
+                   if r.get("dry_run")]
+        check(intents and all(r.get("dry_run")
+                              for r in docs["observe"]["journal"]),
+              f"observe journal: {docs['observe']['journal']}")
+        check(s1["on"] > 0 and s1["observe"] > 0, f"S1 launches {s1}")
+        worst = 0.0
+        for k in range(TUNE_ESTIMATES):
+            q = [server_datum(rng, Datum, i + k)]
+            a = clis["on"].call("estimate", "smoke", q)[0]
+            b = clis["observe"].call("estimate", "smoke", q)[0]
+            check(np.isfinite(a) and np.isfinite(b), "estimate not finite")
+            err = abs(a - b) / max(1.0, abs(b))
+            worst = max(worst, err)
+        check(worst <= SCAN_CARD_TOL,
+              f"estimates differ across the tuned servers: {worst}")
+        ticks = tick_ms["on"] + tick_ms["observe"]
+        check(ticks, "the telemetry thread ran no tuner tick")
+        return dict(
+            config="config/regression/default.json",
+            rows=i, bursts=bursts, stream_s=stream_s,
+            max_batch_before=depth0, max_batch_after=depth,
+            applies=applies, s1_launches=s1,
+            estimates=TUNE_ESTIMATES, estimate_max_rel_err=worst,
+            tick_ms=dict(count=len(ticks), p50=statistics.median(ticks),
+                         max=max(ticks),
+                         on=statistics.median(tick_ms["on"])
+                         if tick_ms["on"] else None,
+                         observe=statistics.median(tick_ms["observe"])
+                         if tick_ms["observe"] else None),
+            journal_on=applied[-1], journal_observe=intents[-1],
+            view=jubactl.render_tune("regression", "smoke", {
+                "auto_tune_on": docs["on"],
+                "auto_tune_observe": docs["observe"]}, last=3).splitlines())
+    finally:
+        for c in clis.values():
+            c.close()
+        for s in servers.values():
+            s.stop()
+
+
+_TUNE_RANK = r"""
+import json, sys, threading, time
+sys.path.insert(0, ".")
+import numpy as np
+import chip_smoke as cs
+from jubatus_tpu_torch.coord import membership
+from jubatus_tpu_torch.coord.perf_tuner import (PerfTuner,
+                                                ServerTuneAdapter, TunerConfig)
+from jubatus_tpu_torch.core.datum import Datum
+from jubatus_tpu_torch.parallel import multihost
+from jubatus_tpu_torch.parallel.collective import _norm_compress
+from jubatus_tpu_torch.rpc.client import RpcClient
+from jubatus_tpu_torch.server import EngineServer
+from jubatus_tpu_torch.server.args import ServerArgs
+rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+d, rounds, rows_per = sys.argv[4], int(sys.argv[5]), int(sys.argv[6])
+seed, timeout = int(sys.argv[7]), float(sys.argv[8])
+assert multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                            num_processes=n, process_id=rank, device="cuda",
+                            timeout=timeout)
+srv = EngineServer("classifier", cs.load_config("classifier", "arow.json"),
+                   ServerArgs(engine="classifier", coordinator=f"file://{d}",
+                              name="tune", listen_addr="127.0.0.1",
+                              mixer="collective_mixer", interval_sec=1e9,
+                              interval_count=1 << 30, telemetry_interval=0,
+                              datadir=cs.server_datadir(f"mixtune{rank}")),
+                   device="cuda")
+done = threading.Event()
+srv.rpc.register("smoke_set_wire_plan", lambda mode, chunk: bool(
+    srv.mixer.set_wire_plan(chunk_mb=chunk, compress=mode)), arity=2)
+srv.rpc.register("smoke_finish", lambda: done.set() or True, arity=0)
+srv.start(0)
+
+def plan():
+    return [_norm_compress(srv.mixer.compress), srv.mixer.chunk_mb]
+
+def mixer_status(c):
+    st = next(iter(c.call("get_status", "tune").values()))
+    return st["mixer.collective_rounds"], st["mixer.fallback_rounds"]
+
+if rank:
+    done.wait(timeout)
+    print("RESULT " + json.dumps({"plan": plan()}), flush=True)
+else:
+    deadline = time.time() + timeout
+    while len(membership.get_all_actives(srv.coord, "classifier",
+                                         "tune")) < n:
+        assert time.time() < deadline, "the peer never joined"
+        time.sleep(0.2)
+    (peer,) = [m for m in membership.get_all_actives(
+        srv.coord, "classifier", "tune") if m.port != srv.rpc.port]
+    me = RpcClient("127.0.0.1", srv.rpc.port, timeout=timeout)
+    pc = RpcClient(peer.host, peer.port, timeout=timeout)
+    tuner = PerfTuner(TunerConfig(mode="on", cooldown_s=0.0, confirm=1,
+                                  settle_rounds=1),
+                      ServerTuneAdapter(srv), registry=srv.trace)
+    rng = np.random.default_rng(seed)
+    out, pending = [], None
+    for k in range(rounds + 2):
+        rows = [cs.linear_example(rng, Datum, "classifier", i)
+                for i in range(rows_per)]
+        for r, c in enumerate((me, pc)):
+            mine = rows[r::n]
+            for lo in range(0, len(mine), cs.LINEAR_BATCH):
+                c.call("train", "tune", mine[lo:lo + cs.LINEAR_BATCH])
+        col0, fb0 = mixer_status(me)
+        t0 = time.perf_counter()
+        assert me.call("do_mix", "tune") is True
+        ms = (time.perf_counter() - t0) * 1e3
+        col1, fb1 = mixer_status(me)
+        rec = [h for h in srv.mixer.flight.snapshot()
+               if h.get("mode") == "collective"][-1]
+        out.append(dict(round=k + 1, plan=plan(), peer_behind=pending
+                        is not None, do_mix_ms=ms,
+                        collective=col1 - col0, fallback=fb1 - fb0,
+                        reason=rec.get("reason", "")))
+        if pending is not None:  # the peer takes the plan a round late
+            pc.call("smoke_set_wire_plan", *pending)
+            pending = None
+        if k < rounds:  # the last two rounds are the check: no tick
+            before = plan()
+            tuner.tick()
+            if plan() != before:
+                pending = plan()
+    paths = [next(v for key, v in c.call("save", "tune", "mixtune").items()
+                  if not key.startswith("store:")) for c in (me, pc)]
+    journal = [{k: v for k, v in r.items() if k not in ("hlc", "event_hlc")}
+               for r in tuner.journal_tail(16)]
+    pc.call("smoke_finish")
+    print("RESULT " + json.dumps(dict(rounds=out, saved=paths,
+                                      journal=journal, plan=plan())),
+          flush=True)
+srv.stop()
+multihost.shutdown()
+"""
+
+
+def phase_tune_mix(seed: int) -> dict:
+    """Two ``arow.json`` members under ``--mixer collective_mixer`` as the
+    two gloo ranks of one world on cuda:0 (spawned as phase 16's ranks
+    are), rank 0 the master. MIXTUNE_ROUNDS rounds (each member trains
+    half of MIXTUNE_ROWS rows, then ``do_mix``), rank 0's PerfTuner ticked
+    by hand after each with cooldown 0: a plan it applies is the master's
+    alone for the next round, and the peer takes it after that round, as
+    a fleet rolling a change out member by member does. Every such round
+    must fall back to the RPC mix with ``prepare_not_viable`` (exactly one
+    round a change), every other round ride the collective, the plan
+    change at least once; two more rounds with no tick follow (the second
+    rides the collective again), after which the members' saved models
+    are equal bit for bit."""
+    from jubatus_tpu_torch.parallel import multihost
+
+    d = fleet_dir("mixtune")
+    t0 = time.perf_counter()
+    outs, rcs = multihost.run_local_world(
+        _TUNE_RANK, 2, args=(d, MIXTUNE_ROUNDS, MIXTUNE_ROWS, seed + 1902,
+                             COL_GROUP_TIMEOUT),
+        timeout=COL_WORLD_TIMEOUT, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    res = []
+    for r, (text, rc) in enumerate(zip(outs, rcs)):
+        if rc != 0 or "RESULT " not in text:
+            print(f"--- mixtune rank {r} output:\n{text[-4000:]}",
+                  file=sys.stderr)
+        check(rc == 0 and "RESULT " in text, f"mixtune rank {r} exited {rc}")
+        res.append(json.loads(text.split("RESULT ")[1].splitlines()[0]))
+    rounds = res[0]["rounds"]
+    changes = sum(1 for rd in rounds if rd["peer_behind"])
+    check(changes >= 1, f"the wire plan never changed: {rounds}")
+    for rd in rounds:
+        if rd["peer_behind"]:
+            check(rd["fallback"] == 1 and rd["collective"] == 0
+                  and "prepare_not_viable" in rd["reason"],
+                  f"round {rd['round']} after a change: {rd}")
+        else:
+            check(rd["collective"] == 1 and rd["fallback"] == 0,
+                  f"round {rd['round']} with both on one plan: {rd}")
+    check(not rounds[-1]["peer_behind"] and rounds[-1]["collective"] == 1,
+          f"the last round did not ride the collective: {rounds[-1]}")
+    check(res[0]["plan"] == res[1]["plan"],
+          f"the members end on plans {res[0]['plan']} and {res[1]['plan']}")
+    models = [saved_model(p) for p in res[0]["saved"]]
+    model_close(models[1], models[0], 0.0, "the tuned pair after the last "
+                "round")
+    return dict(config="config/classifier/arow.json", ranks=2,
+                backend="gloo", device="cuda:0", rounds=rounds,
+                changes=changes,
+                fallback_rounds=sum(rd["fallback"] for rd in rounds),
+                final_plan=res[0]["plan"], bit_equal=True, wall_s=wall,
+                journal=res[0]["journal"])
+
+
+def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
+                    proxies: dict, visor_pid: int, procs: list) -> dict:
+    """On phase 13's fleet (its jubacoordd, jubavisor and regression
+    proxy): AS_CLIENTS clients train through the regression proxy; a
+    burst of AS_BURST_S sets ``--queue-hot`` to half the queued rows per
+    member it shows; then ``jubactl -c autoscale --min 2 --max 3
+    --autoscale-interval 1 --scale-out-confirm 2 --cooldown 20
+    --scale-in-confirm 3`` runs as a process until the visor has spawned a
+    third member on the card (it must hold /dev/nvidia* nodes) and the
+    member answers through the proxy; then the heavy clients stop, one
+    light client goes on, and once the cooldown is over the loop drains a
+    member. Client errors must be 0
+    throughout, the journal must hold one scale-out and one scale-in. S1
+    launches are read from every regression member's get_status (the
+    drained one's last reading before it left)."""
+    import threading
+
+    from jubatus_tpu_torch.cmd import jubactl
+    from jubatus_tpu_torch.coord import membership
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    reg_name = FLEET_ENGINES[2][1]
+    reg_port = proxies["regression"]
+    actives = lambda: {m.name: m for m in membership.get_all_actives(  # noqa: E731
+        view, "regression", reg_name)}
+    start = actives()
+    check(len(start) == 2, f"regression actives {sorted(start)}")
+    s1_seen: dict = {}
+
+    def read_s1():
+        for name, m in actives().items():
+            try:
+                with RpcClient(m.host, m.port, timeout=30.0) as c:
+                    st = next(iter(c.call("get_status", reg_name).values()))
+                s1_seen[name] = server_launches(st)
+            except Exception:  # broad-ok — it may be leaving
+                pass
+
+    read_s1()
+    s1_start = dict(s1_seen)
+    rng = np.random.default_rng(seed + 1903)
+    rows = [linear_example(rng, Datum, "regression", i)
+            for i in range(8 * AS_BATCH)]
+    errors, calls = [], [0]
+    heavy_stop, light_stop = threading.Event(), threading.Event()
+
+    def client(stop, pause, size):
+        with RpcClient("127.0.0.1", reg_port, timeout=300.0) as c:
+            k = 0
+            while not stop.is_set():
+                lo = (k * size) % len(rows)
+                try:
+                    n = c.call("train", reg_name, rows[lo:lo + size])
+                    if n != size:
+                        errors.append(f"short count {n}")
+                    calls[0] += 1
+                except Exception as e:  # broad-ok — counted, checked
+                    errors.append(repr(e))
+                k += 1
+                if pause:
+                    time.sleep(pause)
+
+    threads = [threading.Thread(target=client,
+                                args=(heavy_stop, 0.0, AS_BATCH),
+                                daemon=True) for _ in range(AS_CLIENTS)]
+    threads.append(threading.Thread(target=client,
+                                    args=(light_stop, 0.2, LINEAR_BATCH),
+                                    daemon=True))
+    for t in threads:
+        t.start()
+    scaler = None
+    try:
+        # the burst: each member's queue gauge as its telemetry tick
+        # sampled it into the time series, the points the autoscaler reads
+        t0 = time.time()  # wall-clock, as the points' ts
+        time.sleep(AS_BURST_S)
+        samples = []
+        for m in start.values():
+            with RpcClient(m.host, m.port, timeout=30.0) as c:
+                pts = next(iter(c.call("get_timeseries",
+                                       reg_name).values()))["points"]
+            samples += [p["gauges"].get("microbatch.queue_depth", 0.0)
+                        for p in pts if p["ts"] >= t0]
+        check(samples, "the members' time series took no point in the "
+              "burst")
+        queued = statistics.fmean(samples)
+        queue_hot = max(1.0, round(queued / 2.0))
+        check(queued > 0, f"{AS_CLIENTS} clients queued no rows: {samples}")
+        scaler = spawn("autoscale", "jubatus_tpu_torch.cmd.jubactl", "-c",
+                       "autoscale", "-t", "regression", "-n", reg_name,
+                       "-z", locator, "--min", "2", "--max", "3",
+                       "--autoscale-interval", "1", "--scale-out-confirm",
+                       "2", "--queue-hot", str(queue_hot), "--cooldown",
+                       str(AS_COOLDOWN_S),
+                       "--scale-in-confirm", "3", "--window", "10",
+                       "-D", d, "-C", "4", "-S", str(10 ** 9),
+                       "-I", str(1 << 30))
+        procs.append(scaler)
+        wait_for(lambda: membership.get_autoscalers(view),
+                 "the autoscaler never registered", AS_WAIT_S)
+        (node,) = membership.get_autoscalers(view)
+        acli = RpcClient(node.host, node.port, timeout=30.0)
+
+        def journal():
+            return next(iter(acli.call("get_autoscale_status", reg_name,
+                                       256).values()))["journal"]
+
+        def first(pred):
+            return next((r for r in journal() if pred(r)), None)
+
+        wait_for(lambda: first(lambda r: r["action"] == "scale_out"),
+                 "no scale-out", AS_WAIT_S)
+        hot = first(lambda r: r["reason"] in ("hot_unconfirmed",
+                                              "sustained_hot"))
+        out_rec = first(lambda r: r["action"] == "scale_out")
+        check(out_rec["reason"] == "sustained_hot",
+              f"scale-out record {out_rec}")
+        wait_for(lambda: len(actives()) == 3, "the spawned member never "
+                 "joined the actives", AS_WAIT_S)
+        new = (set(actives()) - set(start)).pop()
+        new_port = new.rpartition("_")[2]
+        new_pids = [p for p in children_of(visor_pid)
+                    if new_port in open(f"/proc/{p}/cmdline").read()
+                    .split("\0")]
+        check(len(new_pids) == 1, f"the spawned member's process {new_pids}")
+        fds = cuda_device_fds(new_pids[0])
+        check(fds, "the spawned member holds no /dev/nvidia* node")
+        with RpcClient("127.0.0.1", reg_port, timeout=300.0) as pc:
+            deadline = time.time() + AS_WAIT_S
+            while new not in pc.call("get_status", reg_name):
+                check(time.time() < deadline, "the spawned member never "
+                      "answered through the proxy")
+                time.sleep(0.1)
+        t_answer = time.time()  # wall-clock, as the journal's ts
+        # the load stops once the new member answers (the hot polls while
+        # it booted met the cooldown); the cold polls that follow drain
+        # one member when the cooldown is over
+        heavy_stop.set()
+        for t in threads[:-1]:
+            t.join(timeout=300)
+        read_s1()
+        wait_for(lambda: first(lambda r: r["action"] == "scale_in"),
+                 "no scale-in", AS_WAIT_S)
+        in_rec = first(lambda r: r["action"] == "scale_in")
+        target = in_rec["target"]
+
+        def left():
+            read_s1()
+            return target not in actives()
+
+        wait_for(left, f"{target} never left the actives", AS_WAIT_S)
+        t_left = time.time()  # wall-clock, as the journal's ts
+        wait_for(lambda: target not in {m.name for m in
+                                        membership.get_all_nodes(
+                                            view, "regression", reg_name)},
+                 f"{target} never exited", AS_WAIT_S)
+        t_exit = time.time()  # wall-clock, as the journal's ts
+        light_stop.set()
+        threads[-1].join(timeout=300)
+        check(not errors, f"{len(errors)} client errors: {errors[:3]}")
+        rc, frame = ctl(jubactl, "-c", "autoscale", "--watch", "--once",
+                        "-t", "regression", "-n", reg_name, "-z", locator)
+        check(rc == 0 and "autoscaler" in frame, f"-c autoscale --watch "
+              f"--once: {frame}")
+        recs = journal()
+        acts = [r["action"] for r in recs]
+        check(acts.count("scale_out") == 1 and acts.count("scale_in") == 1
+              and "blocked" not in acts, f"journal actions {acts}")
+        acli.close()
+        launches = {m: sum(n[m] - s1_start.get(k, {}).get(m, 0)
+                           for k, n in s1_seen.items()) for m in RECORDED}
+        s1 = launches["pa_scan"]
+        check(s1 > 0, "S1 never launched on the autoscaled fleet")
+        return dict(
+            clients=AS_CLIENTS, burst_queue_per_member=queued,
+            queue_hot=queue_hot, train_calls=calls[0], client_errors=0,
+            first_hot_poll_to_answer_s=t_answer - hot["ts"],
+            scale_out_to_answer_s=t_answer - out_rec["ts"],
+            scale_in_to_left_s=t_left - in_rec["ts"],
+            scale_in_to_exit_s=t_exit - in_rec["ts"],
+            spawned=new, drained=target, spawned_cuda_nodes=fds,
+            journal_actions={a: acts.count(a) for a in set(acts)},
+            s1_launches=s1, watch_frame=frame.splitlines(),
+            server_launches=launches)
+    finally:
+        heavy_stop.set()
+        light_stop.set()
+        if scaler is not None:
+            stop_server(scaler[0])
+
+
+class LegacyWireClient:
+    """A pre-2013 jubatus client: requests packed in the old format (raw
+    strings, no str8/bin), each response framed and parsed by the port's
+    ``legacy.unpackb``, which refuses every post-2013 type byte."""
+
+    def __init__(self, port: int):
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=120)
+        self.msgid = 0
+        self.buf = b""
+
+    def close(self):
+        self.sock.close()
+
+    def call(self, method: str, *params):
+        import msgpack
+
+        from jubatus_tpu_torch.rpc import legacy
+
+        self.msgid += 1
+        self.sock.sendall(msgpack.packb([0, self.msgid, method, list(params)],
+                                        use_bin_type=False))
+        while True:
+            if self.buf:
+                try:
+                    obj, off = legacy._decode(memoryview(self.buf), 0)
+                except legacy.LegacyFormatError as e:
+                    check("truncated" in str(e),
+                          f"{method}: a legacy client cannot parse the "
+                          f"answer ({e})")
+                else:
+                    self.buf = self.buf[off:]
+                    kind, msgid, error, result = obj
+                    check(kind == 1 and msgid == self.msgid and error is None,
+                          f"{method}: {error!r}")
+                    return result
+            chunk = self.sock.recv(65536)
+            check(bool(chunk), f"{method}: the server closed the connection")
+            self.buf += chunk
+
+
+def as_text(x):
+    """A legacy answer (every string raw bytes) in a modern client's
+    terms."""
+    if isinstance(x, bytes):
+        return x.decode("utf-8", "surrogateescape")
+    if isinstance(x, (list, tuple)):
+        return [as_text(v) for v in x]
+    if isinstance(x, dict):
+        return {as_text(k): as_text(v) for k, v in x.items()}
+    return x
+
+
+def start_legacy_server():
+    """Phase 19's lsh.json server (no wire flag, no telemetry tick, on a
+    file coordinator of its own) and a proxy in front of it started with
+    ``--legacy-wire``, neither waited for: (start_server's tuple, the
+    proxy's spawn pair, the proxy's port)."""
+    d = fleet_dir("legacy19")
+    pport = free_port()
+    server = start_server("nearest_neighbor", os.path.join(
+        ROOT, "config", "nearest_neighbor", "lsh.json"), tag="_legacy",
+        extra=("-z", f"file://{d}", "-n", "leg", "-s", "1e9",
+               "-i", str(1 << 30), "--telemetry-interval", "0"))
+    proxy = spawn("proxy_legacy", "jubatus_tpu_torch.server.proxy",
+                  "nearest_neighbor", "-z", f"file://{d}", "-p", str(pport),
+                  "-b", "127.0.0.1", "--legacy-wire",
+                  "--telemetry-interval", "0", "--incident-dir",
+                  server_datadir(f"proxy_legacy_{pport}"))
+    return server, proxy, pport
+
+
+def phase_legacy_wire(Datum, seed: int, started=None) -> dict:
+    """One ``lsh.json`` server on the card (no wire flag: it detects each
+    connection's format) and a proxy in front of it started with
+    ``--legacy-wire``. LEGACY_ROWS rows by a modern client, then legacy
+    sessions direct and through the proxy (``set_row``,
+    ``neighbor_row_from_datum``, ``get_config``, ``get_status``): every
+    answer parses with the pre-2013 unpacker and equals a modern client's
+    (``get_status`` by its keys); K1 must launch; a modern client's request
+    with a str8 byte gets a modern answer from the same server. Then
+    LEGACY_QUERIES ``neighbor_row_from_datum`` on each wire, direct (p50,
+    p99). ``started``: start_legacy_server's triple, when the two were
+    started earlier (their boot overlaps other work)."""
+    import msgpack
+
+    from jubatus_tpu_torch.rpc import legacy
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    started, proxy, pport = started or start_legacy_server()
+    name = "leg"
+    try:
+        with serving("nearest_neighbor", "", started) as cli:
+            rng = np.random.default_rng(seed + 1904)
+            for i in range(LEGACY_ROWS):
+                check(cli.call("set_row", name, f"r{i}",
+                               server_datum(rng, Datum, i)) is True,
+                      "set_row")
+            k1_0 = server_launches(server_status(cli))["hamming"]
+            pcli = RpcClient("127.0.0.1", pport, timeout=120.0)
+            wait_for(lambda: answers_ok(pcli, "get_proxy_status", name),
+                     "the legacy proxy never answered", 120)
+            sessions = {}
+            for where, port, modern in (("direct", started[1], cli),
+                                        ("proxy", pport, pcli)):
+                lc = LegacyWireClient(port)
+                q = server_datum(rng, Datum, LEGACY_ROWS + len(sessions))
+                wire = q.to_msgpack()
+                got = dict(
+                    set_row=lc.call("set_row", name, f"l_{where}", wire),
+                    neighbor_row_from_datum=lc.call(
+                        "neighbor_row_from_datum", name, wire, 10),
+                    get_config=lc.call("get_config", name),
+                    get_status=lc.call("get_status", name))
+                lc.close()
+                want = dict(
+                    set_row=modern.call("set_row", name, f"l_{where}", q),
+                    neighbor_row_from_datum=modern.call(
+                        "neighbor_row_from_datum", name, q, 10),
+                    get_config=modern.call("get_config", name),
+                    get_status=modern.call("get_status", name))
+                for method in ("set_row", "neighbor_row_from_datum",
+                               "get_config"):
+                    g, w = as_text(got[method]), want[method]
+                    if method == "neighbor_row_from_datum":
+                        w = [list(r) for r in w]
+                    check(g == w, f"{where} {method}: legacy {g!r} vs "
+                          f"modern {w!r}")
+                gst, wst = as_text(got["get_status"]), want["get_status"]
+                diff = {k: sorted(set(gst.get(k, {})) ^ set(wst.get(k, {})))
+                        for k in set(gst) | set(wst)}
+                check(set(gst) == set(wst) and not any(diff.values()),
+                      f"{where} get_status keys differ: {diff}")
+                check(isinstance(got["get_config"], bytes)
+                      and len(got["get_config"]) > 31,
+                      f"{where} get_config did not come as old raw")
+                sessions[where] = dict(
+                    neighbors=len(got["neighbor_row_from_datum"]),
+                    status_keys=sum(len(v) for v in gst.values()))
+            pcli.close()
+            # a modern request (a str8 byte) on the detecting server: the
+            # answer (its status map holds strings of 32 to 255 bytes)
+            # must carry str8, which the old unpacker refuses
+            with socket.create_connection(("127.0.0.1", started[1]),
+                                          timeout=120) as s:
+                s.sendall(msgpack.packb([0, 1, "get_status", ["m" * 40]],
+                                        use_bin_type=True))
+                buf = b""
+                modern_kept = None
+                while modern_kept is None:
+                    buf += s.recv(65536)
+                    try:
+                        legacy.unpackb(buf)
+                        modern_kept = False
+                    except legacy.LegacyFormatError as e:
+                        if "truncated" not in str(e):
+                            modern_kept = True
+            check(modern_kept, "a modern client was answered in the old "
+                  "format")
+            lat = {"legacy": [], "modern": []}
+            lc = LegacyWireClient(started[1])
+            for i in range(LEGACY_QUERIES):
+                q = server_datum(rng, Datum, i)
+                for wire_kind in ("legacy", "modern"):
+                    if wire_kind == "legacy":
+                        _, ms = timed(lc.call, "neighbor_row_from_datum",
+                                      name, q.to_msgpack(), 10)
+                    else:
+                        _, ms = timed(cli.call, "neighbor_row_from_datum",
+                                      name, q, 10)
+                    lat[wire_kind].append(ms)
+            lc.close()
+            st = server_status(cli)
+            k1 = server_launches(st)["hamming"] - k1_0
+            check(k1 >= 2 * LEGACY_QUERIES + 4, f"K1 launched {k1} times for "
+                  f"{2 * LEGACY_QUERIES + 4} queries")
+            launches = {m: 0 for m in RECORDED}
+            add_launches(launches, st)
+        return dict(config="config/nearest_neighbor/lsh.json",
+                    rows=LEGACY_ROWS, sessions=sessions,
+                    modern_client_stays_modern=True,
+                    k1_launches=k1,
+                    neighbor_row_from_datum={k: pcts(v)
+                                             for k, v in lat.items()},
+                    server_launches=launches)
+    finally:
+        stop_server(proxy[0])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6850,6 +7598,8 @@ def main(argv=None) -> int:
             return {"server_launches": total}
 
         lof_shapes = {}
+        #: phase 19's autoscaler drill, run on phase 13's fleet
+        autoscaled: dict = {}
         #: phase 9's flat linear servers, printed beside phase 15's
         flat_servers: dict = {}
         #: phase 3's backends and phase 5's exact recommender, for phase 14
@@ -6866,7 +7616,12 @@ def main(argv=None) -> int:
         run_path("clustering_graph", clustering_graph_path)
         run_path("save_load_mix", save_load_mix_path)
         def deploy_path():
-            res = phase_fleet(Datum, args.seed)
+            # the members tick their telemetry every second: phase 19's
+            # autoscaler reads their queue gauges off the time series
+            res = phase_fleet(Datum, args.seed,
+                              member_flags="--telemetry-interval 1",
+                              autoscale=True)
+            autoscaled["result"] = res.pop("autoscale")
             for key in ("nearest_neighbor", "anomaly", "regression",
                         "broadcasts", "drain"):
                 log(f"[deploy] {key} {json.dumps(res[key])} | {kind} | {smi}")
@@ -6984,6 +7739,56 @@ def main(argv=None) -> int:
             return {"server_launches": res["server_launches"]}
 
         run_path("server_planes", server_planes_path)
+
+        def control_loops_path():
+            from jubatus_tpu_torch.server.args import ServerArgs
+
+            # (d)'s server and proxy boot, and (b)'s two ranks run in
+            # processes of their own, while (a) runs in this one;
+            # phase_legacy_wire stops (d)'s, or this does if (a) or (b)
+            # fails
+            legacy_server = start_legacy_server()
+            pool = concurrent.futures.ThreadPoolExecutor(1)
+            try:
+                mix = pool.submit(phase_tune_mix, args.seed)
+                res = phase_tune_coalescer(Datum, EngineServer, ServerArgs,
+                                           online_scan, args.seed)
+                for line in res.pop("view"):
+                    log(f"[tune] view | {line}")
+                log(f"[tune] coalescer {json.dumps(res)} | {kind} | {smi}")
+                log(f"[tune] tick host ms p50 {res['tick_ms']['p50']:.4f} "
+                    f"max {res['tick_ms']['max']:.4f} over "
+                    f"{res['tick_ms']['count']} ticks | {kind} | {smi}")
+                res = mix.result()
+                log(f"[tune] mix {json.dumps(res)} | {kind} | {smi}")
+            except BaseException:
+                stop_server(legacy_server[0][0])
+                stop_server(legacy_server[1][0])
+                raise
+            finally:
+                pool.shutdown(wait=True)
+            # (c) ran on phase 13's fleet; its S1 launches, read from the
+            # regression members, count here
+            auto = autoscaled["result"]
+            total = dict(auto.pop("server_launches"))
+            for line in auto.pop("watch_frame"):
+                log(f"[autoscale] watch | {line}")
+            log(f"[autoscale] {json.dumps(auto)} | {kind} | {smi}")
+            log(f"[autoscale] first hot poll to the member answering "
+                f"through the proxy {auto['first_hot_poll_to_answer_s']:.3f}"
+                f" s, scale-in decision to leaving the actives "
+                f"{auto['scale_in_to_left_s']:.3f} s | {kind} | {smi}")
+            res = phase_legacy_wire(Datum, args.seed, legacy_server)
+            for m in RECORDED:
+                total[m] += res["server_launches"][m]
+            log(f"[legacy_wire] {json.dumps(res)} | {kind} | {smi}")
+            lat = res["neighbor_row_from_datum"]
+            log(f"[legacy_wire] neighbor_row_from_datum p50 legacy "
+                f"{lat['legacy']['p50_ms']:.3f} ms, modern "
+                f"{lat['modern']['p50_ms']:.3f} ms | {kind} | {smi}")
+            return {"server_launches": total}
+
+        run_path("control_loops", control_loops_path)
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -7026,6 +7831,9 @@ def main(argv=None) -> int:
             check(paths["server_planes"][mode] > 0,
                   f"{mode} never launched on the server planes path "
                   "(phase 18)")
+            check(paths["control_loops"][mode] > 0,
+                  f"{mode} never launched on the control loops and legacy "
+                  "wire path (phase 19)")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -15,6 +15,9 @@
     jubactl -c incident ... [--pull ID]
     jubactl -c drain  -t nearest_neighbor -n c1 --target IP_PORT [--stop]
     jubactl -c rebalance | rollback [--target IP_PORT] | restore [--at HLC]
+    jubactl -c tune   -t classifier -n c1 -z tcp://host:2199
+    jubactl -c autoscale -t regression -n c1 -z tcp://host:2199 [--watch]
+            [--once] [--min N] [--max N] [--autoscale-interval S] ...
 
 start/stop fan out to every jubavisor under /jubatus/supervisors,
 distributing N processes round-robin (N/visors each, remainder to the
@@ -45,10 +48,21 @@ torch.profiler captures; ``watch`` refreshes one cluster frame every
 error rates and p99 from each member's time series, mix health, the last
 event and the firing SLOs; ``timeline`` merges every node's event journal
 in HLC order (``--follow`` streams with per-node cursors); ``incident``
-lists the captured bundles or ``--pull``s one. Server flags
+lists the captured bundles or ``--pull``s one.
+
+The control loops: ``tune`` scrapes every member's self-tuning plane
+(``get_tune``) and renders per-node tuner state — mode, the mix plan
+hill-climb, coalescer and cadence gate state, actuation backoff — and
+the recent decision journal (dry-run-tagged under ``--auto-tune
+observe``). ``autoscale`` runs the autoscaling control loop
+(coord/autoscaler.py) in the foreground — poll SLO burn and queue
+depth, spawn replicas through registered jubavisors, drain the
+least-loaded member when sustained-cold — serving its journal over
+``get_autoscale_status``; ``--watch`` renders live frames (attaching to
+an already-registered autoscaler instead of starting a second loop),
+``--once`` renders one observe-only tick. Server flags
 (-B/-C/-T/-D/-L/-X/-S/-I/-Z/-R) are forwarded to visor-spawned processes
-(jubactl.cpp:90-110). ``tune`` and ``autoscale``, whose server side the
-port has not yet (ROADMAP A21), exit 1 with "not yet ported".
+(jubactl.cpp:90-110).
 """
 
 from __future__ import annotations
@@ -62,10 +76,6 @@ from jubatus_tpu_torch.coord import create_coordinator, membership
 from jubatus_tpu_torch.coord.base import Coordinator, NodeInfo
 from jubatus_tpu_torch.rpc.client import RpcClient
 
-#: the JAX jubactl's commands whose server side the port has not yet, with
-#: the ROADMAP item that ports it (the perf tuner serves get_tune)
-NOT_YET_PORTED = {"tune": "A21", "autoscale": "A21"}
-
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="jubactl")
@@ -73,8 +83,9 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["start", "stop", "save", "load", "status",
                             "metrics", "breakers", "trace", "alerts",
                             "watch", "profile", "drain", "rebalance",
-                            "timeline", "incident", "rollback", "quality",
-                            "restore", "usage", *NOT_YET_PORTED])
+                            "autoscale", "timeline", "incident",
+                            "rollback", "quality", "restore", "usage",
+                            "tune"])
     p.add_argument("trace_id", nargs="?", default="",
                    help="[trace] trace id to assemble (from a slow-log "
                         "record, a /metrics exemplar, or "
@@ -142,6 +153,44 @@ def _parser() -> argparse.ArgumentParser:
                         "drained for inspection")
     p.add_argument("--drain-timeout", type=float, default=120.0,
                    help="[drain] seconds to wait for the drained state")
+    # autoscaling control plane (coord/autoscaler.py)
+    p.add_argument("--watch", action="store_true",
+                   help="[autoscale] render a live frame every poll "
+                        "(attaches to an already-registered autoscaler's "
+                        "get_autoscale_status instead of starting a "
+                        "second control loop)")
+    p.add_argument("--min", dest="as_min", type=int, default=1,
+                   help="[autoscale] fleet floor — a fleet below it "
+                        "restores immediately, bypassing confirm and "
+                        "cooldown")
+    p.add_argument("--max", dest="as_max", type=int, default=8,
+                   help="[autoscale] fleet ceiling for scale-out")
+    p.add_argument("--autoscale-interval", type=float, default=5.0,
+                   help="[autoscale] control-loop poll period (seconds)")
+    p.add_argument("--cooldown", type=float, default=30.0,
+                   help="[autoscale] quiet period after any actuation")
+    p.add_argument("--scale-out-confirm", type=int, default=2,
+                   help="[autoscale] consecutive hot polls before a "
+                        "scale-out fires (flap suppression)")
+    p.add_argument("--scale-in-confirm", type=int, default=6,
+                   help="[autoscale] consecutive cold polls before a "
+                        "scale-in drains the least-loaded replica")
+    p.add_argument("--burn-hot", type=float, default=2.0,
+                   help="[autoscale] SLO fast-window burn rate at/above "
+                        "which a poll counts hot")
+    p.add_argument("--queue-hot", type=float, default=4096.0,
+                   help="[autoscale] queued examples per replica "
+                        "(microbatch.queue_depth) at/above which a poll "
+                        "counts hot")
+    p.add_argument("--autoscale-port", type=int, default=0,
+                   help="[autoscale] port for the get_autoscale_status "
+                        "RPC (0 = ephemeral); registered under "
+                        "/jubatus/autoscalers")
+    p.add_argument("--dry-run", action="store_true",
+                   help="[autoscale] observe and journal decisions, "
+                        "never actuate (the safe exploration mode; "
+                        "--once defaults to it when no autoscaler is "
+                        "registered)")
     p.add_argument("-s", "--server", default="",
                    help="server name forwarded to jubavisor "
                         "(jubaclassifier or plain engine name)")
@@ -696,6 +745,99 @@ def show_usage(coord: Coordinator, engine: str, name: str,
               file=sys.stderr)
         return -1
     print(render_usage(engine, name, docs, top=top))
+    return 0
+
+
+def collect_tune(coord: Coordinator, engine: str,
+                 name: str) -> Dict[str, Dict[str, Any]]:
+    """Every member's ``get_tune`` doc keyed by node name. Per-node
+    state (each process tunes its own knobs), so members are scraped
+    directly; failures degrade per node."""
+    docs: Dict[str, Dict[str, Any]] = {}
+    for node in membership.get_all_nodes(coord, engine, name):
+        try:
+            with RpcClient(node.host, node.port, timeout=10.0) as c:
+                per_node = c.call("get_tune", name)
+        except Exception as e:  # noqa: BLE001 — partial view beats none
+            print(f"  <{node.name}: get_tune failed: {e}>",
+                  file=sys.stderr)
+            continue
+        docs.update(per_node or {})
+    return docs
+
+
+def render_tune(engine: str, name: str,
+                docs: Dict[str, Dict[str, Any]], last: int = 8) -> str:
+    """The ``-c tune`` view (pure; the JAX jubactl's text for the same
+    docs): per-node tuner mode + plane state + the recent decision
+    journal."""
+    lines: List[str] = [f"{engine}/{name}: auto-tune across "
+                        f"{len(docs)} node(s)"]
+    for node in sorted(docs):
+        st = docs[node] or {}
+        if not st:
+            lines.append(f"  {node}: tuner off (--auto-tune off)")
+            continue
+        head = f"  {node}: mode {st.get('mode', '?')}"
+        backoff = float(st.get("backoff_s") or 0.0)
+        if backoff > 0:
+            head += f"  backoff {backoff:g}s"
+        lines.append(head)
+        mix = st.get("mix")
+        if mix:
+            plan = f"{mix.get('wire')}/{mix.get('chunk_mb'):g}MB"
+            bits = [f"plan {plan}", f"trials {mix.get('trials', 0)}",
+                    "converged" if mix.get("converged") else "searching"]
+            if mix.get("best_wire") is not None:
+                bits.append(f"best {mix['best_wire']}/"
+                            f"{mix['best_chunk_mb']:g}MB"
+                            + (f" {mix['best_ms']:g}ms"
+                               if mix.get("best_ms") is not None else ""))
+            if mix.get("int8_blacklisted"):
+                bits.append("int8 BLACKLISTED (ef drift)")
+            lines.append("    mix: " + "  ".join(bits))
+        for cname, gate in sorted((st.get("coalescers") or {}).items()):
+            lines.append(f"    coalescer {cname}: streaks "
+                         f"hot {gate.get('hot_streak', 0)} / "
+                         f"cold {gate.get('cold_streak', 0)}")
+        gate = st.get("cadence") or {}
+        if gate:
+            lines.append(f"    cadence: streaks "
+                         f"hot {gate.get('hot_streak', 0)} / "
+                         f"cold {gate.get('cold_streak', 0)}")
+        journal = (st.get("journal") or [])[-max(0, last):]
+        for rec in journal:
+            action = rec.get("action", "?")
+            tag = " [dry-run]" if rec.get("dry_run") else ""
+            tgt = rec.get("target")
+            sig = rec.get("signals") or {}
+            detail = ""
+            if "wire" in sig:
+                detail = f" -> {sig.get('wire')}/{sig.get('chunk_mb')}MB"
+            elif "depth" in sig:
+                detail = f" -> depth {sig.get('depth')}"
+            elif "interval_sec" in sig:
+                detail = f" -> {sig.get('interval_sec')}s"
+            err = f"  ({rec['error']})" if rec.get("error") else ""
+            lines.append(f"    [{rec.get('ts', 0):.1f}] {action:<8} "
+                         f"{rec.get('reason', '')}"
+                         f"{' @' + str(tgt) if tgt else ''}"
+                         f"{detail}{tag}{err}")
+        if not journal:
+            lines.append("    (no decisions journaled yet)")
+    return "\n".join(lines)
+
+
+def show_tune(coord: Coordinator, engine: str, name: str,
+              last: int = 8) -> int:
+    """The self-tuning performance plane: per-node tuner state and
+    decision journal from ``get_tune``."""
+    docs = collect_tune(coord, engine, name)
+    if not docs:
+        print(f"no member of {engine}/{name} answered get_tune",
+              file=sys.stderr)
+        return -1
+    print(render_tune(engine, name, docs, last=last))
     return 0
 
 
@@ -1519,12 +1661,159 @@ def show_incidents(coord: Coordinator, engine: str, name: str, *,
     return 0
 
 
+def render_autoscale_frame(doc: Dict[str, Any], ts: str = "",
+                           journal_rows: int = 8) -> str:
+    """One autoscaler status frame as text (pure; the JAX jubactl's text
+    for the same doc, printed by --watch/--once): fleet signals,
+    controller state, decision counters, per-replica rows, and the
+    journal tail."""
+    lines: List[str] = []
+    fleet = doc.get("fleet") or {}
+    st = doc.get("state") or {}
+    counters = doc.get("counters") or {}
+    cfg = doc.get("config") or {}
+    lines.append(
+        f"{doc.get('engine')}/{doc.get('name')} autoscaler"
+        f"{'  ' + ts if ts else ''}  "
+        f"fleet {fleet.get('replicas', '?')} replica(s) "
+        f"[{cfg.get('min_replicas', '?')}..{cfg.get('max_replicas', '?')}]"
+        f"  burn {fleet.get('burn_max', 0.0):g}"
+        f"  queue/replica {fleet.get('queue_per_replica', 0.0):g}"
+        f"  req/s {fleet.get('req_per_sec', 0.0):g}"
+        + ("  [dry-run]" if cfg.get("dry_run") else ""))
+    lines.append(
+        f"  state: hot_streak {st.get('hot_streak', 0)}, "
+        f"cold_streak {st.get('cold_streak', 0)}, "
+        f"backoff_s {st.get('backoff_s', 0.0):g}; counters: "
+        + ", ".join(f"{k.split('.', 1)[1]} {counters.get(k, 0)}"
+                    for k in ("autoscale.decisions", "autoscale.spawns",
+                              "autoscale.drains", "autoscale.blocked")))
+    for r in doc.get("replicas") or []:
+        mark = ("drain" if r.get("draining")
+                else "DOWN" if not r.get("reachable", True) else "ok")
+        lines.append(
+            f"  {r.get('name', '?'):<22} {mark:<6} "
+            f"req/s {r.get('req_per_sec', 0.0):>8.1f}  "
+            f"p99 {r.get('p99_ms', 0.0):>8.1f} ms  "
+            f"queue {r.get('queue_depth', 0.0):>8.0f}  "
+            f"burn {r.get('burn_max', 0.0):>6.2f}"
+            + ("  FIRING" if r.get("firing") else ""))
+    tail = (doc.get("journal") or [])[-journal_rows:]
+    moves = [j for j in tail if j.get("action") != "hold"] or tail[-3:]
+    lines.append(f"  journal ({len(doc.get('journal') or [])} record(s) "
+                 "retained):")
+    for j in moves[-journal_rows:]:
+        extra = ""
+        if j.get("target"):
+            extra += f" target={j['target']}"
+        if j.get("count"):
+            extra += f" count={j['count']}"
+        if j.get("error"):
+            extra += f" error={j['error'][:60]}"
+        if j.get("backoff_s"):
+            extra += f" backoff={j['backoff_s']:g}s"
+        lines.append(f"    t={j.get('ts', 0):.1f}  "
+                     f"{j.get('action', '?'):<10} {j.get('reason', ''):<18}"
+                     f" {j.get('signals', {})}{extra}")
+    return "\n".join(lines)
+
+
+def _attach_autoscaler(coord: Coordinator) -> Optional[NodeInfo]:
+    """First reachable registered autoscaler, or None."""
+    for node in membership.get_autoscalers(coord):
+        try:
+            with RpcClient(node.host, node.port, timeout=5.0) as c:
+                c.call("get_autoscale_status", "", 1)
+            return node
+        except Exception:  # noqa: BLE001 — stale ephemeral entry
+            continue
+    return None
+
+
+def run_autoscale(coord: Coordinator, engine: str, name: str,
+                  ns: Any) -> int:
+    """The autoscaling control loop. Default: run the loop in the
+    foreground (spawning via registered jubavisors, draining via the
+    member drain RPC), serving ``get_autoscale_status``. With an
+    autoscaler already registered, ``--watch``/``--once`` ATTACH to it
+    and render its journal instead of starting a competing loop; a bare
+    ``--once`` with no autoscaler running does one observe-only
+    (dry-run) tick and renders it."""
+    import time as _time
+
+    from jubatus_tpu_torch.coord.autoscaler import (AutoscaleConfig,
+                                                    Autoscaler, VisorActuator)
+
+    remote = _attach_autoscaler(coord) if (ns.watch or ns.once) else None
+    if remote is not None:
+        print(f"attached to autoscaler {remote.name}", file=sys.stderr)
+        while True:
+            try:
+                with RpcClient(remote.host, remote.port, timeout=10.0) as c:
+                    per_node = c.call("get_autoscale_status", name, 32)
+            except Exception as e:  # noqa: BLE001 — it may have exited
+                print(f"autoscaler {remote.name} unreachable: {e}",
+                      file=sys.stderr)
+                return -1
+            doc = next(iter((per_node or {}).values()), {})
+            frame = render_autoscale_frame(doc, ts=_time.strftime("%H:%M:%S"))
+            if ns.once:
+                print(frame)
+                return 0
+            sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+            sys.stdout.flush()
+            try:
+                _time.sleep(max(ns.interval, 0.2))
+            except KeyboardInterrupt:
+                return 0
+    try:
+        config = AutoscaleConfig(
+            min_replicas=ns.as_min, max_replicas=ns.as_max,
+            poll_interval_s=ns.autoscale_interval, window_s=ns.window,
+            cooldown_s=ns.cooldown, scale_out_confirm=ns.scale_out_confirm,
+            scale_in_confirm=ns.scale_in_confirm, burn_hot=ns.burn_hot,
+            queue_hot=ns.queue_hot,
+            dry_run=bool(ns.dry_run or ns.once)).validate()
+    except ValueError as e:
+        print(f"autoscale: {e}", file=sys.stderr)
+        return 2
+    if not ns.once and membership.get_autoscalers(coord):
+        # a registered loop exists but did not answer — warn, continue
+        print("warning: another autoscaler is registered for this "
+              "coordinator (stale entry, or it will fight this one)",
+              file=sys.stderr)
+    actuator = VisorActuator(coord, engine, name, server_argv={
+        "thread": ns.thread, "timeout": ns.timeout,
+        "datadir": ns.datadir, "logdir": ns.logdir, "mixer": ns.mixer,
+        "interval_sec": ns.interval_sec,
+        "interval_count": ns.interval_count})
+    scaler = Autoscaler(coord, engine, name, actuator, config=config)
+    if ns.once:
+        rec = scaler.tick()
+        print(render_autoscale_frame(scaler.status()))
+        return 0 if rec else -1
+    port = scaler.serve(ns.autoscale_port)
+    print(f"autoscaler for {engine}/{name} up "
+          f"(get_autoscale_status on 127.0.0.1:{port}, "
+          f"bounds [{config.min_replicas}..{config.max_replicas}]"
+          + (", DRY RUN)" if config.dry_run else ")"), file=sys.stderr)
+    try:
+        while True:
+            scaler.tick()
+            if ns.watch:
+                frame = render_autoscale_frame(
+                    scaler.status(), ts=_time.strftime("%H:%M:%S"))
+                sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+                sys.stdout.flush()
+            _time.sleep(max(config.poll_interval_s, 0.2))
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        scaler.stop()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ns = _parser().parse_args(argv)
-    if ns.cmd in NOT_YET_PORTED:
-        print(f"jubactl -c {ns.cmd}: not yet ported (ROADMAP "
-              f"{NOT_YET_PORTED[ns.cmd]})", file=sys.stderr)
-        return 1
     spec = resolve_coordinator(ns.coordinator)
     if not spec:
         print("no coordinator: pass -z or set JUBATUS_COORDINATOR/ZK",
@@ -1546,6 +1835,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             return show_quality(coord, ns.type, ns.name)
         if ns.cmd == "usage":
             return show_usage(coord, ns.type, ns.name, top=ns.top)
+        if ns.cmd == "tune":
+            return show_tune(coord, ns.type, ns.name)
+        if ns.cmd == "autoscale":
+            return run_autoscale(coord, ns.type, ns.name, ns)
         if ns.cmd == "watch":
             return show_watch(coord, ns.type, ns.name, once=ns.once,
                               interval=ns.interval, window_s=ns.window)

@@ -14,6 +14,7 @@ coordinator see each other:
     /jubatus/config/<type>/<name>                       engine JSON config
     /jubatus/supervisors/<ip>_<port>                    jubavisor daemons
     /jubatus/jubaproxies/<ip>_<port>                    routing proxies
+    /jubatus/autoscalers/<ip>_<port>                    autoscaler loops
 
 Beyond the reference — elastic membership:
 
@@ -44,6 +45,7 @@ ACTOR_BASE = f"{JUBATUS_BASE}/actors"
 CONFIG_BASE = f"{JUBATUS_BASE}/config"
 SUPERVISOR_BASE = f"{JUBATUS_BASE}/supervisors"
 PROXY_BASE = f"{JUBATUS_BASE}/jubaproxies"
+AUTOSCALER_BASE = f"{JUBATUS_BASE}/autoscalers"
 
 
 def actor_path(engine: str, name: str) -> str:
@@ -182,3 +184,15 @@ def register_supervisor(coord: Coordinator, host: str, port: int) -> str:
     path = f"{SUPERVISOR_BASE}/{NodeInfo(host, port).name}"
     coord.create(path, ephemeral=True)
     return path
+
+
+def register_autoscaler(coord: Coordinator, host: str, port: int) -> str:
+    """Ephemeral autoscaler registration — dies with the control loop, so
+    a crashed autoscaler never shadows a new one."""
+    path = f"{AUTOSCALER_BASE}/{NodeInfo(host, port).name}"
+    coord.create(path, ephemeral=True)
+    return path
+
+
+def get_autoscalers(coord: Coordinator) -> List[NodeInfo]:
+    return _nodes_under(coord, AUTOSCALER_BASE)

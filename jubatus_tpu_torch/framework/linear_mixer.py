@@ -430,16 +430,20 @@ class RpcLinearMixer:
 
     # -- RPC surface served by the owning server (linear_mixer.cpp:270-290) --
     def register_api(self, rpc_server, name_check: str = "") -> None:
-        # mix_get_diff / mix_get_model answer packed bytes (msgpack bin)
+        # binary=True: mix_get_diff / mix_get_model answer packed bytes
+        # between our own servers and keep the modern bin type even under
+        # --legacy-wire (legacy clients never call mixer internals)
         rpc_server.register("mix_get_schema", lambda _name: self.local_get_schema())
         rpc_server.register(
             "mix_sync_schema", lambda _name, union: self.local_sync_schema(union)
         )
-        rpc_server.register("mix_get_diff", lambda _name: self.local_get_diff())
+        rpc_server.register("mix_get_diff", lambda _name: self.local_get_diff(),
+                            binary=True)
         rpc_server.register(
             "mix_put_diff", lambda _name, packed: self.local_put_diff(packed)
         )
-        rpc_server.register("mix_get_model", lambda _name: self.local_get_model())
+        rpc_server.register("mix_get_model",
+                            lambda _name: self.local_get_model(), binary=True)
         # flight recorder: structured per-round history — the
         # same records jubadump --mix-history dumps
         rpc_server.register(

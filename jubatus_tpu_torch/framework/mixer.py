@@ -11,7 +11,8 @@ the mixer's flight recorder. Every round roots a fresh trace context: the
 dispatch spans (which inherit it through the RPC fan-out) land in the span
 stores under one trace_id, stamped into the flight record. The async plane
 sets ``fire_idle``: its fold tick fires on the interval whether or not
-this process trained. Not carried over: the tuner's ``set_interval``.
+this process trained. The perf tuner's cadence core retargets the
+interval through ``set_interval``.
 """
 
 from __future__ import annotations
@@ -131,6 +132,16 @@ class IntervalMixer:
     def mix_now(self) -> Any:
         """Synchronous mix (the reference's do_mix RPC)."""
         return self._run_mix()
+
+    def set_interval(self, sec: float) -> float:
+        """Retarget the cadence (the perf tuner's async-mix cadence core).
+        The loop polls, so a new interval takes effect within its poll;
+        the caller owns the floor/ceiling policy — here only non-positive
+        values are refused. Returns the applied interval."""
+        with self._cond:
+            self.interval_sec = max(0.001, float(sec))
+            self._cond.notify()
+            return self.interval_sec
 
     def due(self) -> bool:
         """Would the loop fire a round now? ``interval_count`` updates, or

@@ -121,9 +121,10 @@ class NearestNeighborDriver(NNIndexStats, NNRowMigration, DriverBase):
     @locked
     def get_status(self) -> Dict[str, Any]:
         st = super().get_status()
+        # the rejected non-finite values count on the default registry
+        # (trace.counter.fv.nonfinite_rejected), as in the JAX driver
         st.update(method=self.method, num_rows=len(self.backend.store),
-                  device=str(self.device),
-                  nonfinite_rejected=self.converter.nonfinite_rejected)
+                  device=str(self.device))
         st.update(self.index_status())
         return st
 

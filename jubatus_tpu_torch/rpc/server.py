@@ -30,8 +30,16 @@ served by the method's registered handler). The proxy's zero-decode relay
 uses it. ``usage_recorder``, when set (a ``utils/usage.py`` ledger),
 is told each dispatch's bytes in and out and each failure, billed to the
 request's principal; the ledger's CPU-seconds come from the registry's
-``usage_sink``. Not carried over: fault sites other than the dispatch's
-and the legacy-wire scan.
+``usage_sink``. Not carried over: fault sites other than the dispatch's.
+
+The legacy wire (``rpc/legacy.py``): with ``legacy_wire`` every answer
+goes out in the pre-2013 msgpack format (no str8/bin bytes) that the
+reference's deployed clients parse; with ``wire_detect`` each connection
+is fingerprinted from its requests (``wire_is_legacy``, a budget-capped
+type-byte scan) and answered in the format its client speaks. A legacy
+verdict is provisional and re-checked; a modern one latches. Methods
+registered with ``binary=True`` (model bytes, mixer internals) always
+answer in the modern format.
 
 A handler may answer with a ``concurrent.futures.Future`` (``deferred``
 wraps one that runs on a thread of its own): the worker returns to the
@@ -60,6 +68,7 @@ from typing import Any, Callable, Dict, List, Optional, Set
 import msgpack
 
 from jubatus_tpu_torch.rpc import deadline as deadlines
+from jubatus_tpu_torch.rpc import legacy as _legacy
 from jubatus_tpu_torch.rpc import principal as principals
 from jubatus_tpu_torch.rpc.errors import (
     DeadlineExceeded,
@@ -242,9 +251,21 @@ def _unpack(raw: bytes) -> Any:
 class RpcServer:
     """Dispatcher + listener: register(), then serve_background(), then stop()."""
 
-    def __init__(self, trace: Optional[Registry] = None) -> None:
+    def __init__(self, trace: Optional[Registry] = None,
+                 legacy_wire: bool = False,
+                 wire_detect: bool = False) -> None:
         self._methods: Dict[str, Callable[..., Any]] = {}
         self._arity: Dict[str, Optional[int]] = {}
+        #: answer every call in the pre-2013 msgpack format
+        #: (--legacy-wire), except the binary methods
+        self.legacy_wire = legacy_wire
+        #: fingerprint each connection's requests (wire_is_legacy) and
+        #: answer legacy-format while they carry no post-2013 type byte:
+        #: an unmodified deployed jubatus client works against a server
+        #: started with no flags. Engine servers and proxies enable this;
+        #: internal planes (coordd) stay modern-only.
+        self.wire_detect = wire_detect
+        self._binary_methods: Set[str] = set()
         #: raw-span fast paths: method -> fn(raw_params bytes) -> result
         #: (or RAW_FALLBACK to decode generically)
         self._raw_methods: Dict[str, Callable[[bytes], Any]] = {}
@@ -268,7 +289,10 @@ class RpcServer:
         self.usage_recorder: Optional[Any] = None
 
     def register(self, name: str, fn: Callable[..., Any],
-                 arity: Optional[int] = None) -> None:
+                 arity: Optional[int] = None,
+                 binary: bool = False) -> None:
+        if binary:
+            self._binary_methods.add(name)
         self._methods[name] = fn
         self._arity[name] = _arity(fn) if arity is None else arity
 
@@ -354,6 +378,19 @@ class RpcServer:
             peer = "%s:%s" % conn.getpeername()[:2]
         except (OSError, TypeError):
             peer = ""
+        #: requests fingerprint the peer's wire era (skipped when
+        #: --legacy-wire already forces every answer legacy). A legacy
+        #: verdict is PROVISIONAL: a modern client whose early calls are
+        #: all fixtypes emits zero post-2013 bytes, so the connection is
+        #: re-scanned and upgrades to modern the first time a scanned
+        #: request carries a modern type byte; only the modern verdict
+        #: latches. Re-scans are SAMPLED: every small request (<= 1 KB)
+        #: but only power-of-2-numbered bulk ones, since a scan of every
+        #: request costs legacy-looking pipelined bulk train traffic about
+        #: 3x its throughput.
+        conn_state = {"legacy": False, "peer": peer}
+        scanning = self.wire_detect and not self.legacy_wire
+        nreq = 0
         try:
             while self._running:
                 data = conn.recv(65536)
@@ -369,7 +406,12 @@ class RpcServer:
                     end = framer.tell()
                     raw = bytes(buf[msg_start - base:end - base])
                     msg_start = end
-                    self._handle_raw(conn, wlock, raw, peer)
+                    if scanning:
+                        nreq += 1
+                        if len(raw) <= 1024 or (nreq & (nreq - 1)) == 0:
+                            conn_state["legacy"] = wire_is_legacy(raw)
+                            scanning = conn_state["legacy"]
+                    self._handle_raw(conn, wlock, raw, conn_state)
                 del buf[:msg_start - base]
                 base = msg_start
         except (OSError, ValueError):
@@ -383,7 +425,7 @@ class RpcServer:
                 pass
 
     def _handle_raw(self, conn: socket.socket, wlock: threading.Lock,
-                    raw: bytes, peer: str) -> None:
+                    raw: bytes, conn_state: Dict[str, Any]) -> None:
         env = _parse_envelope(raw)
         if env is not None:
             msgid, method, off, n_extra = env
@@ -392,8 +434,8 @@ class RpcServer:
                 if n_extra:
                     params_span, trace, dl, pr = split_extras(raw, off)
                 self._work.put((self._dispatch, (
-                    conn, wlock, msgid, method, params_span, True, peer,
-                    trace, dl, pr, len(raw))))
+                    conn, wlock, msgid, method, params_span, True,
+                    conn_state, trace, dl, pr, len(raw))))
                 return
         msg = _unpack(raw)
         if not isinstance(msg, (list, tuple)) or not msg:
@@ -406,19 +448,19 @@ class RpcServer:
             dl = msg[5] if len(msg) >= 6 else None
             pr = msg[6] if len(msg) == 7 else None
             self._work.put((self._dispatch, (
-                conn, wlock, msgid, method, params, False, peer, trace, dl,
-                pr, len(raw))))
+                conn, wlock, msgid, method, params, False, conn_state, trace,
+                dl, pr, len(raw))))
         elif msg[0] == NOTIFY and len(msg) == 3:
             self._work.put((self._invoke_silent, (msg[1], msg[2])))
 
     def _dispatch(self, conn, wlock, msgid, method, params, raw: bool,
-                  peer: str, trace: Any, dl: Any, pr: Any,
+                  conn_state: Dict[str, Any], trace: Any, dl: Any, pr: Any,
                   nbytes: int = 0) -> None:
         # adopt the caller's trace context (or root a fresh one), its
         # deadline AND its principal for the duration of the dispatch;
         # restore after — worker threads are reused
         ctx = tracing.from_wire(trace)
-        ctx.peer = peer
+        ctx.peer = conn_state["peer"]
         prev = tracing.swap_trace(ctx)
         prev_dl = deadlines.swap(deadlines.adopt_wire(dl))
         p_req = principals.adopt_wire(pr)
@@ -433,16 +475,17 @@ class RpcServer:
             deadlines.swap(prev_dl)
             principals.swap(prev_pr)
         bill = (method, p_req, nbytes)
+        legacy = self.response_legacy(method, conn_state)
         if error is None and isinstance(result, concurrent.futures.Future):
             result.add_done_callback(
                 lambda fut: self._reply_deferred(conn, wlock, msgid,
-                                                 method, fut, bill))
+                                                 method, fut, bill, legacy))
             return
-        self._reply(conn, wlock, msgid, error, result, bill)
+        self._reply(conn, wlock, msgid, error, result, bill, legacy)
 
     def _reply(self, conn, wlock, msgid, error, result,
-               bill: Optional[tuple] = None) -> None:
-        payload = build_response(msgid, error, result)
+               bill: Optional[tuple] = None, legacy: bool = False) -> None:
+        payload = build_response(msgid, error, result, legacy=legacy)
         rec = self.usage_recorder
         if rec is not None and bill is not None:
             method, p_req, nbytes = bill
@@ -457,7 +500,8 @@ class RpcServer:
 
     def _reply_deferred(self, conn, wlock, msgid, method: str,
                         fut: "concurrent.futures.Future",
-                        bill: Optional[tuple] = None) -> None:
+                        bill: Optional[tuple] = None,
+                        legacy: bool = False) -> None:
         """The response of a handler that answered with a future."""
         error, result = None, None
         try:
@@ -466,7 +510,7 @@ class RpcServer:
             log.debug("rpc method %s raised", method, exc_info=True)
             self._note_error(method)
             error = error_to_wire(e)
-        self._reply(conn, wlock, msgid, error, result, bill)
+        self._reply(conn, wlock, msgid, error, result, bill, legacy)
 
     def _execute_fast(self, method: str, raw_params: bytes):
         """Raw-span invoke; falls back to the generic decode + handler when
@@ -545,6 +589,28 @@ class RpcServer:
         except Exception:  # broad-ok — a notify has no one to answer
             log.debug("rpc notify %s raised", method, exc_info=True)
 
+    def response_legacy(self, method: str,
+                        conn_state: Optional[Dict[str, Any]] = None) -> bool:
+        """Whether this method's responses go out in the old wire format:
+        forced globally by --legacy-wire, or detected per connection
+        (wire_detect). Binary methods always answer modern."""
+        if method in self._binary_methods:
+            return False
+        if self.legacy_wire:
+            return True
+        return bool(conn_state and conn_state.get("legacy"))
+
+
+def wire_is_legacy(raw: bytes) -> bool:
+    """Fingerprint one request: True when it contains NO post-2013 msgpack
+    type byte, i.e. the reference's vendored-msgpack client could have
+    produced it. Such connections are answered in the legacy raw format,
+    which modern unpackers also accept (old raw16/raw32 are modern
+    str16/str32), so a false positive only costs the str/bytes distinction
+    a modern client never relied on for the jubatus API. Skip-style scan,
+    budget-capped (``legacy.scan_is_legacy``): no values are built."""
+    return _legacy.scan_is_legacy(raw)
+
 
 def deferred(fn: Callable[..., Any], name: str = "rpc-deferred"
              ) -> Callable[..., "concurrent.futures.Future"]:
@@ -572,15 +638,22 @@ def _shutdown(sock: socket.socket) -> None:
         pass
 
 
-def build_response(msgid: int, error: Any, result: Any) -> bytes:
+def build_response(msgid: int, error: Any, result: Any,
+                   legacy: bool = False) -> bytes:
     """Pack one msgpack-rpc response message. A ``RawResult`` is spliced
     in as its pre-encoded span (fixarray(4) + RESPONSE + msgid + nil
-    error + the span), with no decode/encode of the payload."""
+    error + the span), with no decode/encode of the payload.
+    ``legacy=True`` packs in the pre-2013 format (``legacy.packb``:
+    strings and bytes both go out as old "raw"), so a RawResult is
+    decoded and re-packed."""
     if isinstance(result, RawResult):
-        if error is None:
+        if error is None and not legacy:
             return (b"\x94\x01" + msgpack.packb(msgid) + b"\xc0"
                     + result.span)
         result = _unpack(result.span)
+    if legacy:
+        return _legacy.packb([RESPONSE, msgid, error, result],
+                             default=_to_wire)
     return msgpack.packb([RESPONSE, msgid, error, result], default=_to_wire,
                          unicode_errors="surrogateescape")
 

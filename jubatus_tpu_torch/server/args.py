@@ -28,12 +28,11 @@ converter's memo caches (``--fv-cache-size``), the model-health plane
 incident bundles (``--event-capacity``, ``--incident-dir``,
 ``--incident-window``), the data-quality plane (``--quality-sample``,
 ``--quality-window``, ``--quality-ref-windows``) and the usage ledger
-(``--usage-top``, ``--usage-gauge-principals``), plus ``--device``, with
-the JAX package's defaults and checks. ``--mixer`` takes the JAX
-package's names. The JAX server's flags the port lacks are the perf
-tuner's (``--auto-tune``, ``--tune-interval-floor``,
-``--tune-interval-ceiling``) and the legacy wire's (``--legacy-wire``,
-``--modern-wire``).
+(``--usage-top``, ``--usage-gauge-principals``), the perf tuner
+(``--auto-tune``, ``--tune-interval-floor``, ``--tune-interval-ceiling``)
+and the legacy wire (``--legacy-wire``, ``--modern-wire``), plus
+``--device``, with the JAX package's defaults and checks: every flag of
+the JAX server parses here. ``--mixer`` takes the JAX package's names.
 """
 
 from __future__ import annotations
@@ -106,6 +105,18 @@ class ServerArgs:
     mix_guard: str = "warn"
     #: norm-outlier multiplier of the mix guard
     mix_norm_bound: float = 10.0
+    #: --auto-tune: the self-tuning performance plane
+    #: (coord/perf_tuner.py). ``off`` = no tuner; ``observe`` = run every
+    #: tuner core off the telemetry tick and journal dry-run
+    #: recommendations (``jubactl -c tune``) without touching a knob;
+    #: ``on`` = actuate — wire mode + chunk size through the re-signed
+    #: prepare plan, microbatch depth via Little's law, and the async-mix
+    #: cadence within the floor/ceiling below.
+    auto_tune: str = "off"
+    #: --tune-interval-floor/-ceiling: operator bounds (seconds) the
+    #: cadence tuner must stay inside when retargeting the mix interval
+    tune_interval_floor: float = 1.0
+    tune_interval_ceiling: float = 120.0
     #: seconds between in-process model snapshots into the rollback ring
     #: (0 = none; take_snapshot still works)
     model_snapshot_interval: float = 0.0
@@ -196,6 +207,13 @@ class ServerArgs:
     ann_cells: int = 0
     #: IVF cells probed per query
     ann_nprobe: int = 8
+    #: FORCE every response into the pre-str8/bin msgpack format deployed
+    #: jubatus clients require; mixer internals keep the modern format
+    #: (rpc/legacy.py). Without it the server autodetects per connection
+    #: from the requests' type bytes — unmodified old clients just work.
+    legacy_wire: bool = False
+    #: disable the per-connection legacy-wire autodetection
+    modern_wire: bool = False
 
     @property
     def is_standalone(self) -> bool:
@@ -323,6 +341,21 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
                         "non-finite folded total")
     p.add_argument("--mix-norm-bound", type=float, default=10.0,
                    help="norm-outlier multiplier for the mix guard")
+    p.add_argument("--auto-tune", default="off",
+                   choices=["off", "observe", "on"],
+                   help="self-tuning performance plane "
+                        "(coord/perf_tuner.py): off = static flags only; "
+                        "observe = journal dry-run recommendations "
+                        "(jubactl -c tune) without touching anything; "
+                        "on = actuate — mix wire mode + chunk size, "
+                        "microbatch depth (Little's-law residency "
+                        "target) and the async-mix cadence")
+    p.add_argument("--tune-interval-floor", type=float, default=1.0,
+                   help="cadence tuner floor (seconds): auto-tune "
+                        "never quickens the mix interval below this")
+    p.add_argument("--tune-interval-ceiling", type=float, default=120.0,
+                   help="cadence tuner ceiling (seconds): auto-tune "
+                        "never relaxes the mix interval above this")
     p.add_argument("--model-snapshot-interval", type=float, default=0.0,
                    help="seconds between in-process model snapshots into "
                         "the bounded rollback ring (save_load envelope, "
@@ -512,6 +545,16 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
                         "~rows/cells candidates to the exact rescore; "
                         "raise toward the cell count to converge on "
                         "the exact result")
+    p.add_argument("--legacy-wire", action="store_true",
+                   help="FORCE all RPC responses into the pre-str8/bin "
+                        "msgpack format legacy jubatus clients (vendored "
+                        "pre-2013 msgpack) parse; without it the server "
+                        "autodetects per connection from the requests' "
+                        "type bytes")
+    p.add_argument("--modern-wire", action="store_true",
+                   help="disable the per-connection legacy-wire "
+                        "autodetection: always answer in modern msgpack "
+                        "(str8/bin) unless --legacy-wire forces otherwise")
     return p
 
 
@@ -583,6 +626,11 @@ def parse_server_args(argv: Optional[List[str]] = None) -> ServerArgs:
         raise SystemExit("--ann-nprobe must be >= 1")
     if args.ann_cells and args.ann_nprobe > args.ann_cells:
         raise SystemExit("--ann-nprobe cannot exceed --ann-cells")
+    if args.tune_interval_floor <= 0:
+        raise SystemExit("--tune-interval-floor must be > 0")
+    if args.tune_interval_floor > args.tune_interval_ceiling:
+        raise SystemExit("--tune-interval-floor must not exceed "
+                         "--tune-interval-ceiling")
     if args.mix_norm_bound <= 0:
         raise SystemExit("--mix-norm-bound must be > 0")
     if args.mix_staleness_bound < 0:

@@ -95,6 +95,8 @@ from jubatus_tpu_torch import __version__, device_scope
 from jubatus_tpu_torch.coord import Coordinator, create_coordinator, membership
 from jubatus_tpu_torch.coord.base import NodeInfo
 from jubatus_tpu_torch.coord.idgen import IdGenerator
+from jubatus_tpu_torch.coord.perf_tuner import (PerfTuner, ServerTuneAdapter,
+                                                TunerConfig)
 from jubatus_tpu_torch.framework.driver import on_driver
 from jubatus_tpu_torch.framework.migration import (DEFAULT_CHUNK_BYTES,
                                                    DrainController,
@@ -167,7 +169,9 @@ class EngineServer:
         #: this server's metrics (rpc and mix spans, counters, gauges,
         #: events); the RPC server records its dispatch spans here
         self.trace = Registry()
-        self.rpc = RpcServer(trace=self.trace)
+        self.rpc = RpcServer(trace=self.trace,
+                             legacy_wire=self.args.legacy_wire,
+                             wire_detect=not self.args.modern_wire)
         # forensics plane: the slow-request ring off the --slowlog-*
         # flags, the runtime telemetry sampler, the always-on stack
         # sampler and the slow log's tail trigger that snapshots it when
@@ -269,6 +273,33 @@ class EngineServer:
                 self.mixer.updated(n)
 
             self.driver.event_model_updated = chained  # type: ignore[assignment]
+
+        # self-tuning performance plane: the telemetry-to-knobs loop
+        # (coord/perf_tuner.py) rides the telemetry tick. Made AFTER the
+        # mixer block; its adapter reads self.mixer and self.coalescers
+        # on every tick, so the coalescers bound at start() are seen.
+        self.tuner: Optional[PerfTuner] = None
+        if self.args.auto_tune != "off":
+            self.tuner = PerfTuner(
+                TunerConfig(mode=self.args.auto_tune,
+                            interval_floor_s=self.args.tune_interval_floor,
+                            interval_ceiling_s=self.args.tune_interval_ceiling),
+                ServerTuneAdapter(self), registry=self.trace)
+            self.telemetry.hooks.append(self._tune_tick)
+
+    def _tune_tick(self) -> None:
+        """One perf-tuner pass per telemetry tick (PerfTuner.tick never
+        raises — a sick adapter must not kill the telemetry thread)."""
+        if self.tuner is not None:
+            self.tuner.tick()
+
+    def get_tune(self, _name: str = "") -> Dict[str, Any]:
+        """This node's self-tuning state (coord/perf_tuner.py): mode,
+        per-plane core state, backoff and the decision journal, keyed like
+        get_status — the per-node half of ``jubactl -c tune``."""
+        if self.tuner is None:
+            return {self._node_key(): {}}
+        return {self._node_key(): self.tuner.status()}
 
     def _init_health_planes(self) -> None:
         """The time-series ring and SLO engine, the event journal's bound
@@ -859,6 +890,7 @@ class EngineServer:
         """Raw mergeable metrics state keyed like get_status: span
         histogram buckets, counters and gauges (``tracing.merge_snapshots``
         folds members' into one view)."""
+        self._publish_index_gauges()
         return {self._node_key(): self.trace.snapshot()}
 
     def get_spans(self, _name: str, trace_id: str) -> Dict[str, Any]:
@@ -1126,13 +1158,16 @@ class EngineServer:
         membership epoch, drain state and migration counters
         (``migration.*``), the snapshot ring (``snapshot.*``,
         ``rollback.count``), the store and this node's warm boot
-        (``store.*``, ``warmboot.*``), and in a fleet the mixer's state
-        (``mixer.*``), the round's spans and counters (``trace.*``) and
-        its gauges (``mix.*``); on a sharded model the shard layout
-        (``driver.shard.*`` and the ``shard.*`` gauges), on the instance
-        engines the IVF tier (``driver.ann.*``, the ``ann.*`` gauges); the
-        runtime telemetry sample (``runtime.*``), the slow log's and the
-        stack sampler's state (``slowlog.*``, ``profiler.*``)."""
+        (``store.*``, ``warmboot.*``), the process's memory (``VIRT``,
+        ``RSS``, ``SHR`` from /proc/self/statm) and ``loadavg``, and in a
+        fleet the mixer's state (``mixer.*``) and the round's spans and
+        counters (``trace.*``); on a sharded model the shard layout
+        (``driver.shard.*``), on the instance engines the IVF tier
+        (``driver.ann.*``); the runtime telemetry sample (``runtime.*``),
+        the slow log's and the stack sampler's state (``slowlog.*``,
+        ``profiler.*``). The same rows as the JAX server's map, plus the
+        kernels' launch counts; the registry's gauges are served by
+        get_metrics and /metrics, as there."""
         st: Dict[str, Any] = {
             "timestamp": int(time.time()),  # wall-clock
             "uptime": int(time.time() - self.start_time),  # wall-clock
@@ -1144,6 +1179,19 @@ class EngineServer:
             "last_loaded": self.last_loaded,
             "rpc_port": self.rpc.port or self.args.rpc_port,
         }
+        try:
+            with open("/proc/self/statm") as f:
+                pages = f.read().split()
+            page = os.sysconf("SC_PAGE_SIZE")
+            st["VIRT"] = int(pages[0]) * page
+            st["RSS"] = int(pages[1]) * page
+            st["SHR"] = int(pages[2]) * page
+        except (OSError, IndexError, ValueError):
+            pass
+        try:
+            st["loadavg"] = os.getloadavg()[0]
+        except OSError:
+            pass
         st.update(self.args.flags_status())
         st.update({f"driver.{k}": v for k, v in self.driver.get_status().items()})
         for method, co in self.coalescers.items():
@@ -1205,8 +1253,6 @@ class EngineServer:
                    for k, v in self.incidents.stats().items()})
         for k, v in tracing.default_registry().counters().items():
             st.setdefault(f"trace.counter.{k}", v)
-        self._publish_index_gauges()
-        st.update(self.trace.gauges())
         return {self._node_key(): st}
 
     def _degraded_reasons(self) -> list:

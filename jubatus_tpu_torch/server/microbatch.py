@@ -1,6 +1,6 @@
 """Adaptive microbatch coalescing for the ingest hot path (copy of
-``jubatus_tpu/server/microbatch.py``, without the tuner's
-``set_max_batch``).
+``jubatus_tpu/server/microbatch.py``; the perf tuner's coalescer core
+retargets the flush bound through ``set_max_batch``).
 
 The reference applies each datum under a write lock as it arrives
 (classifier_serv.cpp:127-146) — fine when an update is a few hundred ns
@@ -235,6 +235,18 @@ class Coalescer:
             self._flush_ms_ewma = ms if self._flush_ms_ewma == 0.0 else \
                 FLUSH_EWMA_ALPHA * ms \
                 + (1.0 - FLUSH_EWMA_ALPHA) * self._flush_ms_ewma
+
+    def set_max_batch(self, depth: int) -> int:
+        """Retarget the per-flush example bound (the coalescer tuner's
+        actuation point). Clamped to >= 1 — a zero depth would wedge every
+        submit. Taken under the queue lock that ``_claim`` holds, so a
+        batch already claimed (and, in the pipelined coalescer, already
+        featurized) keeps the bound it was claimed with; the next claim
+        sees the new one. Returns the applied value."""
+        depth = max(1, int(depth))
+        with self._lock:
+            self._max_batch = depth
+        return depth
 
     @property
     def max_batch(self) -> int:

@@ -68,8 +68,14 @@ returns the cluster's view; ``get_metrics`` and ``profile_device`` are
 plain broadcasts, and ``get_proxy_*`` answer for the proxy alone. No plane
 touches the card: the proxy never creates a CUDA context.
 
-Not carried over: the C++ relay of the native transport and the legacy
-wire (``--legacy-wire`` exits 1 with "not yet ported" and ROADMAP A23).
+The legacy wire (rpc/legacy.py): the proxy fingerprints each client
+connection as the engine servers do and answers a legacy client in the
+pre-2013 msgpack format (a relayed span is decoded and re-packed old-raw);
+``--legacy-wire`` forces that format on every connection, ``--modern-wire``
+turns the detection off. Relays to the backends stay modern (``call_raw``
+sends the method name as str8).
+
+Not carried over: the C++ relay of the native transport.
 """
 
 from __future__ import annotations
@@ -206,6 +212,11 @@ class ProxyArgs:
     interconnect_timeout: float = 10.0
     session_pool_expire: float = 60.0   # --pool-expire
     session_pool_size: int = 0          # --pool-size, 0 = unbounded
+    #: -D/--daemon: parsed by the reference's proxy_argv and shown in
+    #: get_proxy_status; changes nothing, as in the JAX proxy
+    daemon: bool = False
+    legacy_wire: bool = False           # --legacy-wire (rpc/legacy.py)
+    modern_wire: bool = False           # --modern-wire: no autodetection
     #: Prometheus /metrics + /healthz HTTP port: -1 = off, 0 = ephemeral
     metrics_port: int = -1
     #: circuit breaker tuning (rpc/breaker.py): this many transport
@@ -358,7 +369,8 @@ class Proxy:
         self.engine = args.engine
         self.coord = coord or create_coordinator(args.coordinator)
         self.members = MemberCache(self.coord, self.engine)
-        self.rpc = RpcServer()
+        self.rpc = RpcServer(legacy_wire=args.legacy_wire,
+                             wire_detect=not args.modern_wire)
         self.start_time = time.time()  # wall-clock
         self._pool: Dict[Tuple[str, int], List[_Session]] = {}
         self._pool_lock = threading.Lock()
@@ -1228,6 +1240,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--interconnect-timeout", type=float, default=10.0)
     p.add_argument("--pool-expire", dest="session_pool_expire", type=float, default=60.0)
     p.add_argument("--pool-size", dest="session_pool_size", type=int, default=0)
+    p.add_argument("--legacy-wire", action="store_true",
+                   help="FORCE responses into the pre-str8/bin msgpack "
+                        "format for unmodified legacy jubatus clients "
+                        "(otherwise autodetected per connection)")
+    p.add_argument("--modern-wire", action="store_true",
+                   help="disable per-connection legacy-wire autodetection")
     p.add_argument("--metrics-port", type=int, default=-1,
                    help="serve Prometheus /metrics + /healthz on this "
                         "HTTP port (0 = ephemeral; default off)")
@@ -1308,13 +1326,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--usage-gauge-principals", type=int, default=8,
                    help="top-N principals published as "
                         "usage.<principal>.* gauges each telemetry tick")
-    p.add_argument("--legacy-wire", action="store_true",
-                   help="not yet ported (ROADMAP A23)")
     ns = p.parse_args(argv)
-    if ns.legacy_wire:
-        print("--legacy-wire: this plane of the proxy is not yet ported "
-              "(ROADMAP A23, the legacy wire)", file=sys.stderr)
-        return 1
     ns.slo = ns.slo or []
     for spec in ns.slo:
         try:  # bad grammar is refused at argv time

@@ -92,6 +92,8 @@ def bind_engine(rpc: RpcServer, server: Any) -> None:
     # data-quality plane and usage ledger: mergeable docs
     rpc.register("get_quality", server.get_quality, arity=1)
     rpc.register("get_usage", server.get_usage, arity=1)
+    # self-tuning performance plane: tuner state + decision journal
+    rpc.register("get_tune", server.get_tune, arity=1)
     # event plane: the HLC-ordered journal (cursor-resumable) and the
     # capped incident bundles
     rpc.register("get_events", server.get_events, arity=3)
@@ -99,13 +101,14 @@ def bind_engine(rpc: RpcServer, server: Any) -> None:
     rpc.register("do_mix", server.do_mix, arity=1)
     # elastic membership: ring version, drain control and the migration
     # data plane (framework/migration.py); row payloads travel as msgpack
-    # bin, as the JAX server's binary registration sends them
+    # bin, and binary=True keeps them so even under --legacy-wire
     rpc.register("get_epoch", server.get_epoch, arity=1)
     rpc.register("drain", server.drain, arity=2)
     rpc.register("drain_status", server.drain_status, arity=1)
     rpc.register("rebalance", server.rebalance, arity=1)
-    rpc.register("migrate_range", server.migrate_range, arity=5)
-    rpc.register("put_rows", server.put_rows, arity=2)
+    rpc.register("migrate_range", server.migrate_range, arity=5,
+                 binary=True)
+    rpc.register("put_rows", server.put_rows, arity=2, binary=True)
     rpc.register("get_row_count", server.get_row_count, arity=1)
     # model-integrity plane: restore the last-good snapshot
     rpc.register("rollback", server.rollback, arity=2)

@@ -31,10 +31,14 @@ build or a cell re-split; a fired error degrades the tier to the exact
 scan), and the RPC plane's
 ``rpc.dispatch.<method>`` (before the deadline gate),
 ``rpc.call.<method>.<host:port>`` (each client attempt) and
-``rpc.connect.<host:port>``. ``fire`` is a no-op (one module flag read)
-when nothing is armed. The JAX package's ``autoscale.*`` and ``tune.*``
-sites belong to the controller and the perf tuner, which the port does
-not have yet.
+``rpc.connect.<host:port>``, and the control loops' actuation sites:
+the autoscaler's ``autoscale.spawn`` / ``autoscale.drain`` and the perf
+tuner's ``tune.mix.apply`` / ``tune.coalescer.apply`` /
+``tune.cadence.apply``. A fired error there surfaces as a ``blocked``
+journal record with exponential backoff, never a hot loop
+(coord/controller.py ``guarded``); the tune sites fire BEFORE the knob
+mutates, so a failed apply leaves the fleet on its previous plan. ``fire``
+is a no-op (one module flag read) when nothing is armed.
 
     with faults.armed("mix.comm.get_diff:error@1"):
         ...  # the next master-side gather fails once

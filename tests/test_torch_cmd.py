@@ -356,22 +356,48 @@ def test_jubactl_breakers_reads_every_proxy(capsys):
         srv.stop()
 
 
-@pytest.mark.parametrize("cmd", sorted(jubactl.NOT_YET_PORTED))
-def test_jubactl_unported_commands_exit_with_their_roadmap_item(cmd,
-                                                                capsys):
-    assert jubactl.main(["-c", cmd, "-t", "stat", "-n", "x"]) == 1
-    err = capsys.readouterr().err
-    assert f"jubactl -c {cmd}: not yet ported (ROADMAP " \
-        f"{jubactl.NOT_YET_PORTED[cmd]})" in err
+@pytest.mark.parametrize("cmd", ["autoscale", "tune"])
+def test_jubactl_unported_commands_exit_with_their_roadmap_item(
+        cmd, capsys, monkeypatch):
+    """The two commands that once exited with their ROADMAP item (A21)
+    now run: ``tune`` renders a member's tuner journal from ``get_tune``,
+    ``autoscale --once`` takes one dry-run tick over the fleet's
+    time series and renders its frame."""
+    store = _Store()
+    srv = EngineServer("stat", {"window_size": 8}, ServerArgs(
+        engine="stat", coordinator="(shared)", name="x",
+        listen_addr="127.0.0.1", interval_sec=1e9, interval_count=1 << 30,
+        auto_tune="observe", telemetry_interval=0),
+        device="cpu", coord=MemoryCoordinator(store))
+    srv.start(0)
+    monkeypatch.setattr(jubactl, "create_coordinator",
+                        lambda spec: MemoryCoordinator(store))
+    try:
+        assert jubactl.main(["-c", cmd, "-t", "stat", "-n", "x", "-z",
+                             "memory", "--once"]) == 0
+        out, err = capsys.readouterr()
+        assert "not yet ported" not in out + err
+        if cmd == "tune":
+            assert out.splitlines()[:2] == [
+                "stat/x: auto-tune across 1 node(s)",
+                f"  127.0.0.1_{srv.args.rpc_port}: mode observe"]
+            assert "(no decisions journaled yet)" in out
+        else:
+            head = out.splitlines()[0]
+            assert head.startswith("stat/x autoscaler  fleet 1 replica(s) "
+                                   "[1..8]")
+            assert head.endswith("[dry-run]")
+            assert f"127.0.0.1_{srv.args.rpc_port}" in out
+            assert "hold" in out
+    finally:
+        srv.stop()
 
 
-def test_jubactl_tune_and_autoscale_wait_for_the_perf_tuner(capsys):
-    """get_tune is the perf tuner's (A21), as is the autoscaler: both
-    commands name A21, and every other JAX command is served."""
-    assert jubactl.NOT_YET_PORTED == {"tune": "A21", "autoscale": "A21"}
-    assert jubactl.main(["-c", "tune", "-t", "stat", "-n", "x"]) == 1
-    assert "jubactl -c tune: not yet ported (ROADMAP A21)" in \
-        capsys.readouterr().err
+def test_jubactl_tune_and_autoscale_wait_for_the_perf_tuner():
+    """get_tune and the autoscaler (A21) are served: the port's jubactl
+    takes every JAX command, and the eleven autoscale flags parse to the
+    JAX jubactl's values."""
+    assert not hasattr(jubactl, "NOT_YET_PORTED")
     from jubatus_tpu.cmd import jubactl as jjubactl
 
     def commands(mod):
@@ -380,6 +406,19 @@ def test_jubactl_tune_and_autoscale_wait_for_the_perf_tuner(capsys):
         return set(action.choices)
 
     assert commands(jubactl) == commands(jjubactl)
+    argv = ["-c", "autoscale", "-t", "regression", "-n", "r", "--watch",
+            "--min", "2", "--max", "3", "--autoscale-interval", "1",
+            "--cooldown", "5", "--scale-out-confirm", "2",
+            "--scale-in-confirm", "3", "--burn-hot", "1.5",
+            "--queue-hot", "256", "--autoscale-port", "0", "--dry-run"]
+    for extra in ([], argv[6:]):
+        got = vars(jubactl._parser().parse_args(argv[:6] + extra))
+        want = vars(jjubactl._parser().parse_args(argv[:6] + extra))
+        assert got == {k: want[k] for k in got}
+        for dest in ("watch", "as_min", "as_max", "autoscale_interval",
+                     "cooldown", "scale_out_confirm", "scale_in_confirm",
+                     "burn_hot", "queue_hot", "autoscale_port", "dry_run"):
+            assert dest in got
 
 
 def test_jubactl_forwards_timeout_and_logdir_to_the_visor(monkeypatch):

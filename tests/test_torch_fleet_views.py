@@ -504,12 +504,14 @@ def _option_strings(main, argv):
 
 
 def test_proxy_takes_every_jax_proxy_flag_but_the_legacy_wire():
+    """Every JAX proxy flag, the legacy wire's (``--legacy-wire``,
+    ``--modern-wire``) included since it was ported."""
     from jubatus_tpu.server.proxy import main as jmain
     from jubatus_tpu_torch.server.proxy import main
 
     port = _option_strings(main, ["classifier", "-z", "memory"])
     jax = _option_strings(jmain, ["classifier", "-z", "memory"])
-    assert jax - port == {"--modern-wire"}
+    assert jax - port == set()
     assert port - jax == set()
 
 

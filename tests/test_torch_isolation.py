@@ -124,6 +124,10 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.plugins.image_feature",
     "jubatus_tpu_torch.plugins.mecab_splitter",
     "jubatus_tpu_torch.native",
+    "jubatus_tpu_torch.coord.controller",
+    "jubatus_tpu_torch.coord.autoscaler",
+    "jubatus_tpu_torch.coord.perf_tuner",
+    "jubatus_tpu_torch.rpc.legacy",
 )
 
 

@@ -232,25 +232,33 @@ def test_peek_cluster_name_reads_the_first_param_without_decoding():
 
 def test_unported_proxy_flags_exit_with_their_roadmap_item(capsys,
                                                           monkeypatch):
-    """Only the legacy wire (A23) is refused; the planes' flags, such as
-    --metrics-port, serve."""
+    """No proxy flag is refused any more: the legacy wire (A23) serves
+    (``--legacy-wire`` forces the old format, ``--modern-wire`` turns the
+    per-connection detection off), as do the planes' flags, such as
+    --metrics-port; get_proxy_status carries ``argv.daemon`` as the JAX
+    proxy's does."""
     from jubatus_tpu_torch.server import proxy as proxy_mod
 
-    assert proxy_mod.main(["classifier", "-z", "memory",
-                           "--legacy-wire"]) == 1
-    assert "not yet ported (ROADMAP A23" in capsys.readouterr().err
-    ports = []
+    seen = []
 
     def join(self, timeout=None):
-        ports.append(self.metrics.port if self.metrics else None)
+        (st,) = self.get_proxy_status("").values()
+        seen.append((self.metrics.port if self.metrics else None,
+                     self.rpc.legacy_wire, self.rpc.wire_detect,
+                     st["argv.daemon"], st["argv.legacy_wire"],
+                     st["argv.modern_wire"]))
         self.stop()
         return True
 
     monkeypatch.setattr(proxy_mod.Proxy, "join", join)
-    assert proxy_mod.main(["classifier", "-z", "memory", "-b", "127.0.0.1",
-                           "-p", "0", "--metrics-port", "0",
-                           "--telemetry-interval", "0"]) == 0
-    assert ports and ports[0]
+    base = ["classifier", "-z", "memory", "-b", "127.0.0.1", "-p", "0",
+            "--telemetry-interval", "0"]
+    assert proxy_mod.main(base + ["--legacy-wire"]) == 0
+    assert proxy_mod.main(base + ["--modern-wire"]) == 0
+    assert proxy_mod.main(base + ["--metrics-port", "0"]) == 0
+    assert seen[0][1:] == (True, True, False, True, False)
+    assert seen[1][1:] == (False, False, False, False, True)
+    assert seen[2][0] and seen[2][1:] == (False, True, False, False, False)
     assert "not yet ported" not in capsys.readouterr().err
 
 

@@ -550,7 +550,8 @@ def test_new_engines_bind_the_jax_wire_names_and_arities(engine):
                 store_restore=2, get_store_status=1, get_metrics=1,
                 get_spans=2, get_slow_log=1, get_profile=2,
                 profile_device=2, get_timeseries=1, get_alerts=1,
-                get_quality=1, get_usage=1, get_events=3, get_incidents=2)
+                get_quality=1, get_usage=1, get_tune=1, get_events=3,
+                get_incidents=2)
     assert dict(rpc._arity) == want
 
 

@@ -1,8 +1,8 @@
 """The port server's flags against the JAX server's: every option string
 of ``jubatus_tpu/server/args.py``'s parser parses on the port's, with the
-JAX default, except the perf tuner's and the legacy wire's, which the port
-does not have yet; the flags of the planes the port now carries refuse a
-bad value with the JAX server's message."""
+JAX default, the perf tuner's and the legacy wire's included; the flags of
+the planes the port carries refuse a bad value with the JAX server's
+message."""
 
 from __future__ import annotations
 
@@ -15,10 +15,9 @@ from jubatus_tpu.server.args import parse_server_args as jax_parse
 from jubatus_tpu_torch.server.args import ServerArgs, build_parser
 from jubatus_tpu_torch.server.args import parse_server_args as port_parse
 
-#: the JAX server's options the port has not reached (ROADMAP A21, A23)
-MISSING = frozenset({"--auto-tune", "--tune-interval-floor",
-                     "--tune-interval-ceiling", "--legacy-wire",
-                     "--modern-wire"})
+#: the JAX server's options the port has not reached: none since the perf
+#: tuner's and the legacy wire's were ported
+MISSING: frozenset = frozenset()
 
 #: a value that passes the checks, for options whose default does not
 _VALUES = {"fault": "store.put:delay:0", "slo": "gauge:mix.drift:0.1",
@@ -77,7 +76,8 @@ def test_defaults_of_the_shared_fields_match_the_jax_server():
             "slo_burn_threshold", "timeseries_capacity", "event_capacity",
             "incident_dir", "incident_window", "quality_sample",
             "quality_window", "quality_ref_windows", "usage_top",
-            "usage_gauge_principals"} <= shared
+            "usage_gauge_principals", "auto_tune", "tune_interval_floor",
+            "tune_interval_ceiling", "legacy_wire", "modern_wire"} <= shared
     for f in shared:
         assert getattr(port, f) == getattr(jax, f), f
 
@@ -90,6 +90,8 @@ def test_defaults_of_the_shared_fields_match_the_jax_server():
     ("--quality-window", "0"), ("--quality-ref-windows", "0"),
     ("--usage-top", "-1"), ("--usage-gauge-principals", "0"),
     ("--slo", "latency:rpc.x:q99:50"), ("--slo", "nope:x:y"),
+    ("--auto-tune", "maybe"), ("--tune-interval-floor", "0"),
+    ("--tune-interval-floor", "200"),
 ])
 def test_bad_values_exit_with_the_jax_message(flag, value):
     argv = ["classifier", "-f", "conf.json", flag, value]
