@@ -32,7 +32,9 @@ each of which fails the run (non-zero exit, no result line) on error:
    the bytes bound, and two chain bounds from the measured latencies of a
    dependent device-memory load, shared-memory load and shuffle-add;
 3. backends: an lsh and a minhash NNBackend on the card with 10^6 rows of
-   32 hashed features (dim_bits 18), 200 ``neighbors(vec, 10)`` queries
+   32 hashed features (dim_bits 18; written into the row arenas in one
+   assignment an array by ``bulk_fill``, the state ``set_row`` leaves),
+   200 ``neighbors(vec, 10)`` queries
    each; the kernel's launch count must rise by 200, and 5 queries redone
    with the plain scan on the same device tensors must agree; 20 more
    queries under torch.profiler split the device-busy time per query into
@@ -44,8 +46,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    scan-launch count (get_status) must move;
 5. recommender: ``config/recommender/{lsh,minhash,default}.json`` (default
    is inverted_index) with the first REC_HASH_ROWS (6.25·10^4; lsh and
-   minhash) or REC_ROWS (2.5·10^5; default) rows of phase 3 through
-   ``backend.set_row``;
+   minhash) or REC_ROWS (2.5·10^5; default) rows of phase 3 (``bulk_fill``);
    50 ``similar_row_from_datum`` (k = 10) and 50
    ``complete_row_from_datum`` timed (p50/p99), the flush (or, for the
    exact method, the arenas' upload) timed; the first answers held against
@@ -287,9 +288,32 @@ each of which fails the run (non-zero exit, no result line) on error:
    pre-2013 clients (old-format requests, the port's ``legacy.unpackb``)
    direct and through the proxy get answers equal to a modern client's,
    a modern client on the detecting server stays modern, K1 launches,
-   and legacy against modern ``neighbor_row_from_datum`` p50.
+   and legacy against modern ``neighbor_row_from_datum`` p50;
+20. ZooKeeper sessions and the ring scan: (ring) on
+   ``ShardMesh(["cuda:0"] * 4)``, ``ring_hamming_topk`` at C = 2^20
+   rows (hash_num 64, W = 2), B = 1,024, k = 10: S² = 16 K1 launches a
+   call, its distances and ids equal to the flat K1 scan's under the
+   ring's tie rule (visit step, then slot) and its distances to
+   ``sharded_hamming_topk``'s (ids below the k-th distance equal across
+   the three); ``ring_euclid_topk`` at C = 2^16 (nnz 32), a dense query
+   width of 2^16 and B = 256 within RING_EUCLID_TOL of the flat euclid
+   scan; ``assign_cells_hier`` against ``assign_cells`` at 2^20 rows and
+   1,024 cells (agreement above 0.9), each timed by the median of 10
+   CUDA-event timings against its flat counterpart; (zk_fleet, booted
+   while the ring runs) on one ``zk://`` locator (the ensemble
+   ``JUBATUS_TPU_ZK`` names, else tests/fake_zk.py's FakeZkServer in this
+   process), two nearest_neighbor ``lsh.json`` and two regression
+   ``default.json`` members and a port proxy per engine: through the
+   proxies with the port's typed clients 2,000 ``set_row`` and 200
+   ``neighbor_row_from_datum`` (K1), 2,000 regression rows in calls of
+   256 (S1); one ``do_mix`` of the regression pair, the two saved models
+   equal; ``jubactl -c status -z zk://...``; a client emitted by the
+   port's codegen answering ``get_status``; then SIGTERM to one NN member:
+   it leaves the actives within the 10 s session timeout and 50 more
+   queries through the proxy are each answered by the survivor (its K1
+   count rises by 50); p50/p99 through the proxies and the leave time.
 
-Phases 3-7 and 8-19 are the main path: each
+Phases 3-7 and 8-20 are the main path: each
 path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -598,16 +622,68 @@ def random_rows(rng, n: int, nnz: int, dim_bits: int):
     return idx, val
 
 
+FILL_STEP = 50_000             # rows drawn per random_rows call of a fill
+
+
+def fill_arrays(rows: int, seed: int, nnz: int = 32, dim_bits: int = 18):
+    """The rows ``fill_rows`` writes: (idx [rows, nnz], val [rows, nnz]),
+    drawn FILL_STEP rows at a time; the same seed gives the same rows."""
+    rng = np.random.default_rng(seed)
+    parts = [random_rows(rng, min(FILL_STEP, rows - lo), nnz, dim_bits)
+             for lo in range(0, rows, FILL_STEP)]
+    if not parts:
+        return (np.zeros((0, nnz), np.int32), np.zeros((0, nnz), np.float32))
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
 def fill_rows(be, rows: int, seed: int, nnz: int = 32,
               dim_bits: int = 18) -> None:
     """``rows`` random rows (``nnz`` hashed features over 2^dim_bits) into a
-    backend through ``set_row``; the same seed gives the same rows."""
-    rng = np.random.default_rng(seed)
-    step = 50_000
-    for lo in range(0, rows, step):
-        idx, val = random_rows(rng, min(step, rows - lo), nnz, dim_bits)
-        for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist())):
-            be.set_row(f"r{lo + i}", list(zip(ii, vv)))
+    backend through ``set_row``, row ``i`` under the id ``r<i>``: the
+    per-row fill that ``bulk_fill`` is held equal to."""
+    idx, val = fill_arrays(rows, seed, nnz, dim_bits)
+    for i, (ii, vv) in enumerate(zip(idx.tolist(), val.tolist())):
+        be.set_row(f"r{i}", list(zip(ii, vv)))
+
+
+def bulk_fill(be, rows: int, seed: int, nnz: int = 32,
+              dim_bits: int = 18) -> None:
+    """``fill_rows``' rows written into an empty backend's row arenas in one
+    assignment per array, leaving the state ``set_row`` leaves: the
+    arenas' capacity and width, ids and slots, the live mask, the LRU
+    clock, the rows written since the last mix, a version bump and (where
+    the backend keeps signatures) every row pending for one flush. The set-up
+    of phases 3 and 5; tests/test_torch_smoke_fill.py holds it equal to
+    ``fill_rows``."""
+    from jubatus_tpu_torch.core import row_store
+
+    st = be.store
+    check(type(st) is row_store.RowStore and len(st) == 0
+          and st.max_size is None,
+          "bulk_fill needs an empty, unbounded flat row store")
+    if rows == 0:                       # set_row never runs: nothing moves
+        return
+    idx, val = fill_arrays(rows, seed, nnz, dim_bits)
+    cap = row_store._pow2_at_least(rows, st.capacity)
+    width = (st.width if nnz <= st.width
+             else row_store._pow2_at_least(nnz, st.width * 2))
+    st.capacity, st.width = cap, width
+    st.idx = np.zeros((cap, width), np.int32)
+    st.val = np.zeros((cap, width), np.float32)
+    st.live = np.zeros(cap, bool)
+    st.idx[:rows, :nnz] = idx
+    st.val[:rows, :nnz] = val
+    st.live[:rows] = True
+    ids = [f"r{i}" for i in range(rows)]
+    st.ids = ids
+    st.slots = dict(zip(ids, range(rows)))
+    st._clock = rows
+    st._touch = dict(zip(ids, range(1, rows + 1)))
+    st.updated_since_mix = dict.fromkeys(ids)
+    st.version = next(row_store._STAMPS)
+    if be._sigs is not None:
+        be._pending = dict.fromkeys(ids)
 
 
 def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
@@ -618,7 +694,7 @@ def phase_backend(torch, sig_scan, knn, NNBackend, SparseBatch, method: str,
     be = NNBackend(method, dim=1 << dim_bits, hash_num=64, seed=0,
                    device="cuda")
     t0 = time.perf_counter()
-    fill_rows(be, rows, seed, nnz, dim_bits)
+    bulk_fill(be, rows, seed, nnz, dim_bits)
     rng = np.random.default_rng(seed + 1)
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1160,7 +1236,7 @@ def phase_recommender(torch, sig_scan, knn, RecommenderDriver, Datum,
     exact = be.method in ("inverted_index", "euclid")
     rows = REC_ROWS if exact else REC_HASH_ROWS
     t0 = time.perf_counter()
-    fill_rows(be, rows, seed)
+    bulk_fill(be, rows, seed)
     t_load = time.perf_counter() - t0
     # the write path: signatures of every row (hash methods) or the
     # arenas' upload (the exact methods' device_view)
@@ -7355,6 +7431,408 @@ def phase_legacy_wire(Datum, seed: int, started=None) -> dict:
         stop_server(proxy[0])
 
 
+# ---------------------------------------------------------------------------
+# phase 20: ZooKeeper sessions and the ring scan
+# ---------------------------------------------------------------------------
+ZK_SETS = 2_000               # set_row calls through the NN proxy
+ZK_QUERIES = 200              # neighbor_row_from_datum through the proxy
+ZK_TRAIN = 2_000              # regression rows through its proxy
+ZK_BATCH = 256                # rows per train call
+ZK_AFTER_LEAVE = 50           # proxied queries once a member has left
+ZK_WAIT_S = 180               # longest wait for a boot, a join or a leave
+ZK_FLEET = (("nearest_neighbor", "lsh.json"), ("nearest_neighbor", "lsh.json"),
+            ("regression", "default.json"), ("regression", "default.json"))
+RING_SHARDS = 4               # logical shards of cuda:0 (ShardMesh)
+RING_ROWS = 1 << 20           # the hamming ring's table (hash_num 64, W = 2)
+RING_B = 1_024                # queries, RING_B / RING_SHARDS to a shard
+RING_K = 10
+RING_EUCLID_ROWS = 1 << 16    # the euclid ring's sparse table
+RING_EUCLID_NNZ = 32
+RING_EUCLID_DIM = 1 << 16     # the dense queries' width
+RING_EUCLID_B = 256
+RING_EUCLID_TOL = 1e-5        # euclid distances, ring against the flat scan
+#                               (rtol and atol; float32 sums in another order)
+RING_REPS = 10                # CUDA-event timings per call (median)
+HIER_ROWS = 1 << 20           # embedded rows of the two-level assignment
+HIER_CELLS = 1_024
+HIER_DIM = 64
+HIER_SUPERS = 32              # ≈ √cells super-groups
+HIER_TOP = 2                  # probed super-groups a row
+HIER_CHUNK = 1 << 18          # rows per assign call: the hierarchical
+#                               gather holds [chunk, top·M, E] floats
+
+
+@contextlib.contextmanager
+def zk_ensemble():
+    """(locator, what) of the ensemble phase 20 runs on: the one
+    ``JUBATUS_TPU_ZK`` names (host:port[,...]), else tests/fake_zk.py's
+    FakeZkServer in this process (stdlib only, the jute wire)."""
+    spec = os.environ.get("JUBATUS_TPU_ZK", "")
+    if spec:
+        yield f"zk://{spec}", f"JUBATUS_TPU_ZK={spec}"
+        return
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        from fake_zk import FakeZkServer
+    finally:
+        sys.path.pop(0)
+    srv = FakeZkServer()
+    port = srv.start(0)
+    try:
+        yield f"zk://127.0.0.1:{port}", "tests/fake_zk.py FakeZkServer"
+    finally:
+        srv.stop()
+
+
+def start_zk_fleet(stack) -> dict:
+    """Phase 20's fleet on one ``zk://`` locator, started at once and not
+    waited for: two nearest_neighbor ``lsh.json`` members, two regression
+    ``default.json`` members (each its own process on the card) and one
+    port proxy per engine. ``stack`` stops them all and the ensemble."""
+    locator, ensemble = stack.enter_context(zk_ensemble())
+    log(f"[zk_fleet] ensemble: {ensemble} ({locator})")
+    tag = f"{os.getpid()}_{int(time.time())}"
+    names = {"nearest_neighbor": f"zk_nn_{tag}", "regression": f"zk_reg_{tag}"}
+    fleet = dict(locator=locator, ensemble=ensemble, names=names,
+                 members={}, proxies={})
+    for i, (engine, config) in enumerate(ZK_FLEET):
+        started = start_server(engine, os.path.join(
+            ROOT, "config", engine, config), tag=f"_zk{i}", extra=(
+                "-z", locator, "-n", names[engine], "-s", "1e9",
+                "-i", str(1 << 30), "--telemetry-interval", "0"))
+        stack.callback(stop_server, started[0])
+        fleet["members"][f"{engine}{i}"] = started
+    for engine in names:
+        pport = free_port()
+        proc = spawn(f"proxy_zk_{engine}", "jubatus_tpu_torch.server.proxy",
+                     engine, "-z", locator, "-p", str(pport), "-b",
+                     "127.0.0.1", "-c", "8", "--telemetry-interval", "0",
+                     "--incident-dir", server_datadir(f"proxy_zk_{pport}"))
+        stack.callback(stop_server, proc[0])
+        fleet["proxies"][engine] = (proc, pport)
+    return fleet
+
+
+def zk_idl(SERVICES, engine: str) -> str:
+    """An .idl for ``engine`` written from the routing table (every
+    argument a string: a Python client's types are annotations only)."""
+    lines = [f"service {engine} {{"]
+    for m in SERVICES[engine]:
+        routing = (f"#@cht({m.cht_n})" if m.routing == "cht"
+                   else f"#@{m.routing}")
+        args = ", ".join(f"{i}: string {a}" for i, a in enumerate(m.args))
+        lines += [f"  {routing} #@{m.lock} #@{m.aggregator}",
+                  f"  bool {m.name}({args})", ""]
+    return "\n".join(lines + ["}"]) + "\n"
+
+
+def phase_zk_fleet(Datum, seed: int, fleet: dict) -> dict:
+    """Drive ``start_zk_fleet``'s fleet: through the proxies with the
+    port's typed clients, 2,000 ``set_row`` and 200
+    ``neighbor_row_from_datum`` (K1 on the members), 2,000 regression rows
+    in calls of 256 (S1); one ``do_mix`` of the regression pair, whose
+    saved models must then be equal; ``jubactl -c status -z zk://...``;
+    a client emitted by the port's codegen answering ``get_status``; then
+    SIGTERM one NN member: it must leave the actives (the proxy's view)
+    within the session timeout, and queries through the proxy keep
+    answering, on the survivor."""
+    import importlib.util
+
+    from jubatus_tpu_torch.client import (NearestNeighborClient,
+                                          RegressionClient)
+    from jubatus_tpu_torch.cmd import jubactl
+    from jubatus_tpu_torch.codegen import emit_python_client, parse_idl
+    from jubatus_tpu_torch.coord import create_coordinator, membership
+    from jubatus_tpu_torch.framework.idl import SERVICES
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    locator, names = fleet["locator"], fleet["names"]
+    nn_name, reg_name = names["nearest_neighbor"], names["regression"]
+    t_boot = time.perf_counter()
+    await_started(fleet["members"])
+    view = create_coordinator(locator)
+    clis = []
+    try:
+        actives = lambda e: sorted(  # noqa: E731
+            membership.get_all_actives(view, e, names[e]),
+            key=lambda m: m.port)
+        for engine in names:
+            wait_for(lambda e=engine: len(actives(e)) == 2,
+                     f"two {engine} members never joined on {locator}",
+                     ZK_WAIT_S)
+        for engine, (proc, pport) in fleet["proxies"].items():
+            c = RpcClient("127.0.0.1", pport, timeout=120.0)
+            clis.append(c)
+            wait_for(lambda c=c, n=names[engine]: answers_ok(
+                c, "get_proxy_status", n), f"the {engine} proxy never "
+                "answered", ZK_WAIT_S)
+        boot_s = time.perf_counter() - t_boot
+        nn = NearestNeighborClient("127.0.0.1",
+                                   fleet["proxies"]["nearest_neighbor"][1],
+                                   nn_name, timeout=120.0)
+        reg = RegressionClient("127.0.0.1",
+                               fleet["proxies"]["regression"][1], reg_name,
+                               timeout=120.0)
+        clis += [nn, reg]
+        rng = np.random.default_rng(seed + 2017)
+        lat = {"set_row": [], "neighbor_row_from_datum": [], "train": []}
+        for i in range(ZK_SETS):
+            ok, ms = timed(nn.set_row, f"z{i}", server_datum(rng, Datum, i))
+            check(ok is True, f"set_row z{i} through the proxy: {ok}")
+            lat["set_row"].append(ms)
+        for i in range(ZK_QUERIES):
+            got, ms = timed(nn.neighbor_row_from_datum,
+                            server_datum(rng, Datum, ZK_SETS + i), 10)
+            check(len(got) == 10 and all(np.isfinite(d) for _, d in got),
+                  f"neighbor_row_from_datum through the proxy: {got[:3]}")
+            lat["neighbor_row_from_datum"].append(ms)
+        rows = [[float(np.round(rng.standard_normal(), 3)),
+                 server_datum(rng, Datum, i)] for i in range(ZK_TRAIN)]
+        for lo in range(0, ZK_TRAIN, ZK_BATCH):
+            batch = rows[lo:lo + ZK_BATCH]
+            n, ms = timed(reg.train, batch)
+            check(n == len(batch), f"train through the proxy: {n}")
+            lat["train"].append(ms)
+        members = {e: actives(e) for e in names}
+        direct = {e: [RpcClient(m.host, m.port, timeout=120.0) for m in ms]
+                  for e, ms in members.items()}
+        clis += [c for cs in direct.values() for c in cs]
+        ok, mix_ms = timed(direct["regression"][0].call, "do_mix", reg_name)
+        check(ok is True, f"regression do_mix returned {ok}")
+        models = [saved_pack(c, "zk") for c in direct["regression"]]
+        model_close(models[1], models[0], 0.0, "zk regression replicas")
+        rc, text = ctl(jubactl, "-c", "status", "-t", "nearest_neighbor",
+                       "-n", nn_name, "-z", locator)
+        check(rc == 0 and f"{nn_name}: 2 node(s), 2 active" in text,
+              f"jubactl status over zk: {text[:400]}")
+        gen_dir = fleet_dir("zk_codegen")
+        src = emit_python_client(parse_idl(zk_idl(SERVICES,
+                                                  "nearest_neighbor")),
+                                 "nearest_neighbor")
+        gen_path = os.path.join(gen_dir, "nearest_neighbor_client.py")
+        with open(gen_path, "w") as f:
+            f.write(src)
+        spec = importlib.util.spec_from_file_location("zk_generated", gen_path)
+        gen = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(gen)
+        survivor, victim = members["nearest_neighbor"]
+        with gen.NearestNeighborClient(survivor.host, survivor.port,
+                                       nn_name) as g:
+            (gst,) = g.get_status().values()
+        check(gst["driver.device"].startswith("cuda")
+              and gst["type"] == "nearest_neighbor",
+              f"the generated client's get_status: {sorted(gst)[:8]}")
+        sts = {e: [server_status(c) for c in cs] for e, cs in direct.items()}
+        launches = {m: 0 for m in RECORDED}
+        victim_launches = server_launches(sts["nearest_neighbor"][1])
+        for st in sts["regression"] + [sts["nearest_neighbor"][1]]:
+            add_launches(launches, st)
+        before = server_launches(sts["nearest_neighbor"][0])["hamming"]
+        # SIGTERM the second NN member: its session dies with it
+        ((proc, _, _),) = [st for st in fleet["members"].values()
+                           if st[1] == victim.port]
+        (pproc, pport) = fleet["proxies"]["nearest_neighbor"]
+        with RpcClient("127.0.0.1", pport, timeout=120.0) as pc:
+            (pst,) = pc.call("get_proxy_status", nn_name).values()
+        errors_before = pst["forward_errors"]
+        t_kill = time.perf_counter()
+        proc.terminate()
+        wait_for(lambda: len(actives("nearest_neighbor")) == 1,
+                 "the stopped NN member never left the actives", ZK_WAIT_S)
+        leave_s = time.perf_counter() - t_kill
+        proc.wait(timeout=60)
+        check(leave_s < 10.0, f"left the actives after {leave_s:.3f} s, "
+              "past the 10 s session timeout")
+        after = []
+        for i in range(ZK_AFTER_LEAVE):
+            got, ms = timed(nn.neighbor_row_from_datum,
+                            server_datum(rng, Datum, i), 10)
+            check(len(got) == 10, f"query after the leave: {got[:3]}")
+            after.append(ms)
+        st0 = server_status(direct["nearest_neighbor"][0])
+        add_launches(launches, st0)
+        answered = server_launches(st0)["hamming"] - before
+        check(answered == ZK_AFTER_LEAVE,
+              f"the survivor answered {answered} of {ZK_AFTER_LEAVE} "
+              "queries after the leave")
+        with RpcClient("127.0.0.1", pport, timeout=120.0) as pc:
+            (pst,) = pc.call("get_proxy_status", nn_name).values()
+        nn_rows = direct["nearest_neighbor"][0].call("get_row_count",
+                                                     nn_name)
+        return dict(
+            ensemble=fleet["ensemble"], boot_s=boot_s,
+            set_row=pcts(lat["set_row"]),
+            neighbor_row_from_datum=pcts(lat["neighbor_row_from_datum"]),
+            train_256=pcts(lat["train"]), do_mix_ms=mix_ms,
+            regression_replicas_equal=True, leave_s=leave_s,
+            after_leave=pcts(after),
+            proxy_forward_errors_during_leave=(pst["forward_errors"]
+                                               - errors_before),
+            survivor_rows=nn_rows, victim_launches=victim_launches,
+            generated_client_bytes=len(src), server_launches=launches)
+    finally:
+        for c in clis:
+            c.close()
+        view.close()
+
+
+def ring_flat_ids(torch, sig_scan, q, rows, k: int, shards: int,
+                  ring_order: bool):
+    """The flat K1 scan's top-k of every query (query chunks of one
+    shard's B/S), as (distances, ids) under one tie rule: the ring's
+    (visit step, then slot: shard s visits origins s, s-1, ...) or the
+    lowest id first. Keys are unique, so the answer is one."""
+    c = rows.shape[0]
+    c_local = c // shards
+    b_local = q.shape[0] // shards
+    ids_all = torch.arange(c, device=q.device, dtype=torch.int64)
+    origin, slot = ids_all // c_local, ids_all % c_local
+    out_d, out_i = [], []
+    for s in range(shards):
+        d = sig_scan.hamming(q[s * b_local:(s + 1) * b_local], rows, 64)
+        h = torch.round(d * 64).to(torch.int64)
+        tie = (((s - origin) % shards) * c_local + slot if ring_order
+               else ids_all)
+        key = h * (1 << 40) + tie[None, :]
+        top = torch.topk(key, k, dim=1, largest=False, sorted=True).indices
+        out_d.append(d.gather(1, top))
+        out_i.append(top)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def phase_ring(torch, sig_scan, ShardMesh, seed: int) -> dict:
+    """The ring scans on 4 logical shards of cuda:0 and the two-level IVF
+    assignment. Counted: one ``ring_hamming_topk`` call (C = 2^20, B =
+    1,024, k = 10: one K1 hamming launch a shard a step, S² in all), one
+    ``ring_euclid_topk`` call and the assignments; the checks and the
+    timings (medians of RING_REPS CUDA-event timings) are not."""
+    from jubatus_tpu_torch.ops import ivf
+    from jubatus_tpu_torch.parallel import (ring_euclid_topk,
+                                            ring_hamming_topk)
+    from jubatus_tpu_torch.parallel.ring import batch_euclid_distances
+    from jubatus_tpu_torch.parallel.sharded_knn import (shard_table,
+                                                        sharded_hamming_topk)
+
+    dev = torch.device("cuda", 0)
+    mesh = ShardMesh([dev] * RING_SHARDS)
+    rng = np.random.default_rng(seed + 2020)
+    out = {}
+    # -- hamming: K1 per block
+    rows = torch.from_numpy(rng.integers(0, 1 << 32, (RING_ROWS, 2),
+                                         dtype=np.uint32).view(np.int32)).to(dev)
+    q = torch.from_numpy(rng.integers(0, 1 << 32, (RING_B, 2),
+                                      dtype=np.uint32).view(np.int32)).to(dev)
+    q_blocks, r_blocks = shard_table(mesh, q), shard_table(mesh, rows)
+    before = sig_scan.hamming.launches
+    d, ids = ring_hamming_topk(mesh, q_blocks, r_blocks, hash_num=64,
+                               k=RING_K)
+    torch.cuda.synchronize()
+    launched = sig_scan.hamming.launches - before
+    check(launched == RING_SHARDS ** 2,
+          f"ring_hamming_topk launched K1 {launched} times, not S² = "
+          f"{RING_SHARDS ** 2}")
+    with uncounted(sig_scan):
+        fd, fi = ring_flat_ids(torch, sig_scan, q, rows, RING_K,
+                               RING_SHARDS, ring_order=True)
+        check(torch.equal(d, fd), "ring distances differ from the flat "
+              "K1 scan's")
+        check(torch.equal(ids, fi), "ring ids differ from the flat K1 "
+              "scan's under the ring's tie rule")
+        sd, si = sharded_hamming_topk(mesh, q, r_blocks, hash_num=64,
+                                      k=RING_K)
+        check(torch.equal(sd, d), "ring distances differ from "
+              "sharded_hamming_topk's")
+        _, li = ring_flat_ids(torch, sig_scan, q, rows, RING_K,
+                              RING_SHARDS, ring_order=False)
+        below = d < d[:, -1:]          # ids strictly below the k-th distance
+        check(all(set(a[m].tolist()) == set(b[m].tolist()) == set(c[m]
+                                                                   .tolist())
+                  for a, b, c, m in zip(ids, si, li, below)),
+              "ids below the k-th distance differ between the ring, the "
+              "sharded and the flat scans")
+        ties_at_k = int((~torch.all(ids == li, dim=1)).sum())
+        t_ring = time_ms(torch, lambda: ring_hamming_topk(
+            mesh, q_blocks, r_blocks, hash_num=64, k=RING_K), RING_REPS)
+        t_sharded = time_ms(torch, lambda: sharded_hamming_topk(
+            mesh, q, r_blocks, hash_num=64, k=RING_K), RING_REPS)
+        t_flat = time_ms(torch, lambda: torch.topk(
+            sig_scan.hamming(q, rows, 64), RING_K, dim=1, largest=False),
+            RING_REPS)
+    out["hamming"] = dict(
+        C=RING_ROWS, B=RING_B, W=2, hash_num=64, k=RING_K,
+        shards=RING_SHARDS, k1_launches=launched, ring_ms=t_ring,
+        sharded_ms=t_sharded, flat_k1_topk_ms=t_flat,
+        rows_tie_ordered_unlike_lowest_id_first=ties_at_k)
+    del rows, q, q_blocks, r_blocks, fd, fi, sd, si, li
+    torch.cuda.empty_cache()
+    # -- euclid: the exact distance over a sparse table
+    idx, val = random_rows(rng, RING_EUCLID_ROWS, RING_EUCLID_NNZ, 16)
+    ridx = torch.from_numpy(idx.astype(np.int64)).to(dev)
+    rval = torch.from_numpy(val).to(dev)
+    qi, qv = random_rows(rng, RING_EUCLID_B, RING_EUCLID_NNZ, 16)
+    qd = torch.zeros((RING_EUCLID_B, RING_EUCLID_DIM), device=dev)
+    qd.index_put_((torch.arange(RING_EUCLID_B).repeat_interleave(
+        RING_EUCLID_NNZ).to(dev), torch.from_numpy(qi.reshape(-1)
+                                                   .astype(np.int64)).to(dev)),
+        torch.from_numpy(qv.reshape(-1)).to(dev), accumulate=True)
+    blocks = [shard_table(mesh, t) for t in (qd, ridx, rval)]
+    ed, eids = ring_euclid_topk(mesh, *blocks, k=RING_K)
+    flat = torch.cat([batch_euclid_distances(qd[lo:lo + 32], ridx, rval)
+                      for lo in range(0, RING_EUCLID_B, 32)])
+    fd, fi = torch.topk(flat, RING_K, dim=1, largest=False, sorted=True)
+    err = float((ed - fd).abs().max())
+    check(torch.allclose(ed, fd, rtol=RING_EUCLID_TOL, atol=RING_EUCLID_TOL),
+          f"euclid ring distances off the flat scan by {err}")
+    got_d = flat.gather(1, eids)
+    check(torch.allclose(got_d, ed, rtol=RING_EUCLID_TOL,
+                         atol=RING_EUCLID_TOL),
+          "a euclid ring id does not score its distance")
+    t_ring = time_ms(torch, lambda: ring_euclid_topk(mesh, *blocks,
+                                                     k=RING_K), RING_REPS)
+    t_flat = time_ms(torch, lambda: torch.topk(
+        batch_euclid_distances(qd, ridx, rval), RING_K, dim=1,
+        largest=False), RING_REPS)
+    out["euclid"] = dict(C=RING_EUCLID_ROWS, nnz=RING_EUCLID_NNZ,
+                         D=RING_EUCLID_DIM, B=RING_EUCLID_B, k=RING_K,
+                         max_abs_err=err, tol=RING_EUCLID_TOL,
+                         ids_equal=bool(torch.equal(eids, fi)),
+                         ring_ms=t_ring, flat_ms=t_flat)
+    del ridx, rval, qd, blocks, flat
+    torch.cuda.empty_cache()
+    # -- the two-level IVF assignment against the flat one
+    centers = rng.normal(size=(HIER_CELLS, HIER_DIM)).astype(np.float32) * 4
+    cen = torch.from_numpy(centers).to(dev)
+    pick = torch.from_numpy(rng.integers(0, HIER_CELLS, HIER_ROWS)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = cen[pick] + torch.randn((HIER_ROWS, HIER_DIM), device=dev,
+                                  generator=gen)
+    t0 = time.perf_counter()
+    supers, members = ivf.build_super(centers, n_super=HIER_SUPERS,
+                                      seed=seed, device=dev)
+    build_s = time.perf_counter() - t0
+    sup, mem = torch.from_numpy(supers).to(dev), torch.from_numpy(members).to(dev)
+
+    def flat_assign():
+        return torch.cat([ivf.assign_cells(emb[lo:lo + HIER_CHUNK], cen)
+                          for lo in range(0, HIER_ROWS, HIER_CHUNK)])
+
+    def hier_assign():
+        return torch.cat([ivf.assign_cells_hier(
+            emb[lo:lo + HIER_CHUNK], cen, sup, mem, top_supers=HIER_TOP)
+            for lo in range(0, HIER_ROWS, HIER_CHUNK)])
+
+    a_flat, a_hier = flat_assign(), hier_assign()
+    agree = float((a_flat == a_hier).float().mean())
+    check(agree > 0.9, f"two-level assignment agrees with flat on {agree}")
+    out["assign"] = dict(
+        rows=HIER_ROWS, cells=HIER_CELLS, dim=HIER_DIM, supers=HIER_SUPERS,
+        top_supers=HIER_TOP, group_max=int(members.shape[1]),
+        build_super_s=build_s, agreement=agree,
+        flat_ms=time_ms(torch, flat_assign, RING_REPS),
+        hier_ms=time_ms(torch, hier_assign, RING_REPS))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7789,6 +8267,38 @@ def main(argv=None) -> int:
             return {"server_launches": total}
 
         run_path("control_loops", control_loops_path)
+
+        def ring_path():
+            from jubatus_tpu_torch.parallel.mesh import ShardMesh
+
+            assert_matmul_full_precision(torch)
+            res = phase_ring(torch, sig_scan, ShardMesh, args.seed)
+            for key, r in res.items():
+                log(f"[ring] {key} {json.dumps(r)} | {kind} | {smi}")
+            return {}
+
+        def zk_fleet_path(fleet):
+            res = phase_zk_fleet(Datum, args.seed, fleet)
+            log(f"[zk_fleet] {json.dumps(res)} | {kind} | {smi}")
+            log(f"[zk_fleet] through the proxies: neighbor_row_from_datum "
+                f"p50 {res['neighbor_row_from_datum']['p50_ms']:.3f} p99 "
+                f"{res['neighbor_row_from_datum']['p99_ms']:.3f} ms, set_row "
+                f"p50 {res['set_row']['p50_ms']:.3f} p99 "
+                f"{res['set_row']['p99_ms']:.3f} ms, train(256) p50 "
+                f"{res['train_256']['p50_ms']:.3f} ms; a SIGTERMed member "
+                f"left the actives in {res['leave_s']:.3f} s | {kind} | "
+                f"{smi}")
+            return {"server_launches": res["server_launches"]}
+
+        # phase 20: the zk fleet boots while the ring runs in this process
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as zk_stack:
+            fleet = start_zk_fleet(zk_stack)
+            run_path("ring", ring_path)
+            run_path("zk_fleet", lambda: zk_fleet_path(fleet))
+        log(f"[phase20] {time.perf_counter() - t0:.3f} s (ring "
+            f"{path_s['ring']:.3f} s while the fleet boots, zk_fleet "
+            f"{path_s['zk_fleet']:.3f} s)")
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -7834,6 +8344,11 @@ def main(argv=None) -> int:
             check(paths["control_loops"][mode] > 0,
                   f"{mode} never launched on the control loops and legacy "
                   "wire path (phase 19)")
+            check(paths["zk_fleet"][mode] > 0,
+                  f"{mode} never launched on the zk fleet path (phase 20)")
+        check(paths["ring"]["hamming"] == RING_SHARDS ** 2,
+              f"the ring path launched K1 {paths['ring']['hamming']} times, "
+              f"not S² = {RING_SHARDS ** 2}")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,8 +23,9 @@ over RPC or, with ``--mixer collective_mixer``, as a collective across the
 ranks of one ``torch.distributed`` world (``parallel/collective.py``).
 Converters load plugins (``core/fv/plugins.py``, ``plugins/``), and a
 server carries the forensics, model-health, event, data-quality and usage
-planes (``utils/``). Features not ported yet (ZooKeeper sessions) raise
-``NotYetPorted``.
+planes (``utils/``). Fleets coordinate through a directory, the
+coordination service or a ZooKeeper ensemble (``coord/``); clients are
+typed per engine (``client/``) or generated from an IDL (``codegen/``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and the CPU was not asked for.

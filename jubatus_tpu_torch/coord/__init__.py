@@ -12,13 +12,11 @@ port servers on one coordinator form one fleet:
   (and NFS-backed multi-host) clusters;
 - `RemoteCoordinator` — a session on the coordination service
   (``jubacoordd``, coord/server.py, or the JAX package's), for clusters
-  with no shared filesystem.
-
-ZooKeeper sessions (``zk://``) are not ported: that locator raises
-``NotYetPorted``.
+  with no shared filesystem;
+- `ZkCoordinator` — a session on a ZooKeeper ensemble (coord/zk.py), the
+  drop-in for existing deployments.
 """
 
-from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.coord.base import (  # noqa: F401
     Coordinator,
     CoordinatorError,
@@ -35,14 +33,15 @@ def create_coordinator(spec: str) -> Coordinator:
     "/path" / "file:///path"       → FileCoordinator on that directory
     "tcp://host:port", "host:port" → RemoteCoordinator session on the
                                      coordination service (coord/server.py)
-    "zk://…"                       → not yet ported
+    "zk://host:port[,host:port...]" → ZkCoordinator session on a real
+                                     ZooKeeper ensemble (coord/zk.py)
     """
     if spec in ("memory", "memory://"):
         return MemoryCoordinator.shared()
     if spec.startswith("zk://"):
-        raise NotYetPorted(
-            f"coordinator {spec!r}: ZooKeeper sessions (coord/zk.py) are not "
-            "yet ported (use tcp://host:port, a directory or file://)")
+        from jubatus_tpu_torch.coord.zk import ZkCoordinator
+
+        return ZkCoordinator.from_locator(spec)
     if spec.startswith("file://"):
         return FileCoordinator(spec[len("file://"):])
     if spec.startswith("/") or spec.startswith("."):

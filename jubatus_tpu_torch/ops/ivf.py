@@ -35,9 +35,9 @@ equal scores it keeps the lower position first, as ``lax.top_k`` does
 (``torch.topk`` does not promise an order among equal scores). The
 products run at full float32 (TF32 off, PyTorch's default), or cells move.
 
-Not ported (no entry point reaches them): ``build_super``,
-``assign_cells_hier`` and ``assign_cells_grouped``, the two-level
-assignment of the JAX package's 10^8-row builds.
+The two-level assignment of the JAX package's 10^8-row builds is here too
+(``build_super``, ``assign_cells_hier`` on the device, and the host's
+``assign_cells_grouped``); no entry point reaches it yet.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from jubatus_tpu_torch import resolve_device
 from jubatus_tpu_torch.ops import sig_scan
 from jubatus_tpu_torch.ops.clustering import kmeans_fit, pairwise_sq_dists
 
@@ -153,6 +154,90 @@ def assign_cells(emb: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest-centroid cell per row (the first on a tie): [N] int32."""
     return torch.argmin(pairwise_sq_dists(emb, centroids),
                         dim=1).to(torch.int32)
+
+
+def build_super(centroids: np.ndarray, *, n_super: int, seed: int = 0,
+                device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Two-level routing tables for bulk assignment: cluster the cell
+    centroids into ``n_super`` groups on ``device`` (``cuda`` unless asked)
+    → (supers [G, E] float32, members [G, M] int32, −1-padded; M = max
+    group size), cells in ascending order within a group."""
+    dev = resolve_device(device)
+    n_super = max(1, min(n_super, centroids.shape[0]))
+    cen = torch.from_numpy(np.asarray(centroids, np.float32)).to(dev)
+    supers = train_centroids(cen, n_super, seed=seed)
+    owner = assign_cells(cen, torch.from_numpy(supers).to(dev)).cpu().numpy()
+    m = max(1, int(np.bincount(owner, minlength=n_super).max()))
+    members = np.full((n_super, m), -1, np.int32)
+    fill = np.zeros(n_super, np.int64)
+    for cell, g in enumerate(owner):
+        members[g, fill[g]] = cell
+        fill[g] += 1
+    return supers, members
+
+
+def assign_cells_hier(emb: torch.Tensor, centroids: torch.Tensor,
+                      supers: torch.Tensor, members: torch.Tensor, *,
+                      top_supers: int = 2) -> torch.Tensor:
+    """Two-level cell assignment: rank the super-groups, then the argmin
+    over the union of the top groups' member cells — (G + top·M)·E flops a
+    row instead of K·E. Exact when the nearest cell's group is among the
+    probed groups. The ranking keeps ``lax.top_k``'s order; the distance is
+    the expansion ‖c‖² − 2⟨e, c⟩, one batched product over the gathered
+    centroids. [N] int32."""
+    ds = pairwise_sq_dists(emb, supers)                       # [N, G]
+    top = min(top_supers, supers.shape[0])
+    gsel = top_sorted(-ds, top)[1]                            # [N, top]
+    cand = members.long()[gsel].reshape(emb.shape[0], -1)     # [N, top·M]
+    safe = torch.clamp(cand, min=0)
+    cn2 = torch.sum(centroids * centroids, dim=-1)            # [K]
+    dots = torch.bmm(centroids[safe], emb[:, :, None])[:, :, 0]
+    d2 = torch.where(cand >= 0, cn2[safe] - 2.0 * dots,
+                     torch.full_like(dots, float("inf")))
+    best = torch.argmin(d2, dim=1)
+    return safe.gather(1, best[:, None])[:, 0].to(torch.int32)
+
+
+def assign_cells_grouped(emb: np.ndarray, centroids: np.ndarray,
+                         supers: np.ndarray, members: np.ndarray,
+                         top_supers: int = 2) -> np.ndarray:
+    """Bulk two-level assignment on the host (the JAX package's numpy code):
+    rows group by their ranked super so each group is one dense
+    [n_g, E]×[E, M] product against a cache-resident centroid block, with
+    no per-row gather tensor. Same answer as ``assign_cells_hier``."""
+    emb = np.asarray(emb, np.float32)
+    n = emb.shape[0]
+    n_super = supers.shape[0]
+    top = max(1, min(top_supers, n_super))
+    cn2 = np.sum(np.square(centroids), axis=-1)
+    sn2 = np.sum(np.square(supers), axis=-1)
+    sd = sn2[None, :] - 2.0 * (emb @ supers.T)                # [N, G]
+    if top < n_super:
+        gtop = np.argpartition(sd, top, axis=1)[:, :top]
+    else:
+        gtop = np.tile(np.arange(n_super), (n, 1))
+    out = np.zeros(n, np.int32)
+    best = np.full(n, np.inf, np.float32)
+    for t in range(top):
+        gs = gtop[:, t]
+        order = np.argsort(gs, kind="stable")
+        bounds = np.searchsorted(gs[order], np.arange(n_super + 1))
+        for g in range(n_super):
+            lo, hi = bounds[g], bounds[g + 1]
+            if lo == hi:
+                continue
+            idx = order[lo:hi]
+            cells = members[g]
+            cells = cells[cells >= 0]
+            if cells.size == 0:
+                continue
+            d = cn2[cells][None, :] - 2.0 * (emb[idx] @ centroids[cells].T)
+            am = np.argmin(d, axis=1)
+            dm = d[np.arange(len(idx)), am]
+            upd = dm < best[idx]
+            out[idx[upd]] = cells[am[upd]]
+            best[idx[upd]] = dm[upd]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,5 +5,11 @@ mesh, the replica, grid and two-tier host meshes), the process world
 (``multihost``), the collective data plane (``collective``), the replica
 × shard train step (``spmd``), the sharded row store and IVF cell arenas
 (``row_store``), the row-sharded exact and IVF scans (``sharded_knn``,
-``sharded_ivf``) and the feature-sharded linear engines
-(``sharded_model``)."""
+``sharded_ivf``), the ring scans that keep queries and table both sharded
+(``ring``) and the feature-sharded linear engines (``sharded_model``)."""
+
+from jubatus_tpu_torch.parallel.ring import (  # noqa: F401
+    ring_euclid_topk,
+    ring_hamming_topk,
+    ring_scan,
+)

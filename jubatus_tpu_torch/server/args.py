@@ -275,8 +275,9 @@ def build_parser(prog: str = "jubatus_tpu_torch.server") -> argparse.ArgumentPar
     p.add_argument("-z", "--coordinator", default="",
                    help="coordination backend: a shared directory path "
                         "(or file://path), the coordination service "
-                        "(tcp://host:port or host:port) or 'memory'; "
-                        "empty = standalone")
+                        "(tcp://host:port or host:port), a ZooKeeper "
+                        "ensemble (zk://host:port[,host:port...]) or "
+                        "'memory'; empty = standalone")
     p.add_argument("-n", "--name", default="")
     p.add_argument("-x", "--mixer", default="linear_mixer", choices=MIXERS,
                    help="mix strategy: linear_mixer, collective_mixer, a "

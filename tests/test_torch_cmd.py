@@ -623,3 +623,114 @@ def test_rebalance_after_a_drain_without_stop_fails_as_in_jax(capsys):
     assert got[0] == -1
     assert "rebalance T... failed. (rebalance: node draining)" in got[1]
     assert "rebalance S... ok: 0 row(s), 0.0 MB/s" in got[1]
+
+
+# -- jubaconv (tests/test_cmd.py's three cases, each against the JAX tool) ----
+
+CONV_CONF = {
+    "method": "PA",
+    "parameter": {"regularization_weight": 1.0},
+    "converter": {
+        "string_rules": [{"key": "*", "type": "str",
+                          "sample_weight": "bin", "global_weight": "bin"}],
+        "num_rules": [{"key": "*", "type": "num"}]},
+}
+
+
+def _conv(tool, argv, text):
+    import io
+
+    out = io.StringIO()
+    rc = tool.main(argv, stdin=io.StringIO(text), stdout=out)
+    return rc, out.getvalue()
+
+
+def test_jubaconv_json_to_datum():
+    from jubatus_tpu.cmd import jubaconv as jjubaconv
+
+    from jubatus_tpu_torch.cmd import jubaconv
+
+    text = ('{"user": "alice", "age": 31, "tags": ["a", "b"], '
+            '"meta": {"ok": true}, "none": null}')
+    rc, got = _conv(jubaconv, ["-o", "datum"], text)
+    assert rc == 0
+    doc = json.loads(got)
+    assert ["user", "alice"] in doc["string_values"]
+    assert ["tags[0]", "a"] in doc["string_values"]
+    assert ["age", 31.0] in doc["num_values"]
+    assert ["meta/ok", 1.0] in doc["num_values"]
+    assert (rc, got) == _conv(jjubaconv, ["-o", "datum"], text)
+    assert _conv(jubaconv, ["-o", "json"], text) == _conv(
+        jjubaconv, ["-o", "json"], text)
+
+
+def test_jubaconv_datum_to_fv(tmp_path):
+    from jubatus_tpu.cmd import jubaconv as jjubaconv
+
+    from jubatus_tpu_torch.cmd import jubaconv
+
+    conf = tmp_path / "conv.json"
+    conf.write_text(json.dumps(CONV_CONF))
+    argv = ["-i", "datum", "-o", "fv", "-c", str(conf)]
+    text = ('{"num_values": [["x", 2.0], ["y", -0.5]], '
+            '"string_values": [["s", "hello world"]]}')
+    rc, got = _conv(jubaconv, argv, text)
+    assert rc == 0
+    assert "x" in got and "2" in got
+    assert (rc, got) == _conv(jjubaconv, argv, text)
+    # the json input path through the converter too
+    argv = ["-o", "fv", "-c", str(conf)]
+    text = '{"user": "alice", "age": 31, "meta": {"ok": true}}'
+    assert _conv(jubaconv, argv, text) == _conv(jjubaconv, argv, text)
+
+
+def test_jubaconv_fv_requires_conf(capsys):
+    from jubatus_tpu.cmd import jubaconv as jjubaconv
+
+    from jubatus_tpu_torch.cmd import jubaconv
+
+    results = []
+    for tool in (jubaconv, jjubaconv):
+        results.append((_conv(tool, ["-o", "fv"], "{}"),
+                        _conv(tool, ["-o", "datum"], "{not json"),
+                        _conv(tool, ["-i", "datum", "-o", "json"], "{}"),
+                        capsys.readouterr().err))
+    assert results[0][0][0] == 1
+    assert results[0] == results[1]
+
+
+# -- launch: the per-engine entry functions ------------------------------------
+
+
+def test_launch_entry_points_call_the_mains_as_the_jax_package(monkeypatch):
+    """The port's ``launch`` has the JAX package's 22 entry functions, and
+    each calls the port's server or proxy main with its engine bound
+    before the arguments, as the JAX one calls its own."""
+    import jubatus_tpu.launch as jlaunch
+    import jubatus_tpu.server.__main__ as jserver_main
+    import jubatus_tpu.server.proxy as jproxy
+
+    import jubatus_tpu_torch.launch as launch
+    import jubatus_tpu_torch.server.__main__ as server_main
+    import jubatus_tpu_torch.server.proxy as proxy
+
+    calls = []
+    for mod, tag in ((server_main, "port-server"), (proxy, "port-proxy"),
+                     (jserver_main, "jax-server"), (jproxy, "jax-proxy")):
+        monkeypatch.setattr(mod, "main",
+                            lambda argv, tag=tag: calls.append((tag, argv)))
+    names = sorted(n for n in vars(jlaunch) if n.startswith("juba"))
+    assert len(names) == 22
+    assert sorted(n for n in vars(launch) if n.startswith("juba")) == names
+    for name in names:
+        argv = ["-f", "conf.json", "-p", "9199"]
+        assert getattr(launch, name)(argv) == 0
+        assert getattr(jlaunch, name)(argv) == 0
+        (mine, mine_argv), (theirs, theirs_argv) = calls[-2:]
+        assert mine.split("-")[1] == theirs.split("-")[1]
+        assert mine.startswith("port") and theirs.startswith("jax")
+        assert mine_argv == theirs_argv
+        assert mine_argv[0] == name[4:].removesuffix("_proxy")
+    monkeypatch.setattr(sys, "argv", ["jubaregression", "-p", "1"])
+    assert launch.jubaregression() == 0
+    assert calls[-1] == ("port-server", ["regression", "-p", "1"])

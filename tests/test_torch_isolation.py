@@ -128,6 +128,17 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.coord.autoscaler",
     "jubatus_tpu_torch.coord.perf_tuner",
     "jubatus_tpu_torch.rpc.legacy",
+    "jubatus_tpu_torch.coord.zk",
+    "jubatus_tpu_torch.client",
+    "jubatus_tpu_torch.cmd.jubaconv",
+    "jubatus_tpu_torch.launch",
+    "jubatus_tpu_torch.codegen",
+    "jubatus_tpu_torch.codegen.parser",
+    "jubatus_tpu_torch.codegen.emit",
+    "jubatus_tpu_torch.codegen.emit_cpp",
+    "jubatus_tpu_torch.codegen.emit_clients",
+    "jubatus_tpu_torch.parallel",
+    "jubatus_tpu_torch.parallel.ring",
 )
 
 

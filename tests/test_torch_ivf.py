@@ -1,8 +1,8 @@
 """The port's IVF tier (``jubatus_tpu_torch/ops/ivf.py``, the NN backend's
 ``configure_ann``) against the JAX package's on the same seeded inputs.
 
-Mirrors ``tests/test_ann_ivf.py`` (minus the two-level assignment, which
-the port does not carry). Tolerances:
+Mirrors ``tests/test_ann_ivf.py``, the two-level assignment included.
+Tolerances:
 
 - the embeddings, the lsh / minhash candidate rescore, the full-probe IVF
   answers and the centroids of the lsh / minhash tiers: exactly equal to
@@ -12,9 +12,11 @@ the port does not carry). Tolerances:
   absolute (float32 accumulation order), as the JAX test states;
 - float centroids trained by both packages: ``KMEANS_TOL`` (1e-5,
   absolute) of tests/test_torch_clustering.py;
-- cell assignment with the SAME centroids: equal, except rows whose two
-  nearest centroid distances lie within ``ASSIGN_RTOL`` (relative) of each
-  other, where float order may pick either;
+- cell assignment with the SAME centroids (flat, or two-level with the
+  same super tables): equal, except rows whose two nearest candidate
+  centroid distances lie within ``ASSIGN_RTOL`` (relative) of each other,
+  where float order may pick either; the host's grouped assignment is the
+  JAX package's numpy code and equal outright;
 - approximate against exact answers: ``tie_equal`` (distance sequences
   within the stated atol, ids equal below the k-th distance).
 """
@@ -264,6 +266,82 @@ def test_assign_cells_matches_jax_with_the_same_centroids(rng):
     near_tie = (two[:, 1] - two[:, 0]) <= ASSIGN_RTOL * two[:, 1]
     assert ((got == want) | near_tie).all()
     assert (got == want).mean() > 0.99
+
+
+def _clustered(rng, n, n_cells, dim=DIM):
+    """Planted centers + small noise (the regime the tier serves)."""
+    centers = rng.normal(size=(n_cells, dim)) * 4.0
+    return (centers[rng.integers(0, n_cells, size=n)]
+            + rng.normal(size=(n, dim))).astype(np.float32)
+
+
+def test_hierarchical_assignment_agrees_with_flat(rng):
+    """The two-level (super-cell) assignment of the 1e8-row build path
+    agrees with the flat argmin on the vast majority of rows; the
+    host-side grouped build is the same assignment."""
+    n, n_cells = 4000, 16
+    emb = _clustered(rng, n, n_cells)
+    cen = ivf.train_centroids(torch.from_numpy(emb), n_cells, seed=0)
+    flat = ivf.assign_cells(torch.from_numpy(emb),
+                            torch.from_numpy(cen)).numpy()
+    supers, members = ivf.build_super(cen, n_super=4, seed=0, device="cpu")
+    hier = ivf.assign_cells_hier(
+        torch.from_numpy(emb), torch.from_numpy(cen),
+        torch.from_numpy(supers), torch.from_numpy(members),
+        top_supers=2).numpy()
+    assert hier.dtype == np.int32 and hier.shape == (n,)
+    assert (flat == hier).mean() > 0.9
+    grouped = ivf.assign_cells_grouped(emb, cen, supers, members,
+                                       top_supers=2)
+    assert (grouped == hier).mean() > 0.999
+
+
+@pytest.mark.parametrize("n_cells,n_super", [(16, 4), (300, 7)])
+def test_build_super_matches_jax(n_cells, n_super, rng):
+    """The same centroids group into the JAX package's super tables:
+    supers within KMEANS_TOL, the member table equal."""
+    cen = rng.normal(size=(n_cells, 16)).astype(np.float32)
+    supers, members = ivf.build_super(cen, n_super=n_super, seed=2,
+                                      device="cpu")
+    jsupers, jmembers = jivf.build_super(cen, n_super=n_super, seed=2)
+    assert supers.dtype == np.float32 and members.dtype == np.int32
+    np.testing.assert_allclose(supers, jsupers, rtol=0, atol=KMEANS_TOL)
+    np.testing.assert_array_equal(members, jmembers)
+    assert sorted(members[members >= 0].tolist()) == list(range(n_cells))
+
+
+@pytest.mark.parametrize("top_supers", [1, 2, 4])
+def test_two_level_assignment_matches_jax_with_the_same_tables(top_supers,
+                                                               rng):
+    """``assign_cells_hier`` and ``assign_cells_grouped`` answer the JAX
+    functions' cells on the same embeddings, centroids and super tables."""
+    n, n_cells = 3000, 64
+    emb = _clustered(rng, n, n_cells, dim=32)
+    cen = rng.normal(size=(n_cells, 32)).astype(np.float32) * 4.0
+    supers, members = (np.array(a) for a in jivf.build_super(
+        cen, n_super=8, seed=1))
+    got = ivf.assign_cells_hier(
+        torch.from_numpy(emb), torch.from_numpy(cen),
+        torch.from_numpy(supers), torch.from_numpy(members),
+        top_supers=top_supers).numpy()
+    want = np.asarray(jivf.assign_cells_hier(
+        jnp.asarray(emb), jnp.asarray(cen), jnp.asarray(supers),
+        jnp.asarray(members), top_supers=top_supers))
+    # near ties among each row's candidate cells may go either way
+    sd = ((emb[:, None, :] - supers[None]) ** 2).sum(-1)
+    gsel = np.argsort(sd, axis=1, kind="stable")[:, :top_supers]
+    near_tie = np.zeros(n, bool)
+    for i in range(n):
+        cells = members[gsel[i]].reshape(-1)
+        cells = cells[cells >= 0]
+        d2 = np.sort(((cen[cells] - emb[i]) ** 2).sum(-1))
+        near_tie[i] = len(d2) > 1 and d2[1] - d2[0] <= ASSIGN_RTOL * d2[1]
+    assert ((got == want) | near_tie).all()
+    assert (got == want).mean() > 0.99
+    grouped = ivf.assign_cells_grouped(emb, cen, supers, members,
+                                       top_supers=top_supers)
+    np.testing.assert_array_equal(grouped, jivf.assign_cells_grouped(
+        emb, cen, supers, members, top_supers=top_supers))
 
 
 # -- cell arenas -------------------------------------------------------------

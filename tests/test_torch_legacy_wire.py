@@ -474,9 +474,18 @@ def test_legacy_session_answers_equal_the_jax_server(tmp_path, monkeypatch):
 
     from jubatus_tpu.server import EngineServer as JEngineServer
     from jubatus_tpu.server.args import ServerArgs as JServerArgs
+    from jubatus_tpu.utils import tracing as jtracing
+
+    from jubatus_tpu_torch.utils import tracing
 
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_INGEST", "0")
+    # get_status surfaces the process default registry's counters
+    # (trace.counter.*) in both packages; earlier tests in this process
+    # bump them in one package only (C10), so each package gets a fresh
+    # default registry for this session
+    monkeypatch.setattr(tracing, "_default", tracing.Registry())
+    monkeypatch.setattr(jtracing, "_default", jtracing.Registry())
     path = os.path.join(os.path.dirname(__file__), "..", "config",
                         "classifier", "arow.json")
     with open(path) as f:

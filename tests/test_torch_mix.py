@@ -25,7 +25,6 @@ from jubatus_tpu.coord.file import FileCoordinator as JFileCoordinator
 from jubatus_tpu.framework import linear_mixer as jax_linear_mixer
 from jubatus_tpu.server import EngineServer as JEngineServer
 from jubatus_tpu.server.args import ServerArgs as JServerArgs
-from jubatus_tpu_torch import NotYetPorted
 from jubatus_tpu_torch.coord import (CoordinatorError, create_coordinator,
                                      membership)
 from jubatus_tpu_torch.coord.base import NodeInfo
@@ -675,13 +674,24 @@ def test_unported_mix_flags_raise_not_yet_ported(flags):
             srv.coord.close()
 
 
-def test_unported_coordinator_locators_raise_not_yet_ported(tmp_path):
-    """ZooKeeper sessions are the one locator the port lacks; tcp:// and
-    host:port open a session on the coordination service (here none
-    listens, so the session cannot open)."""
-    with pytest.raises(NotYetPorted):
-        create_coordinator("zk://127.0.0.1:1")
-    for spec in ("tcp://127.0.0.1:1", "127.0.0.1:1"):
+def test_every_coordinator_locator_builds_its_backend(tmp_path):
+    """``zk://`` builds a ``ZkCoordinator`` session on a (fake) ensemble
+    and, like tcp:// and host:port, raises "cannot reach" where none
+    listens; file:// builds a FileCoordinator."""
+    from fake_zk import FakeZkServer
+
+    from jubatus_tpu_torch.coord.zk import ZkCoordinator
+
+    zk = FakeZkServer()
+    try:
+        coord = create_coordinator(f"zk://127.0.0.1:{zk.start(0)}")
+        assert isinstance(coord, ZkCoordinator)
+        assert coord.create("/jubatus/probe", b"x")
+        assert coord.read("/jubatus/probe") == b"x"
+        coord.close()
+    finally:
+        zk.stop()
+    for spec in ("zk://127.0.0.1:1", "tcp://127.0.0.1:1", "127.0.0.1:1"):
         with pytest.raises(CoordinatorError, match="cannot reach"):
             create_coordinator(spec)
     coord = create_coordinator(f"file://{tmp_path}")

@@ -20,7 +20,7 @@ from jubatus_tpu_torch.rpc import deadline as deadlines
 from jubatus_tpu_torch.rpc.client import ClassifierClient, RpcClient
 from jubatus_tpu_torch.server import EngineServer
 from jubatus_tpu_torch.server.args import ServerArgs
-from jubatus_tpu_torch.utils import tracing
+from jubatus_tpu_torch.utils import profiler, tracing
 from jubatus_tpu_torch.utils.profiler import (OTHER_KEY, TRACE_FILE,
                                               DeviceCapture, SamplingProfiler,
                                               collapse_frame, fold_profiles,
@@ -309,7 +309,12 @@ def test_device_capture_one_at_a_time_in_a_process(tmp_path):
     out = {}
     t = threading.Thread(target=lambda: out.update(a=a.capture(1.0)))
     t.start()
+    # b asks only once a holds the process's capture: a b capture taken
+    # first would make a's start the one refused
     deadline = time.monotonic() + 5.0
+    while (not profiler._capture_lock.locked()
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
     busy = {}
     while time.monotonic() < deadline:
         busy = b.capture(0.05)

@@ -7,6 +7,7 @@ round trip, plus lsh and minhash against the JAX package's own server.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import signal
 import socket
@@ -508,6 +509,22 @@ def test_microbatch_max_zero_trains_per_rpc():
         == 8192
 
 
+@pytest.fixture
+def own_root_logging():
+    """The server's main installs the process's root log handler, a stream
+    on this test's captured stderr; the root logger is put back as it was
+    afterwards, so that no later test of the process logs into that
+    closed stream."""
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    yield
+    for h in list(root.handlers):
+        root.removeHandler(h)
+    for h in handlers:
+        root.addHandler(h)
+    root.setLevel(level)
+
+
 @pytest.mark.parametrize("engine,name", [
     ("classifier", n) for n in ("perceptron.json", "pa.json", "pa1.json",
                                 "pa2.json", "cw.json", "arow.json",
@@ -515,7 +532,8 @@ def test_microbatch_max_zero_trains_per_rpc():
                                 "arow_combinational_feature.json")
 ] + [("regression", n) for n in ("default.json", "pa.json",
                                  "pa_combinational_feature.json")])
-def test_every_linear_config_passes_config_test(engine, name, capsys):
+def test_every_linear_config_passes_config_test(engine, name, capsys,
+                                                own_root_logging):
     from jubatus_tpu_torch.server.__main__ import main
 
     assert main([engine, "--config-test", "-f",
