@@ -9,7 +9,8 @@ each of which fails the run (non-zero exit, no result line) on error:
 1. device: the card's name, and its name and power limit from nvidia-smi;
    builds ``jubatus_tpu_torch/csrc/sig_scan.cu`` and
    ``jubatus_tpu_torch/csrc/online_scan.cu`` with nvcc (sm_90a), one nvcc
-   per source, started together;
+   per source, and ``native/fast_ingest.cpp`` with g++ (the raw-wire
+   parser the linear servers load), started together;
 2. kernels: both modes of the signature scan against their plain PyTorch
    versions on the same tensors, bit-equal required: first at edge shapes
    (C in {1, 7, 4099}, B around each variant's limits, W in {2, 3, 64, 70},
@@ -62,7 +63,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    the same rows (lsh/minhash exactly, euclid_lsh within LOF_SCORE_RTOL);
    float32 matmul must be at full precision (no TF32);
 7. servers: the recommender (default.json, 2,500 update_row), anomaly (LOF
-   over lsh, 200 add: each add rebuilds the support) and classifier
+   over lsh, 100 add: each add rebuilds the support) and classifier
    (``config/classifier/nn.json`` as shipped and with nested lsh, 2,500
    examples) servers on the card, all four started at once and each
    driven alone once all four answer, every answer compared with the
@@ -128,7 +129,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    fold of both members' diffs against two CPU port servers driven the
    same way, then streaming turns (submits, folds, staleness, drops,
    stalls) until the replicas hold one model; an ``lsh.json`` server
-   filled with 6.25·10^4 rows through ``put_rows``, a second server's
+   filled with 3.125·10^4 rows through ``put_rows``, a second server's
    ``rebalance`` pull, its first query (signing every pulled row, K1),
    then the first server's drain and handoff, the new owner's answers
    equal to the source's each time; the AROW driver (capacity 8, B =
@@ -148,10 +149,10 @@ each of which fails the run (non-zero exit, no result line) on error:
    nearest_neighbor: each member filled with 3.125·10^4 rows on their
    CHT(1) owner by ``put_rows`` (6.25·10^4 in all), 2,000 ``set_row``
    through the proxy,
-   200 each of ``neighbor_row_from_datum`` and ``similar_row_from_datum``
+   100 each of ``neighbor_row_from_datum`` and ``similar_row_from_datum``
    through the proxy and directly to both members (every proxied answer
    equal to one member's exactly; p50/p99 both ways; the proxy's forwards
-   through the raw relay and the generic path); anomaly: 50 ``add``
+   and its ``relay_count``, 0 on the Python transport); anomaly: 50 ``add``
    through the proxy, each id held by both CHT(2) owners, ``calc_score``;
    regression: 10^4 rows through the proxy in calls of 256, ``estimate``;
    the broadcasts (``get_status`` and ``save`` merged, ``clear``
@@ -182,7 +183,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    6's config over lsh, 4096 rows) on the shards, bit-equal to the CPU
    port's sharded driver, its agreement with the flat LOF counted. Then
    two ``--ann ivf`` lsh.json servers: one filled with 6.25·10^4 rows by
-   ``put_rows`` and queried 200 times over RPC, its ``ann.*`` status
+   ``put_rows`` and queried 100 times over RPC, its ``ann.*`` status
    read, saved; the other loads the file (centroids byte for byte, equal
    answers); and ``--shard-devices 2`` on one card exits with the JAX
    server's message;
@@ -256,7 +257,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    replaying the same test-then-train (SP_MAE_RTOL); two ``lsh.json``
    servers whose converter splits a text key with the ``ux_splitter``
    plugin (its dictionary written here), one with ``--fv-cache-size 0``:
-   10^4 set_row each (both filled at once), then 200 queries each in turn
+   5,000 set_row each (both filled at once), then 200 queries each in turn
    (p50/p99, K1 launches +200), the
    answers of both against the CPU port's driver, the memo caches' hit
    rate; then the usage ledger's billed "device seconds" beside the
@@ -304,7 +305,7 @@ each of which fails the run (non-zero exit, no result line) on error:
    ``JUBATUS_TPU_ZK`` names, else tests/fake_zk.py's FakeZkServer in this
    process), two nearest_neighbor ``lsh.json`` and two regression
    ``default.json`` members and a port proxy per engine: through the
-   proxies with the port's typed clients 2,000 ``set_row`` and 200
+   proxies with the port's typed clients 1,000 ``set_row`` and 200
    ``neighbor_row_from_datum`` (K1), 2,000 regression rows in calls of
    256 (S1); one ``do_mix`` of the regression pair, the two saved models
    equal; ``jubactl -c status -z zk://...``; a client emitted by the
@@ -312,8 +313,23 @@ each of which fails the run (non-zero exit, no result line) on error:
    it leaves the actives within the 10 s session timeout and 50 more
    queries through the proxy are each answered by the survivor (its K1
    count rises by 50); p50/p99 through the proxies and the leave time.
+21. the raw-wire ingest (path ``raw_ingest``): for each of arow.json (a
+   fixed 16-key schema: the schema plan), arow_combinational_feature.json's
+   rules with bin weights (the shipped file weighs strings by idf, which
+   the native parser declines with combinations: the combo device plan),
+   regression pa.json (phase 9's rows: S1) and a pure-idf classifier (the
+   deferred idf), two servers in this process on the card, one on the
+   raw path and one with ``JUBATUS_TPU_NATIVE_INGEST=0``, each fed
+   4,096 rows in calls of 256 from 4 clients, then ``clear`` and 4,096
+   more from 1 client (each call one flush); ``train_raw`` must count
+   every row, the plan's ``ingest.*`` counter must move, the raw server's
+   64 probe answers must equal the decoded server's and a CPU driver's
+   fed the parser's arrays of the same calls, and so must its model,
+   within phase 9's tolerance; train rows/s of both paths, and a call's
+   parse, the flush's merge and its device stage (host wall and CUDA
+   events) against the decoded path's featurize.
 
-Phases 3-7 and 8-20 are the main path: each
+Phases 3-7 and 8-21 are the main path: each
 path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -386,7 +402,9 @@ LOF_ADDS = 2                  # each add rebuilds the support, whose cold
                               # rebuild the phase times and splits
 LOF_SCORES = 50
 LOF_METHODS = ("euclid_lsh", "lsh", "minhash")
-ANOMALY_SERVER_ROWS = 200     # adds over the wire (each rebuilds the support)
+ANOMALY_SERVER_ROWS = 100     # adds over the wire (each rebuilds the
+                              # support; cut from 200 for the run's limit:
+                              # phases 11 and 13 make 50 adds each)
 SERVER7_ROWS = 2_500          # phase 7's recommender update_row calls and
 #                               nn.json examples (cut from 10^4: phase 11
 #                               writes 2,000 rows to servers of both
@@ -2144,10 +2162,12 @@ def phase_linear_server(Datum, Driver, engine: str, config_name: str,
         check(all(a == b for a, b in counts) and len(counts) == len(batches),
               f"{engine}: a train call got another count back")
         st1 = server_status(cli)
-        flushes = (st1["microbatch.train.flush_count"]
-                   - st0.get("microbatch.train.flush_count", 0))
-        check(st1["microbatch.train.item_count"] == SERVER_ROWS,
-              f"{engine}: {st1['microbatch.train.item_count']} examples "
+        # arow.json and default.json are converters the native parser
+        # expresses: the calls take the raw-wire path and its coalescer
+        flushes = (st1["microbatch.train_raw.flush_count"]
+                   - st0.get("microbatch.train_raw.flush_count", 0))
+        check(st1["microbatch.train_raw.item_count"] == SERVER_ROWS,
+              f"{engine}: {st1['microbatch.train_raw.item_count']} examples "
               f"flushed, want {SERVER_ROWS}")
         check(cli.call("clear", "smoke") is True, "clear failed")
         t0 = time.perf_counter()
@@ -3174,11 +3194,14 @@ PUSH_STRATEGIES = ("broadcast_mixer", "random_mixer", "skip_mixer")
 #: push strategies whose exchanges are a function of the member ring (the
 #: CPU fleet repeats them); random_mixer draws its peer
 PUSH_REPEATABLE = ("broadcast_mixer", "skip_mixer")
-PUSH_ROWS = 3_000             # arow.json rows, a third per member
+PUSH_ROWS = 1_500             # arow.json rows, a third per member (cut
+                              # from 3,000 for the run's limit: phases 11
+                              # and 16 train such fleets too)
 ASYNC_ROWS = 2_000            # arow.json rows, half per member
 ASYNC_STREAM_STEPS = 4        # train + do_mix on each member, in turns
-ELASTIC_ROWS = 62_500         # cut from phase 3's 10^6 to keep the run inside
-                              # its limit
+ELASTIC_ROWS = 31_250         # cut from phase 3's 10^6, then 62,500, to keep
+                              # the run inside its limit (phase 13 fills
+                              # and drains 3.125·10^4 a member)
 ELASTIC_FILL = 20_000         # rows per put_rows call of the fill
 ELASTIC_QUERIES = 5
 STORE_ROWS = 2_000            # regression rows before the warm boot
@@ -3723,13 +3746,39 @@ def phase_warmboot(Datum, seed: int) -> dict:
                 server_launches=launches)
 
 
+def same_up_to_alignment(after, before):
+    """Whether a member's classify answers ``after`` (one list of [label,
+    score] pairs per datum of each query) equal ``before``: False when
+    they equal them pair for pair, True when only the labels' order
+    differs and it is the sorted one (a mix round's schema alignment),
+    None otherwise. Scores are compared exactly."""
+    if after == before:
+        return False
+    if len(after) != len(before):
+        return None
+    for got, want in zip(after, before):
+        if len(got) != len(want):
+            return None
+        for g, w in zip(got, want):
+            if [lab for lab, _ in g] != sorted(lab for lab, _ in w) or \
+                    sorted(map(tuple, g)) != sorted(map(tuple, w)):
+                return None
+    return True
+
+
 def phase_quarantine(Datum, seed: int) -> dict:
     """Two arow.json servers (each its own process) on ``-x
     broadcast_mixer --mix-guard quarantine --model-snapshot-interval 1``,
     the second armed with ``--fault mix.diff.poison*:nan``. Both train;
     once each has snapshotted the trained model, the poisoned member's
     round folds its NaN diff into the exchange's total: both members
-    refuse it and roll back, and answer as before the round."""
+    refuse it and roll back, and answer as before the round: every
+    label's score bit-equal. The member that runs the round takes no
+    snapshot inside it (the tick waits out the round's lock); a member
+    whose slots a peer's round aligned (``sync_schema``: the sorted
+    union's order) may snapshot the same model so aligned, and its
+    labels then come back in the sorted order, and in no other
+    (``same_up_to_alignment``)."""
     d = fleet_dir("quarantine")
     config = os.path.join(ROOT, "config", "classifier", "arow.json")
     extra = p12_args(d, "q", "-x", "broadcast_mixer", "--mix-guard",
@@ -3766,16 +3815,27 @@ def phase_quarantine(Datum, seed: int) -> dict:
                   "the non-finite total was not refused")
         after = [[c.call("classify", "smoke", q) for q in queries]
                  for c in clis]
-        check(after == before, "a rolled-back member answers otherwise")
+        aligned = [same_up_to_alignment(a, b) for a, b in zip(after, before)]
+        for k, (a, b) in enumerate(zip(after, before)):
+            if aligned[k] is None:  # what differed, for the log
+                i = next((i for i, (x, y) in enumerate(zip(a, b))
+                          if x != y), None)
+                print(f"[quarantine] member {k} answers otherwise: query "
+                      f"{i}, before {b[i] if i is not None else b} after "
+                      f"{a[i] if i is not None else a}; snapshots "
+                      f"{sts[k]['snapshot.taken']}", file=sys.stderr)
+        check(all(k is not None for k in aligned),
+              "a rolled-back member answers otherwise")
     return dict(rows=QUARANTINE_ROWS, round_ms=round_ms,
                 members=[dict(rollbacks=st["rollback.count"],
+                              restored_aligned=k,
                               snapshots_taken=st["snapshot.taken"],
                               snapshot_bytes=st["snapshot.bytes"],
                               snapshot_lock_ms=st.get(
                                   "trace.snapshot.lock.max_ms"),
                               refused=st.get(
                                   "trace.counter.mix.guard.nonfinite_total"))
-                         for st in sts])
+                         for st, k in zip(sts, aligned)])
 
 
 # ---------------------------------------------------------------------------
@@ -3789,9 +3849,11 @@ FLEET_NN_ROWS = 31_250        # put_rows per NN member (cut from 5·10^5,
                               # fill, pull and drain)
 FLEET_NN_FILL = 20_000        # rows per put_rows call
 FLEET_SETS = 2_000            # set_row calls through the proxy
-FLEET_QUERIES = 200           # each NN query method through the proxy
+FLEET_QUERIES = 100           # each NN query method through the proxy
+                              # (cut from 200 for the run's limit: phase
+                              # 20 times 200 + 50 through its proxy)
 FLEET_ADDS = 50               # anomaly adds through the proxy (cut from
-                              # 200: phase 7 times 200 adds of the same
+                              # 200: phase 7 times 100 adds of the same
                               # config over the wire)
 FLEET_SCORES = 20             # calc_score through the proxy
 FLEET_TRAIN = 10_000          # regression rows through the proxy
@@ -4094,8 +4156,6 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                      for m, v in lat.items()},
             proxy=dict(forward_count=pst["forward_count"],
                        relay_count=pst["relay_count"],
-                       generic_count=pst["forward_count"]
-                       - pst["relay_count"],
                        forward_errors=pst["forward_errors"],
                        ring_builds=pst["ring.builds"],
                        ring_hits=pst["ring.hits"]))
@@ -4537,7 +4597,8 @@ SHARD_IVF_QUERIES = 20
 IVF_SERVER_ROWS = 62_500      # the --ann ivf server's put_rows fill (cut
                               # from 2.5·10^5, then 1.25·10^5: the IVF query
                               # at 10^6 rows is the flat index's)
-IVF_SERVER_QUERIES = 200
+IVF_SERVER_QUERIES = 100      # (cut from 200 for the run's limit: phase
+                              # 14 times IVF queries at 10^6 rows)
 IVF_LOAD_QUERIES = 50
 SHARD_LOF_SCORES = 20
 
@@ -5748,7 +5809,7 @@ def phase_collective_fleets(Datum, seed: int) -> dict:
 CK_SHARDS = (4, 2, 1)         # restore layouts of the 2^24 checkpoint
 FX_ROWS = NN_SERVER_ROWS      # set_row calls per NN server (cut from
 #                               10^4: phase 18 fills two lsh.json servers
-#                               with 10^4 set_row each)
+#                               with 5,000 set_row each)
 FX_FILL_THREADS = 4
 FX_QUERIES = 200              # NN queries per server for p50/p99
 FX_CAPTURE_S = 2.0            # profile_device seconds
@@ -6304,7 +6365,9 @@ SP_DRILL = ("--quality-sample", "1.0",
             "--slo-fast-window", "4", "--slo-slow-window", "8")
 SP_DRILL_WAIT_S = 30.0        # longest wait for the reference / the alert
 SP_SCORED = 8                 # rows the prequential scorer takes a batch
-SP_NN_ROWS = 10_000           # set_row calls per nearest_neighbor server
+SP_NN_ROWS = 5_000            # set_row calls per nearest_neighbor server
+                              # (cut from 10^4 for the run's limit: phase
+                              # 13 serves 3.125·10^4 rows a member)
 SP_NN_QUERIES = 200
 SP_TEXTS = 500                # distinct texts of the NN rows (hot strings)
 SP_KEYWORDS = 400             # ux_splitter dictionary entries
@@ -6429,11 +6492,11 @@ def sp_arms(clis, halves, warm) -> dict:
         doc = dict(flags=list(SP_ARMS[arm]),
                    rows_per_s=statistics.median(rates[arm]),
                    rows_per_s_runs=rates[arm],
-                   flushes=st["microbatch.train.flush_count"],
+                   flushes=st["microbatch.train_raw.flush_count"],
                    launches=server_launches(st))
-        check(st["microbatch.train.item_count"] ==
+        check(st["microbatch.train_raw.item_count"] ==
               SP_WARMUP_ROWS + SP_ROUNDS * 2 * SP_ROWS,
-              f"{arm}: {st['microbatch.train.item_count']} rows flushed")
+              f"{arm}: {st['microbatch.train_raw.item_count']} rows flushed")
         if arm == "planes_off":
             check(q == {} and u == {}, "planes_off still answers planes")
         else:
@@ -6488,7 +6551,9 @@ def sp_drill(cli, halves) -> dict:
     q = node_doc(cli, "get_quality")
     drill["drift"] = q["drift"]
     drill["prequential"] = q["prequential"]["n"]
-    check(q["drift"].get("f", 0.0) > 0.1,
+    # arow.json's converter rides the raw-wire path, where feature names
+    # never materialize: the values record under one "hashed" group
+    check(q["drift"].get("hashed", 0.0) > 0.1,
           f"the shifted features drew no drift: {q['drift']}")
     bundles = node_doc(cli, "get_incidents", "")["incidents"]
     check(len(bundles) == 1, f"{len(bundles)} incident bundles, want 1")
@@ -6593,7 +6658,7 @@ def sp_nn_config(seed: int):
 def sp_nn(clis, config, texts, Datum, NearestNeighborDriver,
           seed: int) -> dict:
     """Two such servers, one with the memo caches and one with
-    --fv-cache-size 0: 10^4 set_row each (both servers and the CPU port's
+    --fv-cache-size 0: 5,000 set_row each (both servers and the CPU port's
     driver filled at once), then 200 queries timed on each in turn (K1),
     the answers of the two and of the CPU driver fed the same rows
     agreeing."""
@@ -6688,7 +6753,7 @@ def sp_billing(torch, Datum, seed: int) -> dict:
                        device="cuda")
     port = srv.start(0)
     try:
-        co = srv.coalescers["train"]
+        co = srv.coalescers["train_raw"]  # arow.json: the raw-wire path
         stage, pairs = co._flush, []
 
         def bracketed(prepared):
@@ -6821,13 +6886,16 @@ def phase_tune_coalescer(Datum, EngineServer, ServerArgs, online_scan,
     try:
         for mode, srv in servers.items():
             clis[mode] = RpcClient("127.0.0.1", srv.start(0), timeout=120.0)
-        depth0 = {m: s.coalescers["train"].max_batch
+        # default.json's converter rides the raw-wire path: its coalescer
+        # is the one the stream loads
+        depth0 = {m: s.coalescers["train_raw"].max_batch
                   for m, s in servers.items()}
         rng = np.random.default_rng(seed + 1901)
         s1 = {m: 0 for m in servers}
         bursts, i, t0 = 0, 0, time.perf_counter()
         while bursts < TUNE_MIN_BURSTS or (
-                servers["on"].coalescers["train"].max_batch == depth0["on"]
+                servers["on"].coalescers["train_raw"].max_batch
+                == depth0["on"]
                 and bursts < TUNE_MAX_BURSTS):
             for _ in range(TUNE_BURST_CALLS):
                 batch = [linear_example(rng, Datum, "regression", i + k)
@@ -6843,7 +6911,7 @@ def phase_tune_coalescer(Datum, EngineServer, ServerArgs, online_scan,
         stream_s = time.perf_counter() - t0
         docs = {m: next(iter(clis[m].call("get_tune", "smoke").values()))
                 for m in servers}
-        depth = {m: s.coalescers["train"].max_batch
+        depth = {m: s.coalescers["train_raw"].max_batch
                  for m, s in servers.items()}
         check(depth["on"] != depth0["on"], f"--auto-tune on: the train "
               f"coalescer stayed at {depth0['on']} after {bursts} bursts")
@@ -6851,7 +6919,7 @@ def phase_tune_coalescer(Datum, EngineServer, ServerArgs, online_scan,
               f"--auto-tune observe moved the coalescer to "
               f"{depth['observe']}")
         applied = [r for r in docs["on"]["journal"]
-                   if r.get("target") == "train"
+                   if r.get("target") == "train_raw"
                    and r["action"] in ("deepen", "shallow")
                    and not r.get("dry_run")]
         check(applied and applied[-1]["signals"]["depth"] == depth["on"],
@@ -7054,7 +7122,8 @@ def phase_tune_mix(seed: int) -> dict:
 def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
                     proxies: dict, visor_pid: int, procs: list) -> dict:
     """On phase 13's fleet (its jubacoordd, jubavisor and regression
-    proxy): AS_CLIENTS clients train through the regression proxy; a
+    proxy): AS_CLIENTS clients train through the regression proxy (each
+    call's params packed once, so the clients outpace the members); a
     burst of AS_BURST_S sets ``--queue-hot`` to half the queued rows per
     member it shows; then ``jubactl -c autoscale --min 2 --max 3
     --autoscale-interval 1 --scale-out-confirm 2 --cooldown 20
@@ -7067,6 +7136,8 @@ def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
     launches are read from every regression member's get_status (the
     drained one's last reading before it left)."""
     import threading
+
+    import msgpack
 
     from jubatus_tpu_torch.cmd import jubactl
     from jubatus_tpu_torch.coord import membership
@@ -7094,6 +7165,13 @@ def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
     rng = np.random.default_rng(seed + 1903)
     rows = [linear_example(rng, Datum, "regression", i)
             for i in range(8 * AS_BATCH)]
+    # each call's params packed once: clients encoding rows in this
+    # process are slower than the members' raw-wire ingest, and the queue
+    # the autoscaler reads would not stay hot
+    packed = {size: [msgpack.packb([reg_name, [[t, d.to_msgpack()]
+                                               for t, d in rows[lo:lo + size]]])
+                     for lo in range(0, len(rows), size)]
+              for size in (AS_BATCH, LINEAR_BATCH)}
     errors, calls = [], [0]
     heavy_stop, light_stop = threading.Event(), threading.Event()
 
@@ -7101,9 +7179,9 @@ def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
         with RpcClient("127.0.0.1", reg_port, timeout=300.0) as c:
             k = 0
             while not stop.is_set():
-                lo = (k * size) % len(rows)
                 try:
-                    n = c.call("train", reg_name, rows[lo:lo + size])
+                    n = msgpack.unpackb(c.call_raw(
+                        "train", packed[size][k % len(packed[size])]))
                     if n != size:
                         errors.append(f"short count {n}")
                     calls[0] += 1
@@ -7434,7 +7512,9 @@ def phase_legacy_wire(Datum, seed: int, started=None) -> dict:
 # ---------------------------------------------------------------------------
 # phase 20: ZooKeeper sessions and the ring scan
 # ---------------------------------------------------------------------------
-ZK_SETS = 2_000               # set_row calls through the NN proxy
+ZK_SETS = 1_000               # set_row calls through the NN proxy (cut
+                              # from 2,000 for the run's limit: phase 13
+                              # makes 2,000 through its proxy)
 ZK_QUERIES = 200              # neighbor_row_from_datum through the proxy
 ZK_TRAIN = 2_000              # regression rows through its proxy
 ZK_BATCH = 256                # rows per train call
@@ -7528,7 +7608,7 @@ def zk_idl(SERVICES, engine: str) -> str:
 
 def phase_zk_fleet(Datum, seed: int, fleet: dict) -> dict:
     """Drive ``start_zk_fleet``'s fleet: through the proxies with the
-    port's typed clients, 2,000 ``set_row`` and 200
+    port's typed clients, 1,000 ``set_row`` and 200
     ``neighbor_row_from_datum`` (K1 on the members), 2,000 regression rows
     in calls of 256 (S1); one ``do_mix`` of the regression pair, whose
     saved models must then be equal; ``jubactl -c status -z zk://...``;
@@ -7833,6 +7913,307 @@ def phase_ring(torch, sig_scan, ShardMesh, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the raw-wire ingest on the card
+# ---------------------------------------------------------------------------
+RAW_ROWS = 4_096              # rows a feed sends, in calls of LINEAR_BATCH
+RAW_CLIENTS = 4               # clients of the concurrent feed
+RAW_PROBES = 64               # classify / estimate probe datums
+RAW_KEYS = 16                 # numeric keys of arow.json's fixed schema
+RAW_COMBO_KEYS = 8            # numeric keys of the combo feed (28 pairs)
+RAW_WORDS = 200               # vocabulary of the idf feed's texts
+#: the pure-idf classifier (tests/test_native_ingest.py's idf server case)
+RAW_IDF_CONFIG = {
+    "method": "AROW", "parameter": {"regularization_weight": 1.0},
+    "converter": {"string_rules": [
+        {"key": "*", "type": "space", "sample_weight": "tf",
+         "global_weight": "idf"}]}}
+
+
+def raw_cases() -> list:
+    """(name, engine, config, feed, plan) of phase 21. The shipped
+    arow_combinational_feature.json weighs its strings by idf, which the
+    native spec cannot compose with combinations (it declines in both
+    packages); the combo plan runs on its rules with bin weights."""
+    combo = load_config("classifier", "arow_combinational_feature.json")
+    conv = json.loads(json.dumps(combo["converter"]))
+    for rule in conv["string_rules"]:
+        rule["global_weight"] = "bin"
+    return [
+        ("arow", "classifier", load_config("classifier", "arow.json"),
+         "schema", "schema_flushes"),
+        ("combo", "classifier", dict(combo, converter=conv), "combo",
+         "combo_flushes"),
+        ("pa", "regression", load_config("regression", "pa.json"),
+         "mixed", "sparse_query_flushes"),
+        ("idf", "classifier", RAW_IDF_CONFIG, "text", "sparse_flushes"),
+    ]
+
+
+def raw_rows(rng, Datum, engine: str, feed: str, n: int):
+    """``n`` [label, Datum] rows of one feed: ``schema`` RAW_KEYS numeric
+    keys every row; ``combo`` RAW_COMBO_KEYS; ``mixed`` phase 9's rows
+    (random keys and two string values); ``text`` one text of 4-12 words
+    of RAW_WORDS."""
+    out = []
+    for i in range(n):
+        if feed == "mixed":
+            d = server_datum(rng, Datum, i)
+        elif feed == "text":
+            words = rng.integers(RAW_WORDS, size=int(rng.integers(4, 13)))
+            d = Datum({"t": " ".join(f"w{w}" for w in words)})
+        else:
+            keys = RAW_KEYS if feed == "schema" else RAW_COMBO_KEYS
+            vals = np.round(rng.standard_normal(keys), 3)
+            d = Datum({f"f{j}": float(v) for j, v in enumerate(vals)})
+        score = float(sum(v for _, v in d.num_values)) + (
+            1.0 if feed == "text" and " w1" in f" {d.string_values[0][1]}"
+            else 0.0)
+        label = score if engine == "regression" else "ab"[int(score > 0)]
+        out.append([label, d])
+    return out
+
+
+def raw_feed(port: int, batches, clients: int) -> float:
+    """``batches`` from ``clients`` clients at once; each call must answer
+    its own count. Returns the wall seconds."""
+    import threading
+
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    errors = []
+
+    def client(k):
+        try:
+            with RpcClient("127.0.0.1", port, timeout=120.0) as c:
+                for b in batches[k::clients]:
+                    got = c.call("train", "smoke", b)
+                    if got != len(b):
+                        errors.append(f"train answered {got} for {len(b)}")
+        except Exception as e:  # broad-ok — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"raw feed: {errors[:1]}")
+    return time.perf_counter() - t0
+
+
+def raw_replay(ref, parser, combo, plan: str, raw: bytes) -> None:
+    """The CPU driver fed the parser's arrays of one call, as the raw
+    path's flush of that call alone feeds the card's driver."""
+    from jubatus_tpu_torch.native.ingest import deferred_idf_scale
+
+    if plan == "combo":
+        cache, base = combo
+        (_, cplan), (uniq, lidx), _idx, val = cache.parse_train(base, raw)
+        ref.train_indexed_combo(uniq, lidx, cplan.uidx, val, cplan.a_idx,
+                                cplan.b_idx, cplan.mul_mask)
+        return
+    labels, idx, val = parser.parse_indexed(raw)
+    if plan == "mixed":
+        ref.train_hashed(labels, idx, val)
+        return
+    uniq, lidx = labels
+    if plan == "schema":
+        check(bool((idx == idx[0]).all()), "the schema feed is not uniform")
+        ref.train_indexed_schema(uniq, lidx, idx[0], val)
+        return
+    val = deferred_idf_scale(idx, val, ref.converter.weights, observe=True)
+    ref.train_indexed(uniq, lidx, idx, val)
+
+
+def raw_err(got, want) -> float:
+    """max |got - want| over phase 9's limit (LINEAR_TOL of the largest
+    magnitude plus 1e-4 relative): within the tolerance when <= 1."""
+    g = np.asarray(got, dtype=np.float64)
+    w = np.asarray(want, dtype=np.float64)
+    check(g.shape == w.shape and np.isfinite(g).all(),
+          f"answers of shape {g.shape}, want {w.shape}, or not finite")
+    if w.size == 0:
+        return 0.0
+    limit = LINEAR_TOL * float(np.abs(w).max()) + 1e-4 * np.abs(w) + 1e-30
+    return float((np.abs(g - w) / limit).max())
+
+
+def raw_answers(cli, engine: str, probes):
+    """A server's answers on the probes: estimates, or each label's score
+    in label order."""
+    if engine == "regression":
+        return cli.call("estimate", "smoke", probes)
+    rows = cli.call("classify", "smoke", probes)
+    return [[s for _, s in sorted(r)] for r in rows]
+
+
+def raw_case(torch, Datum, EngineServer, ServerArgs, Driver, name, engine,
+             conf, feed, plan_key, seed: int) -> dict:
+    """One config of phase 21: a raw and a decoded server in this process
+    on the card, fed the same stream."""
+    import msgpack
+
+    from jubatus_tpu_torch.native.ingest import IngestParser
+    from jubatus_tpu_torch.rpc.client import RpcClient
+    from jubatus_tpu_torch.server.service import _ComboPlanCache
+
+    servers = {}
+    for mode in ("raw", "decoded"):
+        if mode == "decoded":
+            os.environ["JUBATUS_TPU_NATIVE_INGEST"] = "0"
+        try:
+            srv = EngineServer(engine, conf, ServerArgs(
+                engine=engine, listen_addr="127.0.0.1",
+                telemetry_interval=0,
+                datadir=server_datadir(f"p21_{name}_{mode}")), device="cuda")
+            srv.start(0)
+        finally:
+            os.environ.pop("JUBATUS_TPU_NATIVE_INGEST", None)
+        servers[mode] = srv
+    try:
+        raw, dec = servers["raw"], servers["decoded"]
+        check("train" in raw.rpc._raw_methods
+              and "train" not in dec.rpc._raw_methods,
+              f"{name}: the raw path is not on the raw server alone")
+        rng = np.random.default_rng(seed + 2100 + len(name))
+        conc = raw_rows(rng, Datum, engine, feed, RAW_ROWS)
+        seq = raw_rows(rng, Datum, engine, feed, RAW_ROWS)
+        probes = [d for _, d in raw_rows(rng, Datum, engine, feed,
+                                         RAW_PROBES)]
+        split = lambda rows: [rows[lo:lo + LINEAR_BATCH]  # noqa: E731
+                              for lo in range(0, len(rows), LINEAR_BATCH)]
+        # the raw server's device stage bracketed by CUDA events
+        co = raw.coalescers["train_raw"]
+        stage, events = co._flush, []
+
+        def bracketed(prepared):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            try:
+                return stage(prepared)
+            finally:
+                b.record()
+                events.append((a, b))
+
+        co._flush = bracketed
+        rates = {}
+        for mode, srv in servers.items():
+            port = srv.rpc.port
+            conc_s = raw_feed(port, split(conc), RAW_CLIENTS)
+            with RpcClient("127.0.0.1", port, timeout=120.0) as c:
+                check(c.call("clear", "smoke") is True, "clear failed")
+            seq_s = raw_feed(port, split(seq), 1)
+            rates[mode] = dict(clients4_rows_per_s=RAW_ROWS / conc_s,
+                               clients1_rows_per_s=RAW_ROWS / seq_s)
+        torch.cuda.synchronize()
+        with RpcClient("127.0.0.1", raw.rpc.port, timeout=120.0) as c:
+            got = raw_answers(c, engine, probes)
+            st = server_status(c)
+        with RpcClient("127.0.0.1", dec.rpc.port, timeout=120.0) as c:
+            want = raw_answers(c, engine, probes)
+            dst = server_status(c)
+        check(st["microbatch.train_raw.item_count"] == 2 * RAW_ROWS,
+              f"{name}: train_raw flushed "
+              f"{st['microbatch.train_raw.item_count']} rows, sent "
+              f"{2 * RAW_ROWS}")
+        check(dst["microbatch.train.item_count"] == 2 * RAW_ROWS
+              and "microbatch.train_raw.item_count" not in dst,
+              f"{name}: the decoded server did not take the decoded path")
+        check(st[f"ingest.{plan_key}"] > 0,
+              f"{name}: no flush took the {plan_key} plan: "
+              f"{ {k: v for k, v in st.items() if k.startswith('ingest.')} }")
+        vs_decoded = raw_err(got, want)
+        check(vs_decoded <= 1.0,
+              f"{name}: raw answers off the decoded server's ({vs_decoded})")
+        # the CPU port driver fed the parser's arrays of the 1-client feed
+        drv = raw.driver
+        ref = Driver(conf, dim_bits=drv.converter.hasher.dim_bits,
+                     device="cpu")
+        parser = IngestParser.from_converter_config(
+            conf["converter"], drv.converter.hasher.dim_bits)
+        combo = None
+        if feed == "combo":
+            cache = _ComboPlanCache(conf["converter"], ref.converter)
+            combo = (cache, cache.make_base_parser(
+                drv.converter.hasher.dim_bits))
+        wires = [msgpack.packb(["smoke", [[lab, d.to_msgpack()]
+                                          for lab, d in b]])
+                 for b in split(seq)]
+        parse_ms = []
+        for w in wires:
+            t0 = time.perf_counter()
+            parser.parse_indexed(w)
+            parse_ms.append((time.perf_counter() - t0) * 1e3)
+            raw_replay(ref, parser, combo, feed, w)
+        state_err = 0.0
+        for field, tensor in zip(drv.state._fields, drv.state):
+            state_err = max(state_err, raw_err(
+                tensor.detach().cpu().numpy(),
+                getattr(ref.state, field).numpy()))
+        check(state_err <= 1.0,
+              f"{name}: the card's model off the CPU driver fed the "
+              f"parser's arrays ({state_err})")
+        if engine == "regression":
+            ref_ans = ref.estimate(probes)
+        else:
+            ref_ans = [[s for _, s in sorted(r)] for r in ref.classify(probes)]
+        vs_cpu = raw_err(got, ref_ans)
+        check(vs_cpu <= 1.0, f"{name}: raw answers off the CPU driver's "
+                             f"({vs_cpu})")
+        flushes = co.stats()["flush_count"]
+        dco = dec.coalescers["train"]
+        dflushes = dco.stats()["flush_count"]
+        return dict(
+            config=name, engine=engine, plan=plan_key,
+            rows=2 * RAW_ROWS, batch=LINEAR_BATCH, clients=RAW_CLIENTS,
+            raw=rates["raw"], decoded=rates["decoded"],
+            speedup_clients1=(rates["raw"]["clients1_rows_per_s"]
+                              / rates["decoded"]["clients1_rows_per_s"]),
+            speedup_clients4=(rates["raw"]["clients4_rows_per_s"]
+                              / rates["decoded"]["clients4_rows_per_s"]),
+            flush=dict(
+                raw_flushes=flushes, decoded_flushes=dflushes,
+                parse_ms_p50=statistics.median(parse_ms),
+                raw_prep_ms=co.prep_seconds / flushes * 1e3,
+                raw_device_stage_ms=co.device_seconds / flushes * 1e3,
+                raw_device_event_ms=statistics.median(
+                    a.elapsed_time(b) for a, b in events),
+                decoded_featurize_ms=dco.prep_seconds / dflushes * 1e3,
+                decoded_device_stage_ms=dco.device_seconds / dflushes * 1e3),
+            ingest={k[len("ingest."):]: v for k, v in st.items()
+                    if k.startswith("ingest.")},
+            err_over_limit=dict(vs_decoded=vs_decoded, vs_cpu=vs_cpu,
+                                state_vs_cpu=state_err),
+            tol=LINEAR_TOL)
+    finally:
+        for srv in servers.values():
+            srv.stop()
+
+
+def phase_raw_ingest(torch, Datum, EngineServer, ClassifierDriver,
+                     RegressionDriver, seed: int) -> dict:
+    """Phase 21 (see the module's docstring)."""
+    from jubatus_tpu_torch.native.ingest import IngestParser
+    from jubatus_tpu_torch.server.args import ServerArgs
+
+    shipped = load_config("classifier", "arow_combinational_feature.json")
+    check(IngestParser.from_converter_config(shipped["converter"], 18)
+          is None, "the shipped combo config (idf) no longer declines")
+    out = {}
+    for name, engine, conf, feed, plan_key in raw_cases():
+        t0 = time.perf_counter()
+        driver = RegressionDriver if engine == "regression" \
+            else ClassifierDriver
+        out[name] = raw_case(torch, Datum, EngineServer, ServerArgs, driver,
+                             name, engine, conf, feed, plan_key, seed)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7878,12 +8259,18 @@ def main(argv=None) -> int:
         log(f"[device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
             f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            # one nvcc per source, started together
-            for fut in [pool.submit(m.library) for m in (sig_scan, online_scan)]:
+        from jubatus_tpu_torch import native
+
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            # one nvcc per source and the g++ of the ingest parser the
+            # linear servers load, started together
+            futs = [pool.submit(m.library) for m in (sig_scan, online_scan)]
+            futs.append(pool.submit(native.ensure_built, "fast_ingest"))
+            for fut in futs:
                 fut.result()
         log(f"[build] {sig_scan.SOURCE.name}, {online_scan.SOURCE.name} built "
-            f"and loaded in {time.perf_counter() - t0:.2f} s")
+            f"and loaded, native/fast_ingest.cpp built, in "
+            f"{time.perf_counter() - t0:.2f} s")
         for line in (sig_scan.build_log + online_scan.build_log).splitlines():
             if "entry function" in line:
                 log(f"[build] {line.strip()[:120]}")
@@ -8299,6 +8686,30 @@ def main(argv=None) -> int:
         log(f"[phase20] {time.perf_counter() - t0:.3f} s (ring "
             f"{path_s['ring']:.3f} s while the fleet boots, zk_fleet "
             f"{path_s['zk_fleet']:.3f} s)")
+
+        def raw_ingest_path():
+            res = phase_raw_ingest(torch, Datum, EngineServer,
+                                   ClassifierDriver, RegressionDriver,
+                                   args.seed)
+            for name, r in res.items():
+                log(f"[raw_ingest] {name} {json.dumps(r)} | {kind} | {smi}")
+                fl = r["flush"]
+                log(f"[raw_ingest] {name}: train rows/s raw "
+                    f"{r['raw']['clients1_rows_per_s']:.1f} / decoded "
+                    f"{r['decoded']['clients1_rows_per_s']:.1f} (1 client), "
+                    f"raw {r['raw']['clients4_rows_per_s']:.1f} / decoded "
+                    f"{r['decoded']['clients4_rows_per_s']:.1f} "
+                    f"({RAW_CLIENTS} clients); a {LINEAR_BATCH}-row call "
+                    f"parses in {fl['parse_ms_p50']:.4f} ms, a raw flush "
+                    f"merges in {fl['raw_prep_ms']:.4f} ms and its device "
+                    f"stage takes {fl['raw_device_stage_ms']:.4f} ms host "
+                    f"({fl['raw_device_event_ms']:.4f} ms CUDA events); the "
+                    f"decoded flush featurizes in "
+                    f"{fl['decoded_featurize_ms']:.4f} ms | {kind} | {smi}")
+            return {}
+
+        run_path("raw_ingest", raw_ingest_path)
+        log(f"[phase21] {path_s['raw_ingest']:.3f} s")
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -8346,6 +8757,9 @@ def main(argv=None) -> int:
                   "wire path (phase 19)")
             check(paths["zk_fleet"][mode] > 0,
                   f"{mode} never launched on the zk fleet path (phase 20)")
+        check(paths["raw_ingest"]["pa_scan"] > 0,
+              "online_scan.pa never launched on the raw ingest path "
+              "(phase 21)")
         check(paths["ring"]["hamming"] == RING_SHARDS ** 2,
               f"the ring path launched K1 {paths['ring']['hamming']} times, "
               f"not S² = {RING_SHARDS ** 2}")

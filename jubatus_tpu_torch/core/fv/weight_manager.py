@@ -24,7 +24,13 @@ def _host(x) -> np.ndarray:
 
 
 class WeightManager:
-    """Tracks df counts and user weights over the hashed feature space."""
+    """Tracks df counts and user weights over the hashed feature space.
+
+    ``lock`` serializes the native ingest path's in-place df mutation
+    (native/fast_ingest.cpp jt_ingest_parse_w writes ``_df_diff`` and
+    ``_ndocs_diff`` directly) against mixes/unpacks that swap or zero
+    these buffers. ``_ndocs_diff`` is a 1-element float64 array for the
+    same reason — C++ increments it through a pointer."""
 
     def __init__(self, dim: int):
         self.dim = dim
@@ -58,6 +64,18 @@ class WeightManager:
         with self.lock:
             np.add.at(self._df_diff, uidx, 1.0)
             self._ndocs_diff[0] += float(ndocs)
+
+    def observe_rows(self, idx: np.ndarray) -> None:
+        """observe_batch for a padded [B, K] index matrix (the native
+        ingest interchange shape): each row is one document; index 0 is
+        the padding slot and is never counted."""
+        b = idx.shape[0]
+        if b == 0:
+            return
+        rows = np.repeat(np.arange(b, dtype=np.int64), idx.shape[1])
+        flat = idx.reshape(-1)
+        live = flat != 0
+        self.observe_batch(flat[live], rows[live])
 
     # -- lookup -------------------------------------------------------------
     @property

@@ -753,6 +753,9 @@ class RpcLinearMixer:
     def mix_now(self) -> Optional[Dict[str, Any]]:
         return self._scheduler.mix_now()
 
+    def round_lock(self) -> threading.Lock:
+        return self._scheduler.round_lock()
+
     def _has_schema(self) -> bool:
         """True iff the driver class overrides DriverBase.get_schema — only
         those engines pay the two schema fan-outs per round."""

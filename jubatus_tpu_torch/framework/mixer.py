@@ -133,6 +133,11 @@ class IntervalMixer:
         """Synchronous mix (the reference's do_mix RPC)."""
         return self._run_mix()
 
+    def round_lock(self) -> threading.Lock:
+        """The lock every round holds from its start to its end: whoever
+        holds it sees the model between rounds."""
+        return self._mix_serialize
+
     def set_interval(self, sec: float) -> float:
         """Retarget the cadence (the perf tuner's async-mix cadence core).
         The loop polls, so a new interval takes effect within its poll;

@@ -566,10 +566,21 @@ class EngineServer:
         if self._last_snapshot and \
                 now - self._last_snapshot < self.args.model_snapshot_interval:
             return
+        # taken between this member's mix rounds: a round aligns the
+        # label slots before it folds, and a snapshot between the two
+        # would make a refused round restore the round's slot order, not
+        # the model served before it
+        round_lock = getattr(self.mixer, "round_lock", None)
+        lock = round_lock() if round_lock is not None else None
+        if lock is not None and not lock.acquire(timeout=1.0):
+            return  # a long round: the next tick tries again
         try:
             self.take_snapshot()
         except Exception:  # broad-ok — a failed snapshot must not kill
             log.warning("model snapshot failed", exc_info=True)  # the tick
+        finally:
+            if lock is not None:
+                lock.release()
 
     def take_snapshot(self) -> Dict[str, Any]:
         """Capture one in-process model snapshot (CRC-stamped save_load
@@ -1154,7 +1165,8 @@ class EngineServer:
 
     def get_status(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
         """One map keyed by <ip>_<port>: uptime, flags, driver state, the
-        coalescers' stats, the kernels' launch counts in this process, the
+        coalescers' stats, the raw-wire path's plan counters
+        (``ingest.*``), the kernels' launch counts in this process, the
         membership epoch, drain state and migration counters
         (``migration.*``), the snapshot ring (``snapshot.*``,
         ``rollback.count``), the store and this node's warm boot
@@ -1197,6 +1209,9 @@ class EngineServer:
         for method, co in self.coalescers.items():
             st.update({f"microbatch.{method}.{k}": v
                        for k, v in co.stats().items()})
+        # the raw-wire path's plan counters (service._register_train_raw)
+        for k, v in (getattr(self, "ingest_stats", None) or {}).items():
+            st[f"ingest.{k}"] = v
         for kern in (sig_scan.hamming, sig_scan.minhash):
             st[f"kernel.sig_scan.{kern.mode}.launches"] = kern.launches
         for kern in sig_scan.GATHERS.values():

@@ -384,9 +384,6 @@ class Proxy:
         self.request_counts: Dict[str, int] = {}
         self.forward_count = 0
         self.forward_errors = 0
-        #: forwards the zero-decode raw relay served (the rest took the
-        #: generic decode path)
-        self.relay_count = 0
         #: per-backend breakers + the failover retry budget; transitions
         #: count into the proxy's own registry (proxy.breaker_open /
         #: proxy.breaker_close)
@@ -859,8 +856,6 @@ class Proxy:
                     raise
                 self._checkin(node, sess)
                 self.breakers.record(key, True)
-                with self._counters_lock:
-                    self.relay_count += 1
                 return RawResult(span)
             if last is not None:
                 raise last
@@ -1120,8 +1115,9 @@ class Proxy:
 
     def get_proxy_status(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
         """This proxy's counters (the JAX proxy's keys): requests per
-        method, forwards and forward errors, the forwards the raw relay
-        served (``relay_count``), the session pool, the breakers, the
+        method, forwards and forward errors, the requests a C++ relay
+        served (``relay_count``: 0 on the Python transport, whose raw
+        relay counts as a forward), the session pool, the breakers, the
         ring cache, the retry budget, the flags, the dispatch spans and
         counters of its registry, and the planes' ``runtime.*``,
         ``slowlog.*``, ``profiler.*``, ``events.*``, ``incident.*`` and
@@ -1135,7 +1131,10 @@ class Proxy:
                 "version": __version__,
                 "forward_count": self.forward_count,
                 "forward_errors": self.forward_errors,
-                "relay_count": self.relay_count,
+                # the requests a C++ relay served without entering
+                # Python; the Python transport has none (its raw relay
+                # counts in forward_count), as in the JAX proxy
+                "relay_count": 0,
                 "session_pool_size": sum(
                     len(v) for v in self._pool.values()),
             }

@@ -25,18 +25,32 @@ owners by direct peer RPC (``_replicated_write``: ``overwrite`` and
 JAX server does, so the CHT-routed calls that follow through a proxy find
 the row on its owners; standalone they apply locally. Graph's internal
 RPCs (``create_node_here``, ``remove_global_node``, ``create_edge_here``)
-are registered for the peers and never exposed on a proxy. Not carried
-over: the raw-wire train path (``_register_train_raw``), which needs the
-native ingest parse.
+are registered for the peers and never exposed on a proxy.
+
+The raw-wire path (``_register_train_raw``): when the converter config is
+one the native parser (``native/ingest.py``) can express, the linear
+classifier's and regression's ``train``, ``classify`` and ``estimate``
+also register a raw handler. It parses the request's msgpack bytes in C++
+straight to hashed [B, K] arrays, coalesces them (``train_raw`` and the
+``*_raw`` query coalescers) and feeds the driver's hashed entry points;
+a uniform-schema flush rides the dense schema plan, a combination config
+the device-expanded combo plan, a pure-idf config the deferred idf. A
+request the parser declines answers ``RAW_FALLBACK`` and is served by the
+generic handler, with the same semantics.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 from typing import Any, Callable, Dict, List
 
+import msgpack
+import numpy as np
+
 from jubatus_tpu_torch.core.datum import Datum
-from jubatus_tpu_torch.rpc.server import RpcServer, deferred
+from jubatus_tpu_torch.native.ingest import IngestParser, deferred_idf_scale
+from jubatus_tpu_torch.rpc.server import RAW_FALLBACK, RpcServer, deferred
 from jubatus_tpu_torch.server.microbatch import Coalescer, PipelinedCoalescer
 
 
@@ -136,6 +150,124 @@ def _updating(server: Any, fn: Callable,
     return wrapped
 
 
+class _ComboPlanCache:
+    """Device-expansion plans for combination-rule configs, keyed by the
+    base index row (the feature schema). The C++ base parser ships only
+    the [B, K0] base columns; the plan carries the full base+slot index
+    vector and the (a, b, op) bilinear terms the device expands
+    (ops.train_batch_schema_combo). Slot hashes and pair structure come from the
+    Python converter's own combo plan (core/fv/converter.py) — the
+    single owner of combination semantics — validated against the C++
+    row by hashing a sample datum's base names. Schemas the plan cannot
+    serve exactly (hash collisions, idf/user weights, multi-term slots)
+    are declined and the request falls back to the generic
+    batch-converter path with identical semantics."""
+
+    _MISS = object()
+
+    class Plan:
+        __slots__ = ("uidx", "a_idx", "b_idx", "mul_mask")
+
+        def __init__(self, uidx, a_idx, b_idx, mul_mask):
+            self.uidx = uidx
+            self.a_idx = a_idx
+            self.b_idx = b_idx
+            self.mul_mask = mul_mask
+
+    def __init__(self, conv: dict, converter) -> None:
+        self._conv = conv or {}
+        self._converter = converter  # the driver's full converter
+        self._plans: Dict[bytes, Any] = {}
+
+    def make_base_parser(self, dim_bits: int):
+        """The C++ parser for the config SANS combination rules (base
+        features only); None when that subset is not native-expressible."""
+        base_conv = {k: v for k, v in self._conv.items()
+                     if k != "combination_rules"}
+        return IngestParser.from_converter_config(base_conv, dim_bits)
+
+    def _plan_for(self, row0, raw_params: bytes, with_labels: bool):
+        key = row0.tobytes()
+        plan = self._plans.get(key, self._MISS)
+        if plan is not self._MISS:
+            return plan
+        plan = self._build(row0, raw_params, with_labels)
+        if len(self._plans) >= 64:
+            self._plans.clear()
+        self._plans[key] = plan
+        return plan
+
+    def _build(self, row0, raw_params: bytes, with_labels: bool):
+        try:
+            req = msgpack.unpackb(raw_params, raw=False,
+                                  strict_map_key=False, use_list=True,
+                                  unicode_errors="surrogateescape")
+            wire = req[1][0][1] if with_labels else req[1][0]
+            datum = Datum.from_msgpack(wire)
+        except Exception:  # broad-ok — undecodable sample: decline plan
+            return None
+        conv = self._converter
+        named = conv._base_named_features(datum)
+        names = list(named)
+        live = row0[row0 != 0]
+        if len(names) != live.shape[0]:
+            return None  # hash collision merged base columns
+        idxs, kinds = conv._resolve_names(names)
+        order = np.argsort(idxs, kind="stable")
+        if not np.array_equal(idxs[order], live.astype(np.int32)):
+            return None  # sample's schema does not explain the row
+        if kinds.any():
+            return None  # base features must be bin-weighted
+        sorted_names = tuple(names[i] for i in order)
+        cplan = conv._combo_plan_for(sorted_names)
+        if cplan.slot_kind.any():
+            return None  # combo slots must be bin-weighted
+        if cplan.t_starts.shape[0] != cplan.a_idx.shape[0]:
+            return None  # multi-term slots: host semantics required
+        nz = np.concatenate([live.astype(np.int32), cplan.slot_idx])
+        if np.unique(nz).shape[0] != nz.shape[0]:
+            return None  # index collision: expansion would double-count
+        uidx = np.concatenate([row0.astype(np.int32), cplan.slot_idx])
+        return self.Plan(uidx, cplan.a_idx, cplan.b_idx,
+                         cplan.mul_mask.astype(bool))
+
+    def parse_train(self, base_parser, raw_params: bytes):
+        """Raw train params -> a coalescer item riding the device-
+        expansion plan, or RAW_FALLBACK (generic path, same semantics)."""
+        parsed = base_parser.parse_indexed(raw_params)
+        if parsed is None:
+            return RAW_FALLBACK
+        labels, idx, val = parsed
+        if isinstance(labels, np.ndarray):
+            return RAW_FALLBACK  # numeric labels on a classifier wire
+        b = idx.shape[0]
+        if b == 0:
+            return RAW_FALLBACK
+        row0 = idx[0]
+        if b > 1 and not (idx == row0).all():
+            return RAW_FALLBACK  # mixed schemas in one request
+        plan = self._plan_for(row0, raw_params, with_labels=True)
+        if plan is None:
+            return RAW_FALLBACK
+        return (("combo", plan), labels, idx, val)
+
+    def parse_query(self, base_parser, raw_params: bytes):
+        """Raw datum-list params -> (plan, base_val) or RAW_FALLBACK."""
+        parsed = base_parser.parse_datums(raw_params)
+        if parsed is None:
+            return RAW_FALLBACK
+        idx, val = parsed
+        if idx.shape[0] == 0:
+            return (None, val)
+        row0 = idx[0]
+        if idx.shape[0] > 1 and not (idx == row0).all():
+            return RAW_FALLBACK
+        plan = self._plan_for(row0, raw_params, with_labels=False)
+        if plan is None:
+            return RAW_FALLBACK
+        return (plan, val)
+
+
 def _quality_observe_pairs(server: Any, pairs) -> None:
     """Prequential (test-then-train) hook of the train path: on a sampled
     batch, score a bounded prefix with the CURRENT model before the update
@@ -158,6 +290,39 @@ def _quality_observe_pairs(server: Any, pairs) -> None:
     except Exception:  # broad-ok — quality scoring must not break ingest
         server.trace.count("quality.score_errors")
         log.debug("prequential hook failed", exc_info=True)
+
+
+def _quality_observe_raw(server: Any, item, numeric: bool) -> None:
+    """Prequential + feature-stat hook for the native raw-ingest path:
+    names never materialize here, so values record under the ``hashed``
+    group; scoring rides classify_hashed/estimate_hashed on a bounded
+    row prefix. Combo-plan items skip scoring (the base arrays are not
+    the model's input rows)."""
+    q = getattr(server, "quality", None)
+    if q is None or not q.admit("train"):
+        return
+    d = server.driver
+    tag, labels, idx, val = item
+    try:
+        q.record_hashed(val)
+        if tag[0] != "plain":
+            return
+        k = min(q.max_score_rows, idx.shape[0])
+        if numeric:
+            if hasattr(d, "estimate_hashed"):
+                for t, e in zip(labels[:k], d.estimate_hashed(idx[:k],
+                                                              val[:k])):
+                    q.record_estimated(float(t), float(e))
+        else:
+            uniq, lidx = labels
+            q.record_labels(uniq[int(j)] for j in lidx)
+            if hasattr(d, "classify_hashed"):
+                ranked = d.classify_hashed(idx[:k], val[:k])
+                for j, r in enumerate(ranked):
+                    q.record_classified(uniq[int(lidx[j])], r)
+    except Exception:  # broad-ok — quality scoring must not break ingest
+        server.trace.count("quality.score_errors")
+        log.debug("raw prequential hook failed", exc_info=True)
 
 
 def _usage_batch_hook(server: Any, method: str):
@@ -217,6 +382,330 @@ def _register_train(rpc: RpcServer, server: Any, decode_pair,
         return len(pairs)
 
     rpc.register("train", train, arity=2)
+
+
+def _register_train_raw(rpc: RpcServer, server: Any, numeric: bool) -> None:
+    """Native ingest fast path for ``train`` (native/fast_ingest.cpp): the
+    request's raw msgpack params parse in C++ straight to pre-hashed [B, K]
+    arrays — no Datum objects, no Python convert loop. Registered only
+    when the driver has ``train_hashed`` and the converter config is
+    expressible in the native parser
+    (``native/ingest.py`` decides); any request the parser declines
+    (unexpected wire shape, unrepresentable values) falls back to the
+    generic decode + converter path, so behavior is identical either way.
+    A failed build of the parser raises here, at server start: it is
+    never taken for a declined config. Each flush hands the driver one
+    merged [B, K] batch, which it moves to its device once."""
+    driver = server.driver
+    if not hasattr(driver, "train_hashed"):
+        return
+    conv = json.loads(server.config_json).get("converter")
+    parser = IngestParser.from_converter_config(
+        conv, driver.converter.hasher.dim_bits)
+    if parser is None:
+        return
+
+    def _pad_concat(pairs):
+        """Merge per-request (idx, val) pairs into one batch: pad widths
+        to the max (already pow2-bucketed by the parser, so pads are rare
+        and small) and concatenate at numpy speed. ONE owner for both the
+        train and query flush paths."""
+        kmax = max(i.shape[1] for i, _ in pairs)
+        parts_i, parts_v = [], []
+        for ir, vr in pairs:
+            if ir.shape[1] != kmax:
+                pad = kmax - ir.shape[1]
+                ir = np.pad(ir, ((0, 0), (0, pad)))
+                vr = np.pad(vr, ((0, 0), (0, pad)))
+            parts_i.append(ir)
+            parts_v.append(vr)
+        return (np.concatenate(parts_i) if len(parts_i) > 1 else parts_i[0],
+                np.concatenate(parts_v) if len(parts_v) > 1 else parts_v[0])
+
+    def _uniform_row(pairs):
+        """The shared index row if EVERY row of every (idx, val) pair
+        equals the first one (same width), else None. A fixed key schema
+        — the common production feed shape — hashes every datum to the
+        same index vector; detecting it per flush costs ~B*K int
+        compares (~0.02 µs/sample) and unlocks the dense submatrix train
+        plan (ops.train_batch_schema: no B*K-element gathers/scatters)."""
+        first = pairs[0][0]
+        row0 = first[0]
+        k = first.shape[1]
+        for ir, _vr in pairs:
+            if ir.shape[1] != k or not (ir == row0).all():
+                return None
+        return row0
+
+    schema_train = getattr(driver, "train_indexed_schema", None)
+    combo_train = getattr(driver, "train_indexed_combo", None)
+    # schema-plan accounting, surfaced by get_status ("ingest.*" keys,
+    # server/base.py): how often flushes actually ride the dense
+    # submatrix plan
+    stats = server.ingest_stats = {"schema_flushes": 0, "sparse_flushes": 0,
+                                   "combo_flushes": 0,
+                                   "schema_query_flushes": 0,
+                                   "sparse_query_flushes": 0}
+
+    # deferred-idf (pure-idf specs): parses run lock-free against zero df
+    # tables; ONE observe+scale per coalesced flush (the idf
+    # batch-collapse fix — see native/ingest.py deferred_idf_scale)
+    deferred = parser.deferred_idf
+    weights = driver.converter.weights \
+        if (parser.needs_weights or deferred) else None
+
+    # combo device plan (classifier combo configs): parse only the BASE
+    # features in C++, expand the cross product ON DEVICE
+    # (ops.train_batch_schema_combo) — the (K0+S)-wide row never crosses
+    # the host/device wire. None when ineligible; requests the plan
+    # cannot serve fall back to the generic batch-converter path.
+    combo_ctx = None
+    if combo_train is not None and not numeric \
+            and (conv or {}).get("combination_rules"):
+        combo_ctx = _ComboPlanCache(conv, driver.converter)
+        base_parser = combo_ctx.make_base_parser(
+            driver.converter.hasher.dim_bits)
+        if base_parser is None:
+            combo_ctx = None
+
+    def _merge_labels(label_pairs):
+        """Union per-request (uniq_labels, label_idx) pairs into one
+        distinct-label list + remapped int32 row index — no per-example
+        Python loop (the C++ dedup did the heavy lifting)."""
+        label_map: dict = {}
+        parts_l = []
+        for uniq, lidx in label_pairs:
+            lut = np.empty(len(uniq), np.int32)
+            for j, u in enumerate(uniq):
+                lut[j] = label_map.setdefault(u, len(label_map))
+            parts_l.append(lut[lidx])
+        lidx = np.concatenate(parts_l) if len(parts_l) > 1 else parts_l[0]
+        return list(label_map), lidx
+
+    def prep_requests(reqs):
+        """Stage 1 (host) of the pipelined flush: merge per-request
+        arrays into ONE device-ready batch — label-map union, width
+        pad+concat, deferred-idf observe+scale, execution-plan selection.
+        Runs on the flusher thread while the device consumes the
+        previous batch."""
+        if not reqs:
+            return None
+        if reqs[0][0][0] == "combo":
+            # (("combo", plan), labels, base_idx, base_val): group by
+            # plan (one group for a fixed-schema feed) for the
+            # device-expansion path
+            groups: dict = {}
+            for tag, lb, _ir, vr in reqs:
+                entry = groups.setdefault(id(tag[1]), (tag[1], [], []))
+                entry[1].append(lb)
+                entry[2].append(vr)
+            out = []
+            for plan, lbs, vals in groups.values():
+                uniq, lidx = _merge_labels(lbs)
+                val = np.concatenate(vals) if len(vals) > 1 else vals[0]
+                out.append((uniq, lidx, plan, val))
+            stats["combo_flushes"] += 1
+            return ("combo", out)
+        if numeric:
+            idx, val = _pad_concat([(ir, vr) for _t, _lb, ir, vr in reqs])
+            labels = np.concatenate([r[1] for r in reqs]) \
+                if len(reqs) > 1 else reqs[0][1]
+            return ("numeric", labels, idx, val)
+        uniq, lidx = _merge_labels([lb for _t, lb, _i, _v in reqs])
+        if schema_train is not None and not deferred:
+            row0 = _uniform_row([(ir, vr) for _t, _lb, ir, vr in reqs])
+            if row0 is not None:
+                stats["schema_flushes"] += 1
+                val = np.concatenate([vr for _t, _lb, _ir, vr in reqs]) \
+                    if len(reqs) > 1 else reqs[0][3]
+                return ("schema", uniq, lidx, row0, val)
+        stats["sparse_flushes"] += 1
+        idx, val = _pad_concat([(ir, vr) for _t, _lb, ir, vr in reqs])
+        if deferred:
+            val = deferred_idf_scale(idx, val, weights, observe=True)
+        return ("sparse", uniq, lidx, idx, val)
+
+    def apply_prepared(prepared):
+        """Stage 2 (device): dispatch the prepared batch onto the
+        matching driver plan."""
+        if prepared is None:
+            return 0
+        kind = prepared[0]
+        if kind == "combo":
+            n = 0
+            for uniq, lidx, plan, val in prepared[1]:
+                n += combo_train(uniq, lidx, plan.uidx, val,
+                                 plan.a_idx, plan.b_idx, plan.mul_mask)
+            return n
+        if kind == "numeric":
+            return driver.train_hashed(prepared[1], prepared[2], prepared[3])
+        if kind == "schema":
+            return schema_train(prepared[1], prepared[2], prepared[3],
+                                prepared[4])
+        return driver.train_indexed(prepared[1], prepared[2], prepared[3],
+                                    prepared[4])
+
+    max_batch = getattr(server.args, "microbatch_max", 8192)
+    wait_s = server.args.timeout * 6 if server.args.timeout > 0 else None
+    device_step = _updating(server, apply_prepared, count=lambda r: r)
+    if max_batch:
+        co = PipelinedCoalescer(
+            prep_requests, device_step, max_batch=max_batch,
+            weigher=lambda item: item[2].shape[0], trace=rpc.trace)
+        server.coalescers["train_raw"] = co
+        co.usage_hook = _usage_batch_hook(server, "train")
+    trace = rpc.trace
+
+    def train_raw(raw_params: bytes):
+        with trace.span("fv.convert"):
+            if combo_ctx is not None:
+                item = combo_ctx.parse_train(base_parser, raw_params)
+                if item is RAW_FALLBACK:
+                    return RAW_FALLBACK  # generic batch-converter path
+            elif weights is not None and not deferred:
+                with weights.lock:
+                    parsed = parser.parse_indexed(raw_params,
+                                                  weights=weights)
+            else:
+                # deferred idf / unweighted: lock-free parallel parse
+                parsed = parser.parse_indexed(raw_params)
+        if combo_ctx is None:
+            if parsed is None:
+                return RAW_FALLBACK
+            labels, idx, val = parsed
+            if numeric != isinstance(labels, np.ndarray):
+                return RAW_FALLBACK  # label kind mismatch: let the
+                # generic path produce the proper type error
+            item = (("plain",), labels, idx, val)
+        n = item[2].shape[0]
+        if n == 0:
+            return 0
+        # test-then-train: prequential scoring sees the pre-update model
+        _quality_observe_raw(server, item, numeric)
+        if max_batch:
+            co.submit([item], timeout=wait_s)
+        else:
+            device_step(prep_requests([item]))
+        return n
+
+    rpc.register_raw("train", train_raw)
+
+    # the query path rides the same parser: [name, [datum, ...]] -> hashed
+    # batch -> snapshot-read scores, no Datum objects
+    def _parse_datums(raw_params: bytes):
+        if deferred:
+            # lock-free parse, then one vectorized idf gather (queries
+            # read idf, never observe)
+            parsed = parser.parse_datums(raw_params)
+            if parsed is None:
+                return None
+            idx, val = parsed
+            return idx, deferred_idf_scale(idx, val, weights,
+                                           observe=False)
+        if weights is not None:
+            with weights.lock:  # queries read idf, never observe
+                return parser.parse_datums(raw_params, weights=weights)
+        return parser.parse_datums(raw_params)
+
+    def _query_coalescer(name: str, score_batch, schema_score=None):
+        """Query-plane microbatching (the mirror of the train coalescer):
+        concurrent read requests join ONE device dispatch against the
+        same model snapshot — every kernel launch costs ~ms on an
+        accelerator regardless of batch size, so per-request dispatch
+        caps the query plane at launches/s, not samples/s.
+        ``score_batch(idx, val) -> per-row results``; each request gets
+        exactly its rows back (Coalescer split_results).
+        ``schema_score(uidx, val)`` is the uniform-schema dense variant,
+        taken whenever the flush's rows all share one index vector."""
+        def query_flush(items):
+            if schema_score is not None:
+                row0 = _uniform_row(items)
+                if row0 is not None:
+                    stats["schema_query_flushes"] += 1
+                    if len(items) == 1:
+                        return [schema_score(row0, items[0][1])]
+                    vals = np.concatenate([v for _i, v in items])
+                    rows = schema_score(row0, vals)
+                    out, off = [], 0
+                    for i, _ in items:
+                        out.append(rows[off:off + i.shape[0]])
+                        off += i.shape[0]
+                    return out
+            stats["sparse_query_flushes"] += 1
+            if len(items) == 1:
+                i, v = items[0]
+                return [score_batch(i, v)]
+            rows = score_batch(*_pad_concat(items))
+            out, off = [], 0
+            for i, _ in items:
+                out.append(rows[off:off + i.shape[0]])
+                off += i.shape[0]
+            return out
+
+        qco = Coalescer(query_flush, max_batch=max_batch,
+                        weigher=lambda it: it[0].shape[0],
+                        split_results=True)
+        server.coalescers[name] = qco
+        # bill under the wire method ("classify"), not the coalescer key
+        qco.usage_hook = _usage_batch_hook(
+            server, name[:-4] if name.endswith("_raw") else name)
+
+        def raw_handler(raw_params: bytes):
+            with trace.span("fv.convert"):
+                parsed = _parse_datums(raw_params)
+            if parsed is None:
+                return RAW_FALLBACK
+            idx, val = parsed
+            if idx.shape[0] == 0:
+                return []
+            (mine,) = qco.submit([(idx, val)], timeout=wait_s)
+            return mine
+
+        return raw_handler
+
+    if numeric and hasattr(driver, "estimate_hashed"):
+        if max_batch:
+            rpc.register_raw("estimate", _query_coalescer(
+                "estimate_raw", driver.estimate_hashed))
+        else:
+            def estimate_raw(raw_params: bytes):
+                parsed = _parse_datums(raw_params)
+                if parsed is None:
+                    return RAW_FALLBACK
+                return driver.estimate_hashed(*parsed)
+
+            rpc.register_raw("estimate", estimate_raw)
+    elif combo_ctx is not None and hasattr(driver, "classify_hashed_combo"):
+        def classify_combo_raw(raw_params: bytes):
+            with trace.span("fv.convert"):
+                out = combo_ctx.parse_query(base_parser, raw_params)
+            if out is RAW_FALLBACK:
+                return RAW_FALLBACK
+            plan, val = out
+            if plan is None:
+                return []
+            rows = driver.classify_hashed_combo(
+                plan.uidx, val, plan.a_idx, plan.b_idx, plan.mul_mask)
+            return [_scored(r) for r in rows]
+
+        rpc.register_raw("classify", classify_combo_raw)
+    elif not numeric and hasattr(driver, "classify_hashed"):
+        if max_batch:
+            schema_cls = getattr(driver, "classify_hashed_schema", None)
+            rpc.register_raw("classify", _query_coalescer(
+                "classify_raw",
+                lambda i, v: [_scored(r)
+                              for r in driver.classify_hashed(i, v)],
+                schema_score=None if schema_cls is None else
+                (lambda u, v: [_scored(r) for r in schema_cls(u, v)])))
+        else:
+            def classify_raw(raw_params: bytes):
+                parsed = _parse_datums(raw_params)
+                if parsed is None:
+                    return RAW_FALLBACK
+                return [_scored(r) for r in driver.classify_hashed(*parsed)]
+
+            rpc.register_raw("classify", classify_raw)
 
 
 @_binder("nearest_neighbor")
@@ -331,6 +820,7 @@ def _bind_classifier(rpc: RpcServer, server: Any) -> None:
     the instance-based one."""
     d = server.driver
     _register_train(rpc, server, lambda p: (p[0], _datum(p[1])), d.train)
+    _register_train_raw(rpc, server, numeric=False)
     rpc.register("classify",
                  lambda name, data: [_scored(r) for r in d.classify(_datums(data))],
                  arity=2)
@@ -345,6 +835,7 @@ def _bind_regression(rpc: RpcServer, server: Any) -> None:
     d = server.driver
     _register_train(rpc, server, lambda p: (float(p[0]), _datum(p[1])),
                     d.train)
+    _register_train_raw(rpc, server, numeric=True)
     rpc.register("estimate",
                  lambda name, data: [float(x) for x in d.estimate(_datums(data))],
                  arity=2)

@@ -326,6 +326,20 @@ class QualityPlane:
         if reg is not None:
             reg.count("quality.recorded_values", int(vals.size))
 
+    def record_hashed(self, values: Any) -> None:
+        """Raw-ingest hook (native fast path): feature names never
+        materialize there, so the post-hash value distribution records
+        under one ``hashed`` group."""
+        vals = np.asarray(values, dtype=np.float64).ravel()
+        if vals.size == 0:
+            return
+        with self._lock:
+            self._group_sketch("hashed").observe_array(vals)
+            self._recorded_rows += int(vals.size)
+        reg = self.registry
+        if reg is not None:
+            reg.count("quality.recorded_values", int(vals.size))
+
     def record_labels(self, labels: Iterable[Any]) -> None:
         with self._lock:
             self._labels.observe_many(str(x) for x in labels)

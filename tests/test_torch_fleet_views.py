@@ -64,6 +64,22 @@ def _proxy(store, **flags):
 
 
 @pytest.fixture()
+def relayed(monkeypatch):
+    """The methods the proxy's zero-decode relay forwarded: each relay is
+    one ``RpcClient.call_raw`` (the proxy's ``relay_count`` counts only
+    the requests a C++ relay served, none on the Python transport)."""
+    calls = []
+    real = RpcClient.call_raw
+
+    def spy(self, method, raw_params):
+        calls.append(method)
+        return real(self, method, raw_params)
+
+    monkeypatch.setattr(RpcClient, "call_raw", spy)
+    return calls
+
+
+@pytest.fixture()
 def one_node_cluster():
     store = _Store()
     srv = _server(store, "tr1")
@@ -117,7 +133,7 @@ def _spans(per_node):
 
 # -- tests/test_metrics_plane.py ---------------------------------------------
 
-def test_proxied_call_shares_one_trace_id(one_node_cluster):
+def test_proxied_call_shares_one_trace_id(one_node_cluster, relayed):
     """A proxied call yields ONE trace id across the proxy's and the
     backend's status maps, on the decoded path and on the raw relay."""
     srv, proxy = one_node_cluster
@@ -131,7 +147,7 @@ def test_proxied_call_shares_one_trace_id(one_node_cluster):
     assert pst[key] == bst[key]
     tkey = "trace.rpc.train.last_trace_id"
     assert pst[tkey] == bst[tkey]
-    assert proxy.relay_count >= 2  # both went through the raw relay
+    assert relayed == ["train", "classify"]  # both took the raw relay
 
 
 def test_proxy_fanout_broadcast_shares_trace(one_node_cluster):
@@ -193,7 +209,8 @@ def test_get_slow_log_rpc_through_proxy(proxy_two_backends):
 
 # -- the client-call hop on both forward paths -----------------------------------
 
-def test_client_records_a_hop_span_on_both_paths(proxy_two_backends):
+def test_client_records_a_hop_span_on_both_paths(proxy_two_backends,
+                                                  relayed):
     """The proxy's backend client records ``rpc.client.<method>`` under
     the child id it ships, on the decoded path (a broadcast) and on the
     zero-decode relay (a random-routed read): each trace's tree runs
@@ -201,7 +218,7 @@ def test_client_records_a_hop_span_on_both_paths(proxy_two_backends):
     servers, proxy = proxy_two_backends
     with ClassifierClient("127.0.0.1", proxy.args.rpc_port, "fx") as c:
         c.train([["a", Datum({"x": 1.0})], ["b", Datum({"x": -1.0})]])
-    relayed = proxy.relay_count
+    before = len(relayed)
     for method, args in (("get_labels", ("fx",)),       # raw relay
                          ("get_status", ("fx",))):      # decoded broadcast
         ctx = tracing.new_root()
@@ -218,7 +235,7 @@ def test_client_records_a_hop_span_on_both_paths(proxy_two_backends):
                    if n["name"] == f"rpc.client.{method}")
         assert hop["node"] == _node(proxy)
         assert {k["name"] for k in hop["children"]} == {f"rpc.{method}"}
-    assert proxy.relay_count == relayed + 1
+    assert relayed[before:] == ["get_labels"]
 
 
 def test_client_hop_span_needs_a_trace(one_node_cluster):
@@ -244,7 +261,8 @@ def test_client_hop_span_needs_a_trace(one_node_cluster):
 
 # -- usage: the relay and the decoded path bill alike ----------------------------
 
-def test_relayed_and_decoded_forwards_bill_the_same_row(one_node_cluster):
+def test_relayed_and_decoded_forwards_bill_the_same_row(one_node_cluster,
+                                                       relayed):
     """One tenant's classify through the zero-decode relay and another's
     (a same-length name) through the decoded path: the proxy's ledger
     bills each tenant one request with the same bytes in and out, and
@@ -257,7 +275,7 @@ def test_relayed_and_decoded_forwards_bill_the_same_row(one_node_cluster):
     traces = {}
     for tenant, relay in (("tr", True), ("td", False)):
         saved = raw.pop("classify") if not relay else None
-        before = proxy.relay_count
+        before = len(relayed)
         try:
             ctx = tracing.new_root()
             with principals.use(tenant), tracing.use_trace(ctx), \
@@ -266,7 +284,7 @@ def test_relayed_and_decoded_forwards_bill_the_same_row(one_node_cluster):
         finally:
             if saved is not None:
                 raw["classify"] = saved
-        assert (proxy.relay_count - before) == (1 if relay else 0)
+        assert len(relayed) - before == (1 if relay else 0)
         traces[tenant] = {r["name"] for r in proxy.rpc.trace.get_spans(
             ctx.trace_id)}
     table = proxy.usage.snapshot()["table"]

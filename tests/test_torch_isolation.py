@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of jubatus_tpu_torch
-loads no jax module and nothing of jubatus_tpu, and its entry points run
-on CUDA unless the CPU is asked for — without CUDA they raise."""
+loads no jax module and nothing of jubatus_tpu, its native libraries
+build under build/torch_native/ and never under native/, and its entry
+points run on CUDA unless the CPU is asked for — without CUDA they
+raise."""
 
 from __future__ import annotations
 
@@ -139,6 +141,7 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.codegen.emit_clients",
     "jubatus_tpu_torch.parallel",
     "jubatus_tpu_torch.parallel.ring",
+    "jubatus_tpu_torch.native.ingest",
 )
 
 
@@ -208,6 +211,63 @@ def test_plugins_and_planes_load_nothing_of_jax_or_the_reference():
     assert os.path.samefile(plugin_file, os.path.join(
         ROOT, "jubatus_tpu_torch", "plugins", "ux_splitter.py"))
     assert bad == "", f"imported: {bad}"
+
+
+_NATIVE_PROBE = r"""
+import os, sys
+from pathlib import Path
+from jubatus_tpu_torch import native
+from jubatus_tpu_torch.native import ingest
+from jubatus_tpu_torch.server import EngineServer
+from jubatus_tpu_torch.server.args import ServerArgs
+print(native.BUILD_DIR)
+native.BUILD_DIR = Path(sys.argv[1])
+conf = {"method": "AROW", "parameter": {"regularization_weight": 1.0},
+        "converter": {"num_rules": [{"key": "*", "type": "num"}]}}
+srv = EngineServer("classifier", conf, ServerArgs(
+    engine="classifier", listen_addr="127.0.0.1", telemetry_interval=0),
+    device="cpu")
+srv.start(0)
+print("train" in srv.rpc._raw_methods, native.crc32(b"x"))
+srv.stop()
+print(",".join(sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                      or m == "jubatus_tpu" or m.startswith("jubatus_tpu."))))
+"""
+
+
+def _tree(path):
+    out = {}
+    for d, _dirs, files in os.walk(path):
+        for f in files:
+            p = os.path.join(d, f)
+            out[p] = os.stat(p).st_mtime_ns
+    return out
+
+
+def test_native_build_writes_only_under_build_torch_native(tmp_path):
+    """The native ingest parser and jt_native build into
+    build/torch_native/ by default; a build (here into a fresh directory,
+    so it really runs) writes its libraries there and nothing under
+    native/, and a server on the raw path loads nothing of jax."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    before = _tree(os.path.join(ROOT, "native"))
+    out = tmp_path / "torch_native"
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_PROBE, str(out)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    default, served, bad = proc.stdout.splitlines()[-3:]
+    assert os.path.samefile(os.path.dirname(default),
+                            os.path.join(ROOT, "build"))
+    assert os.path.basename(default) == "torch_native"
+    assert served.split()[0] == "True"
+    assert bad == "", f"imported: {bad}"
+    built = sorted(p.name for p in out.iterdir())
+    assert [n.split("_")[0] for n in built] == ["libfast", "libjt"]
+    assert all(n.endswith(".so") for n in built)
+    assert _tree(os.path.join(ROOT, "native")) == before
 
 
 _TELEMETRY_PROBE = r"""

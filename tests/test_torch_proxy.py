@@ -17,6 +17,7 @@ import pytest
 from jubatus_tpu.client import ClassifierClient as JClassifierClient
 from jubatus_tpu.client import Datum as JDatum
 from jubatus_tpu.client import NearestNeighborClient as JNNClient
+from jubatus_tpu.rpc.client import RpcClient as JRpcClient
 from jubatus_tpu.coord.remote import RemoteCoordinator as JRemoteCoordinator
 from jubatus_tpu.server import EngineServer as JEngineServer
 from jubatus_tpu.server.args import ServerArgs as JServerArgs
@@ -150,7 +151,25 @@ def test_save_broadcast_merge_and_load(classifier_cluster, tmp_path):
     c.close()
 
 
-def test_proxy_status_counters(classifier_cluster):
+@pytest.fixture()
+def relayed(monkeypatch):
+    """The methods the proxies' zero-decode relay forwarded: each relay is
+    one ``RpcClient.call_raw``, in the port's proxy and in the JAX
+    proxy's Python relay alike (``relay_count`` counts only the requests
+    a C++ relay served)."""
+    calls = []
+    for cls in (RpcClient, JRpcClient):
+        real = cls.call_raw
+
+        def spy(self, method, raw_params, _real=real):
+            calls.append(method)
+            return _real(self, method, raw_params)
+
+        monkeypatch.setattr(cls, "call_raw", spy)
+    return calls
+
+
+def test_proxy_status_counters(classifier_cluster, relayed):
     _, proxy, _ = classifier_cluster
     c = ClassifierClient("127.0.0.1", proxy.args.rpc_port, NAME)
     c.train([["a", Datum({"x": 1.0})]])
@@ -160,10 +179,54 @@ def test_proxy_status_counters(classifier_cluster):
     assert node_st["request.train"] == 1
     assert node_st["request.get_labels"] == 1
     assert node_st["forward_count"] >= 2
-    # both random-routed calls went through the zero-decode relay
-    assert node_st["relay_count"] == 2
+    # both random-routed calls went through the zero-decode relay, which
+    # on the Python transport counts as a forward, not in relay_count
+    assert relayed == ["train", "get_labels"]
+    assert node_st["relay_count"] == 0
     assert node_st["trace.rpc.train.count"] == 1
     c.close()
+
+
+def test_relay_counters_equal_the_jax_proxy_on_the_python_transport(
+        monkeypatch, relayed):
+    """A port proxy and a JAX proxy on the Python transport, each before
+    one member of its own package, relay the same N raw ``train`` calls:
+    both report N forwards, N ``request.train`` and ``relay_count`` 0
+    (the zero-decode relay counts as a forward; ``relay_count`` is the
+    C++ relay's)."""
+    from jubatus_tpu.coord.memory import MemoryCoordinator as JMemCoord
+    from jubatus_tpu.coord.memory import _Store as JStore
+
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
+    n = 5
+    jstore, store = JStore(), _Store()
+    jsrv = JEngineServer("classifier", CLASSIFIER_CONF, JServerArgs(
+        engine="classifier", coordinator="(shared)", name=NAME,
+        listen_addr="127.0.0.1", interval_sec=1e9, interval_count=1 << 30),
+        coord=JMemCoord(jstore))
+    jsrv.start(0)
+    (srv,) = _boot("classifier", CLASSIFIER_CONF, 1, store)
+    jproxy = JProxy(JProxyArgs(engine="classifier", listen_addr="127.0.0.1"),
+                    coord=JMemCoord(jstore))
+    jproxy.start(0)
+    proxy = _proxy("classifier", store)
+    rows = []
+    try:
+        for p in (proxy, jproxy):
+            with ClassifierClient("127.0.0.1", p.args.rpc_port, NAME) as c:
+                for i in range(n):
+                    assert c.train([["ab"[i % 2], Datum({"x": i - 2.0})]]) == 1
+            (st,) = p.get_proxy_status("").values()
+            rows.append({k: st[k] for k in
+                         ("forward_count", "relay_count", "request.train")})
+    finally:
+        proxy.stop()
+        jproxy.stop()
+        srv.stop()
+        jsrv.stop()
+    assert relayed == ["train"] * (2 * n)
+    assert rows[0] == rows[1] == {"forward_count": n, "relay_count": 0,
+                                  "request.train": n}
 
 
 def test_dead_backend_tolerated_on_broadcast(classifier_cluster):

@@ -469,10 +469,13 @@ def test_scoring_failure_never_reaches_ingest(monkeypatch):
         quality_sample=1.0), device="cpu")
     srv.start(0)
     try:
-        def boom(_data):
+        def boom(*_args):
             raise RuntimeError("scorer down")
 
+        # the decoded path scores through classify, the raw path through
+        # classify_hashed
         monkeypatch.setattr(srv.driver, "classify", boom)
+        monkeypatch.setattr(srv.driver, "classify_hashed", boom)
         with RpcClient("127.0.0.1", srv.rpc.port, 30.0) as c:
             assert c.call("train", "", [["a", Datum({"x": 1.0})
                                          .to_msgpack()]]) == 1

@@ -404,7 +404,9 @@ def test_linear_classifier_roundtrip_answers_as_the_driver():
             assert c.delete_label("neutral") is True
             st = next(iter(c.get_status().values()))
             assert st["driver.method"] == "AROW"
-            assert st["microbatch.train.flush_count"] == 1
+            # arow's converter is one the native parser expresses: the
+            # call took the raw-wire path
+            assert st["microbatch.train_raw.flush_count"] == 1
             assert c.clear() is True
             assert c.get_labels() == {}
     finally:
@@ -442,12 +444,18 @@ def test_concurrent_train_calls_are_merged_by_the_coalescer(engine, conf,
                                                             label):
     """8 clients train at once while the first flush is held back: later
     calls queue and merge into fewer flushes; every caller gets its own
-    count back and every example lands once."""
+    count back and every example lands once. Both converters are ones the
+    native parser expresses, so the calls take the raw-wire path: its
+    coalescer (``train_raw``) flushes the classifier's uniform key schema
+    through ``train_indexed_schema`` and regression through
+    ``train_hashed``."""
     from jubatus_tpu_torch.server.args import ServerArgs
 
     srv = EngineServer(engine, conf, ServerArgs(engine=engine, thread=8),
                        device="cpu")
-    apply_fn = srv.driver.train_hashed
+    step = "train_indexed_schema" if engine == "classifier" \
+        else "train_hashed"
+    apply_fn = getattr(srv.driver, step)
     first = threading.Event()
 
     def slow_first(*args):
@@ -456,7 +464,7 @@ def test_concurrent_train_calls_are_merged_by_the_coalescer(engine, conf,
             time.sleep(0.3)
         return apply_fn(*args)
 
-    srv.driver.train_hashed = slow_first
+    setattr(srv.driver, step, slow_first)
     port = srv.start(0)
     counts, errors = [], []
 
@@ -480,7 +488,8 @@ def test_concurrent_train_calls_are_merged_by_the_coalescer(engine, conf,
             t.join()
         assert not errors
         assert all(sent == got for sent, got in counts) and len(counts) == 24
-        stats = srv.coalescers["train"].stats()
+        assert first.is_set()
+        stats = srv.coalescers["train_raw"].stats()
         assert stats["item_count"] == sum(sent for sent, _ in counts)
         assert stats["flush_count"] < 24
         assert srv.driver.update_count == stats["item_count"]

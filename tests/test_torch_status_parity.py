@@ -23,7 +23,8 @@ from jubatus_tpu.server.args import ServerArgs as JServerArgs
 from jubatus_tpu.server.proxy import Proxy as JProxy
 from jubatus_tpu.server.proxy import ProxyArgs as JProxyArgs
 from jubatus_tpu_torch.coord.memory import MemoryCoordinator, _Store
-from jubatus_tpu_torch.rpc.client import ClassifierClient
+from jubatus_tpu_torch.native.ingest import spec_from_converter_config
+from jubatus_tpu_torch.rpc.client import ClassifierClient, RpcClient
 from jubatus_tpu_torch.core.datum import Datum
 from jubatus_tpu_torch.server import EngineServer
 from jubatus_tpu_torch.server.args import ServerArgs
@@ -52,8 +53,9 @@ def _keys(st):
 
 @pytest.fixture(autouse=True)
 def _python_transport(monkeypatch):
-    # the JAX server's native transport and ingest bill and count
-    # through other paths; the port has the Python transport only
+    # the JAX server's native transport bills and counts through other
+    # paths (the port has the Python transport only); the ingest is on in
+    # both packages in test_get_status_key_set_with_the_ingest_on
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_INGEST", "0")
 
@@ -109,6 +111,51 @@ def test_get_status_key_set_equals_the_jax_server(path):
     assert {"VIRT", "RSS", "SHR", "loadavg", "argv.auto_tune",
             "argv.tune_interval_floor", "argv.tune_interval_ceiling",
             "argv.legacy_wire", "argv.modern_wire"} <= set(port_st)
+
+
+#: the linear engines' shipped configs whose converter the native parser
+#: expresses: their servers register the raw-wire path by default
+RAW_CONFIGS = [p for p in CONFIGS
+               if p.split(os.sep)[1] in ("classifier", "regression")
+               and spec_from_converter_config(json.load(open(
+                   os.path.join(ROOT, p))).get("converter")) is not None]
+
+
+@pytest.mark.parametrize("path", RAW_CONFIGS)
+def test_get_status_key_set_with_the_ingest_on(path, monkeypatch):
+    """With the native ingest on in both packages, a server of each has
+    the same key set after the same train call, the ``ingest.*`` and
+    ``microbatch.train_raw.*`` rows in both wherever the engine's driver
+    takes hashed batches."""
+    monkeypatch.delenv("JUBATUS_TPU_NATIVE_INGEST")
+    engine = path.split(os.sep)[1]
+    with open(os.path.join(ROOT, path)) as f:
+        conf = json.load(f)
+    port_srv = EngineServer(engine, conf, ServerArgs(
+        engine=engine, configpath=path, listen_addr="127.0.0.1",
+        telemetry_interval=0), device="cpu")
+    jax_srv = JEngineServer(engine, conf, args=JServerArgs(
+        engine=engine, configpath=path, listen_addr="127.0.0.1",
+        telemetry_interval=0))
+    label = "a" if engine == "classifier" else 1.0
+    try:
+        for srv in (port_srv, jax_srv):
+            port = srv.start(0)
+            with RpcClient("127.0.0.1", port) as c:
+                assert c.call("train", "", [[label, Datum(
+                    {"x": 1.0, "s": "w"}).to_msgpack()]]) == 1
+        (port_st,) = port_srv.get_status("").values()
+        (jax_st,) = jax_srv.get_status("").values()
+    finally:
+        port_srv.stop()
+        jax_srv.stop()
+    assert _keys(port_st) == _keys(jax_st)
+    raw = hasattr(port_srv.driver, "train_hashed")
+    assert ("ingest.schema_flushes" in port_st) == raw
+    assert ("microbatch.train_raw.item_count" in port_st) == raw
+    if raw:
+        assert port_st["microbatch.train_raw.item_count"] == \
+            jax_st["microbatch.train_raw.item_count"] == 1
 
 
 @pytest.mark.parametrize("engine", ["classifier", "nearest_neighbor"])

@@ -926,6 +926,57 @@ def test_quarantined_push_round_rolls_the_receivers_back(poisoner,
             s.stop()
 
 
+def test_a_snapshot_tick_waits_out_the_round():
+    """A snapshot tick that falls inside a push round, after the round
+    aligned the initiator's label slots and before its poisoned total is
+    refused, takes no snapshot: the rollback restores the model served
+    before the round, its labels in their old order, scores bit-equal."""
+    servers = _guard_fleet(n=2, mixer="broadcast_mixer",
+                           model_snapshot_interval=3600.0)
+    a, b = servers
+    try:
+        _train(a, [("l1", {"x": 1.0}), ("l0", {"x": -2.0})])
+        _train(b, [("l0", {"x": -1.0}), ("l1", {"x": 3.0})])
+        for s in servers:
+            s.take_snapshot()
+        probes = [Datum({"x": v}) for v in (-2.0, 0.5, 3.0)]
+
+        def answers(srv):
+            with ClassifierClient("127.0.0.1", srv.args.rpc_port,
+                                  "mg") as c:
+                return [[(_text(lab), sc) for lab, sc in r]
+                        for r in c.classify(probes)]
+
+        before = [answers(s) for s in servers]
+        assert [lab for lab, _ in before[0][0]] == ["l1", "l0"]
+        taken = a.snapshots.stats()["taken"]
+        real = a.mixer.local_diff_obj
+
+        def tick_inside_the_round(*args, **kw):
+            a._last_snapshot = 0.0  # due
+            t = threading.Thread(target=a._model_snapshot_tick)
+            t.start()
+            t.join(30.0)
+            return real(*args, **kw)
+
+        a.mixer.local_diff_obj = tick_inside_the_round
+        rules = faults.arm(f"mix.diff.poison.{a.self_nodeinfo().name}:nan")
+        try:
+            a.mixer.mix_now()
+        finally:
+            faults.disarm(rules)
+            a.mixer.local_diff_obj = real
+        assert a.snapshots.stats()["taken"] == taken
+        assert [s.rollbacks for s in servers] == [1, 1]
+        assert [answers(s) for s in servers] == before
+        a._last_snapshot = 0.0
+        a._model_snapshot_tick()  # between rounds: taken at once
+        assert a.snapshots.stats()["taken"] == taken + 1
+    finally:
+        for s in servers:
+            s.stop()
+
+
 def _answers_q(srv):
     with ClassifierClient("127.0.0.1", srv.args.rpc_port, "q") as c:
         return [sorted((_text(lab), s) for lab, s in r)
