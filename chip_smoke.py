@@ -9,8 +9,10 @@ each of which fails the run (non-zero exit, no result line) on error:
 1. device: the card's name, and its name and power limit from nvidia-smi;
    builds ``jubatus_tpu_torch/csrc/sig_scan.cu`` and
    ``jubatus_tpu_torch/csrc/online_scan.cu`` with nvcc (sm_90a), one nvcc
-   per source, and ``native/fast_ingest.cpp`` with g++ (the raw-wire
-   parser the linear servers load), started together;
+   per source, and ``native/fast_ingest.cpp`` (the raw-wire parser the
+   linear servers load) and ``native/rpc_frontend.cpp`` (the native
+   transport every server and proxy serves on) with g++, started
+   together;
 2. kernels: both modes of the signature scan against their plain PyTorch
    versions on the same tensors, bit-equal required: first at edge shapes
    (C in {1, 7, 4099}, B around each variant's limits, W in {2, 3, 64, 70},
@@ -144,25 +146,31 @@ each of which fails the run (non-zero exit, no result line) on error:
    (``python -m jubatus_tpu_torch.coord.server --journal``), three configs
    written with ``jubaconfig`` (nearest_neighbor lsh.json, phase 6's LOF
    config over lsh, regression default.json), one ``jubavisor``,
-   ``jubactl -c start -N 2`` per engine and one routing proxy per engine
-   (``python -m jubatus_tpu_torch.server.proxy``, its planes on).
+   ``jubactl -c start -N 2`` per engine and a routing proxy per engine on
+   the native transport (``python -m jubatus_tpu_torch.server.proxy``, its
+   planes on), and a second NN and a second regression proxy with
+   ``JUBATUS_TPU_NATIVE_RPC=0`` (FLEET_PROXIES).
    nearest_neighbor: each member filled with 3.125·10^4 rows on their
    CHT(1) owner by ``put_rows`` (6.25·10^4 in all), 2,000 ``set_row``
-   through the proxy,
-   100 each of ``neighbor_row_from_datum`` and ``similar_row_from_datum``
-   through the proxy and directly to both members (every proxied answer
-   equal to one member's exactly; p50/p99 both ways; the proxy's forwards
-   and its ``relay_count``, 0 on the Python transport); anomaly: 50 ``add``
-   through the proxy, each id held by both CHT(2) owners, ``calc_score``;
-   regression: 10^4 rows through the proxy in calls of 256, ``estimate``;
+   through the proxy, then, once its C++ relay has engaged, 100 each of
+   ``neighbor_row_from_datum`` and ``similar_row_from_datum`` through the
+   relay, through the Python-transport proxy and directly to both members
+   (every proxied answer equal to one member's exactly; p50/p99 three
+   ways; the relay's ``relay_count`` at least the 200 queries, by method,
+   its forward errors 0, the Python proxy's ``relay_count`` 0); anomaly:
+   50 ``add`` through the proxy, each id held by both CHT(2) owners,
+   ``calc_score``; regression: 10^4 rows through the proxy in calls of
+   256, ``estimate`` (the relay forwards some of them);
    the broadcasts (``get_status`` and ``save`` merged, ``clear``
-   all_and); the views through the proxies (a traced NN query assembled
-   by ``jubactl -c trace``, ``metrics``, ``alerts`` with the NN proxy's
-   SLO firing, ``quality``, ``usage``, ``profile``, ``timeline``,
+   all_and); the views through the proxies (a traced NN query through the
+   Python-transport NN proxy assembled by ``jubactl -c trace``,
+   ``metrics``, ``alerts`` with that proxy's SLO firing, ``quality``,
+   ``usage``, ``profile``, ``timeline``,
    ``incident`` with its one bundle, a live ``watch``, ``/metrics``, each
    forensics RPC timed, no proxy holding a /dev/nvidia* node open where
    every member holds one); ``jubactl -c drain`` of one NN member while a
-   client writes through the proxy (no client error, every row on the survivor), then
+   client writes through the proxy and another reads through its C++
+   relay (no client error, every row on the survivor), then
    ``rebalance``, ``rollback`` (refused by every member: jubactl start
    forwards no snapshot interval), ``status --all``, one ``watch`` frame
    and ``stop``, after which the visor has no children. K1 and S1
@@ -328,8 +336,16 @@ each of which fails the run (non-zero exit, no result line) on error:
    within phase 9's tolerance; train rows/s of both paths, and a call's
    parse, the flush's merge and its device stage (host wall and CUDA
    events) against the decoded path's featurize.
+22. the native transport (path ``native_transport``): two regression
+   ``default.json`` server processes on the card, started at once, one
+   on the native transport and one with ``JUBATUS_TPU_NATIVE_RPC=0``, each
+   fed 4,096 rows from 1 client (a call of 256 at a time) and 4,096 from
+   4 clients that pipeline their calls, every call's features disjoint
+   in the hashed space, then 200 ``estimate``: rows/s, p50/p99 a call, S1
+   launches from each server's get_status, and the two saved models
+   equal bit for bit (else within LINEAR_TOL, and the line says so).
 
-Phases 3-7 and 8-21 are the main path: each
+Phases 3-7 and 8-22 are the main path: each
 path's launch counts are set to 0 just before it and read just after (a server's from its get_status); launches
 made only to compare with the plain version or to time a kernel are not
 counted. The last lines are a ``{"kernels": ...}`` JSON line (with the
@@ -962,12 +978,13 @@ def server_datadir(name: str) -> str:
 
 
 def start_server(engine: str, config_path: str, tag: str = "",
-                 extra=()):
+                 extra=(), env=None):
     """Start ``python -m jubatus_tpu_torch.server <engine> -f <config>``
-    (and the flags in ``extra``) on the card; returns (process, port, log
-    path) without waiting for it. Unless ``extra`` names a ``-d``, the
-    server's datadir (where its incident bundles and captures go) is an
-    empty directory of its own under OUT_DIR."""
+    (and the flags in ``extra``, the variables in ``env``) on the card;
+    returns (process, port, log path) without waiting for it. Unless
+    ``extra`` names a ``-d``, the server's datadir (where its incident
+    bundles and captures go) is an empty directory of its own under
+    OUT_DIR."""
     port = free_port()
     os.makedirs(OUT_DIR, exist_ok=True)
     log_path = os.path.join(OUT_DIR, f"chip_smoke_server_{engine}{tag}.log")
@@ -978,7 +995,8 @@ def start_server(engine: str, config_path: str, tag: str = "",
            "--device", "cuda", *extra]
     with open(log_path, "w") as logf:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=logf,
-                                stderr=subprocess.STDOUT)
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, **env) if env else None)
     return proc, port, log_path
 
 
@@ -3861,9 +3879,28 @@ FLEET_ESTIMATES = 50
 FLEET_WAIT_S = 300            # longest wait for a fleet, a drain, a stop
 FLEET_ENGINES = (("nearest_neighbor", "fleet_nn"), ("anomaly", "fleet_lof"),
                  ("regression", "fleet_reg"))
-#: the NN proxy's SLO: every proxied NN query's dispatch exceeds 50 µs, so
-#: it burns from the first tick that sees one (the windows are short and
-#: the incident window long: one bundle for the phase)
+#: phase 13's proxies: (key, engine, cluster, on the native transport).
+#: The default proxies serve on the native transport, whose C++ relay
+#: forwards random-routed calls without entering Python. The NN proxy on
+#: the Python transport carries the SLO, the incident bundle and the traced
+#: query (a relayed query leaves no dispatch span at the proxy), and the
+#: regression one the autoscaler drill's light client: an effectful call
+#: the C++ relay hands to a draining member is refused there (NodeDraining)
+#: and the refusal goes to the client as it is, where the Python path
+#: re-routes it
+FLEET_PROXIES = (("nearest_neighbor", "nearest_neighbor", "fleet_nn", True),
+                 ("nearest_neighbor_py", "nearest_neighbor", "fleet_nn",
+                  False),
+                 ("anomaly", "anomaly", "fleet_lof", True),
+                 ("regression", "regression", "fleet_reg", True),
+                 ("regression_py", "regression", "fleet_reg", False))
+#: proxy key -> its cluster name
+FLEET_PROXY_NAME = {key: name for key, _, name, _ in FLEET_PROXIES}
+FLEET_RELAY_WAIT_S = 30       # longest wait for the C++ relay to engage
+#: the Python-transport NN proxy's SLO: every proxied NN query's dispatch
+#: exceeds 50 µs, so it burns from the first tick that sees one (the
+#: windows are short and the incident window long: one bundle for the
+#: phase)
 FLEET_SLO = "latency:rpc.neighbor_row_from_datum:p99:0.05"
 FLEET_VIEW_QUERIES = 20       # proxied NN queries just before the views
 FLEET_FORENSICS_REPS = 5      # timed calls of each forensics RPC
@@ -3911,13 +3948,15 @@ def rss_split_mb(pid: int) -> dict:
     return dict(files=round(files / 1024, 1), other=round(other / 1024, 1))
 
 
-def spawn(tag: str, *argv):
-    """``python -m <argv>`` from the repo root, its output to a log file
-    under OUT_DIR; returns (process, log path)."""
+def spawn(tag: str, *argv, env=None):
+    """``python -m <argv>`` from the repo root (with the variables in
+    ``env``), its output to a log file under OUT_DIR; returns (process,
+    log path)."""
     log_path = os.path.join(OUT_DIR, f"chip_smoke_{tag}.log")
     with open(log_path, "w") as logf:
         proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
-                                stdout=logf, stderr=subprocess.STDOUT)
+                                stdout=logf, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, **env) if env else None)
     return proc, log_path
 
 
@@ -3976,23 +4015,49 @@ def one_of(got, answers, what: str) -> int:
                      f"direct answer")
 
 
+def relayed_query(cli, name: str, dat) -> bool:
+    """One neighbor_row_from_datum through the proxy ``cli``: whether the
+    C++ relay forwarded it (the proxy's relay_count moved)."""
+    (before,) = cli.call("get_proxy_status", name).values()
+    cli.call("neighbor_row_from_datum", name, dat, 10)
+    (after,) = cli.call("get_proxy_status", name).values()
+    return after["relay_count"] > before["relay_count"]
+
+
+def relay_moved(before: dict, after: dict, methods) -> dict:
+    """What a proxy's C++ relay forwarded between two of its status maps:
+    ``relay_count``, and per method the requests counted less those the
+    Python path served (each leaves a dispatch span there); their sum
+    must be the relay count."""
+    out = {"relay_count": after["relay_count"] - before["relay_count"]}
+    for m in methods:
+        out[m] = (after.get(f"request.{m}", 0) - before.get(f"request.{m}", 0)
+                  - after.get(f"trace.rpc.{m}.count", 0)
+                  + before.get(f"trace.rpc.{m}.count", 0))
+    check(sum(out[m] for m in methods) == out["relay_count"],
+          f"the relay's per-method counts {out} do not add up")
+    return out
+
+
 def phase_fleet(Datum, seed: int, member_flags: str = "",
                 autoscale: bool = False) -> dict:
     """A port ``jubacoordd`` (``--journal``), three configs written with
     ``jubaconfig`` (nearest_neighbor lsh.json, the LOF config of phase 6
     over lsh, regression default.json), one ``jubavisor`` on the card,
-    ``jubactl -c start -N 2`` per engine and one proxy per engine, every
-    one its own process. nearest_neighbor: each member filled with
-    FLEET_NN_ROWS rows on their CHT(1) owner by ``put_rows``, FLEET_SETS
-    ``set_row`` through the proxy, then FLEET_QUERIES of each query method
-    through the proxy and directly to both members (each proxied answer
-    equal to one member's). anomaly: FLEET_ADDS ``add`` through the proxy,
+    ``jubactl -c start -N 2`` per engine and the proxies of
+    FLEET_PROXIES, every one its own process. nearest_neighbor: each
+    member filled with FLEET_NN_ROWS rows on their CHT(1) owner by
+    ``put_rows``, FLEET_SETS ``set_row`` through the proxy, then, once its
+    C++ relay has engaged, FLEET_QUERIES of each query method through the
+    relay, through the Python-transport proxy and directly to both members
+    (each proxied answer equal to one member's; the relay's counts by
+    method). anomaly: FLEET_ADDS ``add`` through the proxy,
     each id held by both CHT(2) owners, then ``calc_score``. regression:
     FLEET_TRAIN rows in calls of LINEAR_BATCH through the proxy, then
     ``estimate``. The broadcasts (``get_status`` merge, ``save`` merge,
     ``clear`` all_and), the views (``fleet_views``), then ``jubactl -c
-    drain`` of one NN member under a writer through the proxy (no client
-    error, every row handed off),
+    drain`` of one NN member under a writer through the proxy and a
+    reader through its C++ relay (no client error, every row handed off),
     ``rebalance``, ``rollback``, ``status --all``, ``watch --once`` and
     ``stop``: the visor is left with no children. ``member_flags``: more
     server flags for every member (the visor's ``--server-flags``).
@@ -4055,33 +4120,34 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                            "-I", str(1 << 30))
             check(rc == 0, f"jubactl start {engine}: {text}")
         proxies, proxy_pids = {}, {}
-        for engine, name in FLEET_ENGINES:
+        for key, engine, name, native_rpc in FLEET_PROXIES:
             pport = free_port()
             planes = ["--telemetry-interval", "1", "--metrics-port", "0",
                       "--slowlog-min-count", "8", "--incident-dir",
-                      server_datadir(f"proxy_{engine}_{pport}")]
-            if engine == "nearest_neighbor":
+                      server_datadir(f"proxy_{key}_{pport}")]
+            if key == "nearest_neighbor_py":
                 planes += ["--slo", FLEET_SLO, "--slo-fast-window", "30",
                            "--slo-slow-window", "60", "--incident-window",
                            "3600"]
-            proc = spawn(f"proxy_{engine}",
+            proc = spawn(f"proxy_{key}",
                          "jubatus_tpu_torch.server.proxy", engine,
                          "-z", locator, "-p", str(pport), "-b",
                          "127.0.0.1", "-c", "8", "-t", "300",
-                         "--interconnect-timeout", "300", *planes)
+                         "--interconnect-timeout", "300", *planes,
+                         env=None if native_rpc else {
+                             "JUBATUS_TPU_NATIVE_RPC": "0"})
             procs.append(proc)
-            proxies[engine] = pport
-            proxy_pids[engine] = proc[0].pid
+            proxies[key] = pport
+            proxy_pids[key] = proc[0].pid
         for engine, name in FLEET_ENGINES:
             wait_for(lambda e=engine, n=name: len(membership.get_all_actives(
                 view, e, n)) == 2, f"two {engine} members never joined",
                 FLEET_WAIT_S)
         pcli = {}
-        for engine, name in FLEET_ENGINES:
-            pcli[engine] = RpcClient("127.0.0.1", proxies[engine],
-                                     timeout=300.0)
-            wait_for(lambda c=pcli[engine], n=name: answers_ok(
-                c, "get_proxy_status", n), f"the {engine} proxy never "
+        for key, _, name, _ in FLEET_PROXIES:
+            pcli[key] = RpcClient("127.0.0.1", proxies[key], timeout=300.0)
+            wait_for(lambda c=pcli[key], n=name: answers_ok(
+                c, "get_proxy_status", n), f"the {key} proxy never "
                 "answered", FLEET_WAIT_S)
         members = {engine: sorted(membership.get_all_actives(view, engine,
                                                               name),
@@ -4114,7 +4180,7 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                 fut.result()
         fill_s = time.perf_counter() - t0
         rng = np.random.default_rng(seed + 1302)
-        nn = pcli["nearest_neighbor"]
+        nn, nn_py = pcli["nearest_neighbor"], pcli["nearest_neighbor_py"]
         set_lat = []
         for i in range(FLEET_SETS):
             dat = server_datum(rng, Datum, i)
@@ -4125,14 +4191,23 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
         warm = server_datum(rng, Datum, FLEET_SETS + FLEET_QUERIES)
         first = [timed(c.call, "neighbor_row_from_datum", nn_name, warm,
                        10)[1] for c in direct["nearest_neighbor"]]
+        # the C++ relay takes the cluster at the refresher's first tick
+        # after the proxy has seen it (the set_row calls, CHT-routed, took
+        # its Python path): queries until one was relayed
+        wait_for(lambda: relayed_query(nn, nn_name, warm),
+                 "the NN proxy's C++ relay never engaged", FLEET_RELAY_WAIT_S)
         queries = {"neighbor_row_from_datum": [], "similar_row_from_datum": []}
-        lat = {m: {"proxy": [], "direct": []} for m in queries}
+        lat = {m: {"relay": [], "python_proxy": [], "direct": []}
+               for m in queries}
         routed = {m: [0, 0] for m in queries}
+        (pst0,) = nn.call("get_proxy_status", nn_name).values()
         for i in range(FLEET_QUERIES):
             dat = server_datum(rng, Datum, FLEET_SETS + i)
             for method in queries:
                 got, ms = timed(nn.call, method, nn_name, dat, 10)
-                lat[method]["proxy"].append(ms)
+                lat[method]["relay"].append(ms)
+                got_py, ms = timed(nn_py.call, method, nn_name, dat, 10)
+                lat[method]["python_proxy"].append(ms)
                 answers = []
                 for c in direct["nearest_neighbor"]:
                     a, ms = timed(c.call, method, nn_name, dat, 10)
@@ -4140,7 +4215,18 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                     answers.append(a)
                 check(len(got) == 10, f"{method}: {len(got)} answers")
                 routed[method][one_of(got, answers, method)] += 1
+                one_of(got_py, answers, f"{method} (the Python proxy)")
         (pst,) = nn.call("get_proxy_status", nn_name).values()
+        (pst_py,) = nn_py.call("get_proxy_status", nn_name).values()
+        relay = relay_moved(pst0, pst, queries)
+        check(relay["relay_count"] >= len(queries) * FLEET_QUERIES,
+              f"the C++ relay forwarded {relay['relay_count']} of "
+              f"{len(queries) * FLEET_QUERIES} queries")
+        check(pst["forward_errors"] == 0,
+              f"the NN proxy's forward errors {pst['forward_errors']}")
+        check(pst_py["relay_count"] == 0,
+              f"the Python-transport proxy's relay_count "
+              f"{pst_py['relay_count']}")
         nn_rows = sum(c.call("get_row_count", nn_name)
                       for c in direct["nearest_neighbor"])
         check(nn_rows == 2 * FLEET_NN_ROWS + FLEET_SETS,
@@ -4150,7 +4236,8 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
             rows=2 * FLEET_NN_ROWS, fill_s=fill_s,
             fill_rows_per_s=2 * FLEET_NN_ROWS / fill_s,
             set_row=pcts(set_lat), first_query_direct_ms=first,
-            queries={m: dict(proxy=pcts(v["proxy"]),
+            queries={m: dict(relay=pcts(v["relay"]),
+                             python_proxy=pcts(v["python_proxy"]),
                              direct=pcts(v["direct"]),
                              answered_by_member=routed[m])
                      for m, v in lat.items()},
@@ -4158,7 +4245,11 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                        relay_count=pst["relay_count"],
                        forward_errors=pst["forward_errors"],
                        ring_builds=pst["ring.builds"],
-                       ring_hits=pst["ring.hits"]))
+                       ring_hits=pst["ring.hits"],
+                       queries_relayed=relay),
+            proxy_python=dict(forward_count=pst_py["forward_count"],
+                              relay_count=pst_py["relay_count"],
+                              forward_errors=pst_py["forward_errors"]))
 
         # -- anomaly: adds placed on both CHT(2) owners, then calc_score
         lof_name = FLEET_ENGINES[1][1]
@@ -4197,6 +4288,7 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
         rg = pcli["regression"]
         rows = [linear_example(rng, Datum, "regression", i)
                 for i in range(FLEET_TRAIN)]
+        (rst0,) = rg.call("get_proxy_status", reg_name).values()
         t0 = time.perf_counter()
         train_lat = []
         for lo in range(0, FLEET_TRAIN, LINEAR_BATCH):
@@ -4214,11 +4306,17 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                        for c in direct["regression"]]
             check(all(np.isfinite(got)), f"estimate {got}")
             one_of(got, answers, "estimate")
+        (rst,) = rg.call("get_proxy_status", reg_name).values()
+        reg_relay = relay_moved(rst0, rst, ("train", "estimate"))
+        check(reg_relay["relay_count"] > 0 and rst["forward_errors"] == 0,
+              f"the regression proxy relayed {reg_relay}, forward errors "
+              f"{rst['forward_errors']}")
         out["regression"] = dict(config="config/regression/default.json",
                                  rows=FLEET_TRAIN,
                                  rows_per_s=FLEET_TRAIN / train_s,
                                  train=pcts(train_lat),
-                                 estimate=pcts(est_lat))
+                                 estimate=pcts(est_lat),
+                                 relayed=reg_relay)
 
         # -- broadcasts
         bc = {}
@@ -4265,8 +4363,29 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
                     except Exception as e:  # broad-ok — counted, checked
                         errors.append(repr(e))
 
+        reads, read_errors = [0], []
+
+        def reader():
+            # random-routed reads through the C++ relay: the pipe to the
+            # drained member retires once the table drops it
+            with RpcClient("127.0.0.1", proxies["nearest_neighbor"],
+                           timeout=300.0) as q:
+                qrng = np.random.default_rng(seed + 1305)
+                while not stop.is_set():
+                    try:
+                        got = q.call("neighbor_row_from_datum", nn_name,
+                                     server_datum(qrng, Datum, reads[0]), 10)
+                        check(isinstance(got, list), f"a read answered "
+                              f"{got!r}")
+                        reads[0] += 1
+                    except Exception as e:  # broad-ok — counted, checked
+                        read_errors.append(repr(e))
+
+        (dst0,) = nn.call("get_proxy_status", nn_name).values()
         wt = threading.Thread(target=writer, daemon=True)
+        rt = threading.Thread(target=reader, daemon=True)
         wt.start()
+        rt.start()
         t0 = time.perf_counter()
         rc, text = ctl(jubactl, "-c", "drain", "-t", "nearest_neighbor",
                        "-n", nn_name, "-z", locator, "--target", src.name,
@@ -4274,9 +4393,15 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
         drain_s = time.perf_counter() - t0
         stop.set()
         wt.join(timeout=FLEET_WAIT_S)
+        rt.join(timeout=FLEET_WAIT_S)
+        (dst,) = nn.call("get_proxy_status", nn_name).values()
         check(rc == 0, f"jubactl drain: {text}")
         check(not errors, f"{len(errors)} client errors during the drain: "
               f"{errors[:3]}")
+        check(not read_errors, f"{len(read_errors)} relayed reads failed "
+              f"during the drain: {read_errors[:3]}")
+        drain_relayed = dst["relay_count"] - dst0["relay_count"]
+        check(drain_relayed > 0, "no read was relayed during the drain")
         wait_for(lambda: len(membership.get_all_nodes(
             view, "nearest_neighbor", nn_name)) == 1,
             "the drained member never left", FLEET_WAIT_S)
@@ -4290,7 +4415,10 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
         # routed to it before its gate closed are not counted)
         out["drain"] = dict(seconds=drain_s, source_rows=src_rows,
                             rows_per_s=src_rows / drain_s,
-                            writes_during=writes[0], client_errors=0)
+                            writes_during=writes[0],
+                            relayed_reads_during=reads[0],
+                            relay_count_during=drain_relayed,
+                            client_errors=0)
         rc, text = ctl(jubactl, "-c", "rebalance", "-t", "nearest_neighbor",
                        "-n", nn_name, "-z", locator)
         check(rc == 0 and "rebalance complete" in text,
@@ -4310,8 +4438,8 @@ def phase_fleet(Datum, seed: int, member_flags: str = "",
               and f"update_count: " in text, f"jubactl status: {text[:400]}")
         rc, frame = ctl(jubactl, "-c", "watch", "--once", "-t",
                         "nearest_neighbor", "-n", nn_name, "-z", locator)
-        check(rc == 0 and "(1 server(s), 3 proxy(ies))" in frame,
-              f"jubactl watch: {frame}")
+        check(rc == 0 and f"(1 server(s), {len(FLEET_PROXIES)} proxy(ies))"
+              in frame, f"jubactl watch: {frame}")
         out["watch_frame"] = frame.splitlines()
         for engine, clis in direct.items():
             for c in clis:
@@ -4360,18 +4488,20 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
                 proxy_pids: dict, member_pids: list, pcli: dict,
                 direct: dict) -> dict:
     """The fleet's observability views through phase 13's proxies, after
-    its traffic: one traced NN query through the proxy, assembled by
-    ``jubactl -c trace`` into one tree (proxy dispatch -> the proxy's
-    client call -> the member's dispatch) while K1's count moves on the
-    member; ``-c metrics``, ``-c alerts`` (the NN proxy's SLO fires),
-    ``-c quality``, ``-c usage``, ``-c profile`` (folded, and the
-    ``--device`` listing: no new capture), a live ``watch`` process's
-    frames, ``-c timeline`` and ``-c incident`` (one ``slo_firing`` bundle
-    at the NN proxy, in its directory under OUT_DIR); ``/metrics`` on each
-    proxy; each forensics RPC through the NN proxy timed; no proxy holds a
-    CUDA context (no /dev/nvidia* node open, where each of
-    ``member_pids`` holds one), and each proxy's resident set split by
-    kind. Host work: the views move no device time."""
+    its traffic: one traced NN query through the Python-transport NN proxy
+    (the C++ relay of the default one records no span of a relayed
+    query), assembled by ``jubactl -c trace`` into one tree (proxy
+    dispatch -> the proxy's client call -> the member's dispatch) while
+    K1's count moves on the member; ``-c metrics``, ``-c alerts`` (that
+    proxy's SLO fires), ``-c quality``, ``-c usage``, ``-c profile``
+    (folded, and the ``--device`` listing: no new capture), a live
+    ``watch`` process's frames, ``-c timeline`` and ``-c incident`` (one
+    ``slo_firing`` bundle at that proxy, in its directory under OUT_DIR);
+    ``/metrics`` on each proxy; each forensics RPC through the default NN
+    proxy timed; no proxy holds a CUDA context (no /dev/nvidia* node
+    open, where each of ``member_pids`` holds one), and each proxy's
+    resident set split by kind. Host work: the views move no device
+    time."""
     import io
     import urllib.request
 
@@ -4380,7 +4510,7 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
 
     t_views = time.perf_counter()
     nn_name, reg_name = FLEET_ENGINES[0][1], FLEET_ENGINES[2][1]
-    nn = pcli["nearest_neighbor"]
+    nn, nn_py = pcli["nearest_neighbor"], pcli["nearest_neighbor_py"]
     members = direct["nearest_neighbor"]
     rng = np.random.default_rng(seed + 1304)
     res: dict = {}
@@ -4390,12 +4520,12 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
             "kernel.sig_scan.hamming.launches"] for c in members)
 
     for i in range(FLEET_VIEW_QUERIES):
-        nn.call("neighbor_row_from_datum", nn_name,
-                server_datum(rng, Datum, i), 10)
+        nn_py.call("neighbor_row_from_datum", nn_name,
+                   server_datum(rng, Datum, i), 10)
     before = k1()
     ctx = tracing.new_root()
     with tracing.use_trace(ctx):
-        got, ms = timed(nn.call, "neighbor_row_from_datum", nn_name,
+        got, ms = timed(nn_py.call, "neighbor_row_from_datum", nn_name,
                         server_datum(rng, Datum, FLEET_VIEW_QUERIES), 10)
     check(len(got) == 10, f"traced query: {len(got)} answers")
     res["traced_query_ms"] = ms
@@ -4414,7 +4544,7 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
     text = run("-c", "trace", "-t", "nearest_neighbor", "-n", nn_name,
                ctx.trace_id)
     res["trace_ms"] = (time.perf_counter() - t0) * 1e3
-    pnode = f"127.0.0.1_{proxies['nearest_neighbor']}"
+    pnode = f"127.0.0.1_{proxies['nearest_neighbor_py']}"
     check("1 root(s)" in text and f"rpc.neighbor_row_from_datum" in text
           and "rpc.client.neighbor_row_from_datum" in text
           and f"@{pnode}" in text
@@ -4433,8 +4563,8 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
     check("data quality across 2 node(s)" in text, f"quality: {text}")
     res["quality"] = text.splitlines()
     text = run("-c", "usage", "-t", "nearest_neighbor", "-n", nn_name)
-    check("usage across 5 node(s)" in text and "(untagged)" in text,
-          f"usage: {text}")
+    check(f"usage across {2 + len(proxies)} node(s)" in text
+          and "(untagged)" in text, f"usage: {text}")
     res["usage"] = text.splitlines()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
@@ -4457,7 +4587,7 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
           f"incident: one slo_firing bundle at the NN proxy: {text}")
     res["incident"] = text.splitlines()
     # the bundle is on disk in the proxy's directory under OUT_DIR
-    inc = nn.call("get_proxy_incidents", nn_name, "")[pnode]
+    inc = nn_py.call("get_proxy_incidents", nn_name, "")[pnode]
     check(os.path.realpath(inc["dir"]).startswith(
         os.path.realpath(OUT_DIR)) and len(inc["incidents"]) == 1,
         f"the NN proxy's bundles: {inc}")
@@ -4481,7 +4611,7 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
     with open(frame_log) as f:
         # the first frame: complete, since a second one followed it
         first = f.read().split("\x1b[2J\x1b[H")[1]
-    check("(2 server(s), 3 proxy(ies))" in first
+    check(f"(2 server(s), {len(proxies)} proxy(ies))" in first
           and "alerts firing:" in first, f"watch frame: {first}")
     t0 = time.perf_counter()
     frame = jubactl.render_watch_frame(jubactl.collect_watch(
@@ -4489,15 +4619,16 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
     res["watch_frame_ms"] = (time.perf_counter() - t0) * 1e3
     res["watch_frame"] = frame.splitlines()
     # /metrics on every proxy
-    for engine, client in pcli.items():
+    for key, client in pcli.items():
         (st,) = client.call("get_proxy_status",
-                            dict(FLEET_ENGINES)[engine]).values()
+                            FLEET_PROXY_NAME[key]).values()
         url = f"http://127.0.0.1:{st['argv.metrics_port']}/metrics"
         with urllib.request.urlopen(url, timeout=30) as r:
             body = r.read().decode()
+        engine = st["type"].removesuffix("_proxy")
         check(f'engine="{engine}_proxy"' in body
               and "jubatus_span_duration_seconds_bucket" in body,
-              f"{engine} proxy /metrics")
+              f"the {key} proxy's /metrics")
     # each forensics RPC through the NN proxy: its own hop and the
     # members' broadcast, timed from here
     calls = {}
@@ -4525,13 +4656,12 @@ def fleet_views(Datum, seed: int, locator: str, view, proxies: dict,
     res["proxy_rss_mb"], res["proxy_rss_split_mb"] = {}, {}
     for engine, pid in proxy_pids.items():
         res["proxy_rss_split_mb"][engine] = rss_split_mb(pid)
-    for engine, c in pcli.items():
-        (st,) = c.call("get_proxy_status",
-                       dict(FLEET_ENGINES)[engine]).values()
+    for key, c in pcli.items():
+        (st,) = c.call("get_proxy_status", FLEET_PROXY_NAME[key]).values()
         cuda_rows = sorted(k for k in st if k.startswith("runtime.torch_"))
-        check(not cuda_rows, f"the {engine} proxy initialised CUDA: "
+        check(not cuda_rows, f"the {key} proxy initialised CUDA: "
               f"{cuda_rows}")
-        res["proxy_rss_mb"][engine] = round(
+        res["proxy_rss_mb"][key] = round(
             st["runtime.rss_bytes"] / 2 ** 20, 1)
     (st,) = members[0].call("get_status", nn_name).values()
     res["member_rss_mb"] = round(st["runtime.rss_bytes"] / 2 ** 20, 1)
@@ -7122,15 +7252,18 @@ def phase_tune_mix(seed: int) -> dict:
 def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
                     proxies: dict, visor_pid: int, procs: list) -> dict:
     """On phase 13's fleet (its jubacoordd, jubavisor and regression
-    proxy): AS_CLIENTS clients train through the regression proxy (each
-    call's params packed once, so the clients outpace the members); a
+    proxies): AS_CLIENTS clients train through the default regression
+    proxy, whose C++ relay forwards their calls (each call's params packed
+    once, so the clients outpace the members); a
     burst of AS_BURST_S sets ``--queue-hot`` to half the queued rows per
     member it shows; then ``jubactl -c autoscale --min 2 --max 3
     --autoscale-interval 1 --scale-out-confirm 2 --cooldown 20
     --scale-in-confirm 3`` runs as a process until the visor has spawned a
     third member on the card (it must hold /dev/nvidia* nodes) and the
     member answers through the proxy; then the heavy clients stop, one
-    light client goes on, and once the cooldown is over the loop drains a
+    light client goes on through the Python-transport regression proxy
+    (which re-routes a draining member's refusal, where the relay hands it
+    to the client), and once the cooldown is over the loop drains a
     member. Client errors must be 0
     throughout, the journal must hold one scale-out and one scale-in. S1
     launches are read from every regression member's get_status (the
@@ -7145,6 +7278,7 @@ def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
 
     reg_name = FLEET_ENGINES[2][1]
     reg_port = proxies["regression"]
+    light_port = proxies["regression_py"]
     actives = lambda: {m.name: m for m in membership.get_all_actives(  # noqa: E731
         view, "regression", reg_name)}
     start = actives()
@@ -7175,8 +7309,8 @@ def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
     errors, calls = [], [0]
     heavy_stop, light_stop = threading.Event(), threading.Event()
 
-    def client(stop, pause, size):
-        with RpcClient("127.0.0.1", reg_port, timeout=300.0) as c:
+    def client(stop, pause, size, port=reg_port):
+        with RpcClient("127.0.0.1", port, timeout=300.0) as c:
             k = 0
             while not stop.is_set():
                 try:
@@ -7195,7 +7329,8 @@ def fleet_autoscale(Datum, seed: int, locator: str, view, d: str,
                                 args=(heavy_stop, 0.0, AS_BATCH),
                                 daemon=True) for _ in range(AS_CLIENTS)]
     threads.append(threading.Thread(target=client,
-                                    args=(light_stop, 0.2, LINEAR_BATCH),
+                                    args=(light_stop, 0.2, LINEAR_BATCH,
+                                          light_port),
                                     daemon=True))
     for t in threads:
         t.start()
@@ -8214,6 +8349,221 @@ def phase_raw_ingest(torch, Datum, EngineServer, ClassifierDriver,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the native transport against the Python one, each server a
+# process of its own
+# ---------------------------------------------------------------------------
+NT_ROWS = 4_096               # rows of each feed, in calls of LINEAR_BATCH
+NT_CLIENTS = 4                # pipelined clients of the second feed
+NT_ESTIMATES = 200            # timed estimate calls a server
+#: (transport, the server's environment)
+NT_TRANSPORTS = (("native", None),
+                 ("python", {"JUBATUS_TPU_NATIVE_RPC": "0"}))
+
+
+def nt_datum(Datum, d, prefix: str):
+    """``d`` with every key under ``prefix``."""
+    out = Datum()
+    for key, v in d.string_values + d.num_values:
+        out.add(prefix + key, v)
+    return out
+
+
+def nt_prefixes(conv, Datum, calls: int) -> list:
+    """A key prefix for each of ``calls`` train calls such that no hashed
+    index (``conv``: the servers' converter, on the CPU) of one call's
+    features, every feature ``server_datum`` can make under the prefix, is
+    another call's or twice in one call: PA's model after the calls is
+    then the same whichever order the server's flushes take them in."""
+    d = server_datum(np.random.default_rng(0), Datum, 0)
+    keys = [f"f{j}" for j in range(64)]
+    strings = [("city", f"c{x}") for x in range(40)] + \
+        [("kind", f"k{x}") for x in range(7)]
+    used, out = set(), []
+    for k in range(calls):
+        for attempt in range(1000):
+            pre = f"{k}.{attempt}."
+            d = Datum()
+            for key in keys:
+                d.add(pre + key, 1.0)
+            for key, v in strings:
+                d.add(pre + key, v)
+            idx = {i for i, _ in conv.convert(d)}
+            if len(idx) == len(keys) + len(strings) and not idx & used:
+                break
+        else:
+            raise SmokeError("no collision-free prefix for a train call")
+        used |= idx
+        out.append(pre)
+    return out
+
+
+def nt_frames(rng, Datum, prefixes, first_msgid: int) -> list:
+    """A packed train frame of LINEAR_BATCH rows of phase 9's regression
+    shape a prefix, the keys of call k under ``prefixes[k]``."""
+    import msgpack
+
+    frames = []
+    for k, prefix in enumerate(prefixes):
+        rows = []
+        for i in range(LINEAR_BATCH):
+            d = server_datum(rng, Datum, i)
+            rows.append([float(sum(v for _, v in d.num_values)),
+                         nt_datum(Datum, d, prefix).to_msgpack()])
+        frames.append(msgpack.packb(
+            [0, first_msgid + k, "train", ["smoke", rows]]))
+    return frames
+
+
+def nt_feed(port: int, frames, clients: int, pipelined: bool) -> tuple:
+    """``frames`` from ``clients`` connections at once, each sending its
+    share all at once (``pipelined``) or a call at a time; every answer
+    must count its call's rows. Returns (wall seconds, each call's ms when
+    a call at a time)."""
+    import threading
+
+    import msgpack
+
+    errors, lat = [], []
+
+    def client(k):
+        mine = frames[k::clients]
+        batches = [mine] if pipelined else [[f] for f in mine]
+        try:
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=120) as sock:
+                unp = msgpack.Unpacker(raw=False)
+                for batch in batches:
+                    t0 = time.perf_counter()
+                    sock.sendall(b"".join(batch))
+                    n = 0
+                    while n < len(batch):
+                        data = sock.recv(65536)
+                        if not data:
+                            raise ConnectionError("the server closed")
+                        unp.feed(data)
+                        for msg in unp:
+                            n += 1
+                            if msg[2] is not None or msg[3] != LINEAR_BATCH:
+                                errors.append(f"train answered {msg[2:]}")
+                    if not pipelined:
+                        lat.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # broad-ok — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"native transport feed: {errors[:2]}")
+    return time.perf_counter() - t0, lat
+
+
+def nt_trained(st: dict) -> int:
+    """Rows a server's train coalescers took (the raw path and the
+    decoded one)."""
+    return int(st.get("microbatch.train.item_count", 0)
+               + st.get("microbatch.train_raw.item_count", 0))
+
+
+def phase_native_transport(Datum, seed: int) -> dict:
+    """Two ``config/regression/default.json`` servers on the card, started
+    at once, one on the native transport (the default) and one with
+    ``JUBATUS_TPU_NATIVE_RPC=0``. Each takes the same NT_ROWS rows from
+    one client (a call at a time: each call one flush, p50/p99 a call),
+    then NT_ROWS more from NT_CLIENTS clients that pipeline their calls
+    (rows/s), then NT_ESTIMATES ``estimate`` calls (p50/p99), after one
+    untimed call of LINEAR_BATCH rows (the first flush's set-up); S1 launches
+    from each server's get_status; the two saved models equal bit for bit,
+    or else within phase 9's LINEAR_TOL (the result says which), and so
+    the estimates. The calls' features are disjoint in the hashed space
+    (``nt_prefixes``), so the order of the pipelined calls' flushes,
+    which the two transports need not share, moves no weight."""
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+    from jubatus_tpu_torch.rpc.client import RpcClient
+
+    config = os.path.join(ROOT, "config", "regression", "default.json")
+    started = {name: start_server("regression", config, tag=f"_nt_{name}",
+                                  env=env)
+               for name, env in NT_TRANSPORTS}
+    out: dict = {}
+    packs, answers = {}, {}
+    launches = {m: 0 for m in RECORDED}
+    try:
+        calls = NT_ROWS // LINEAR_BATCH
+        conv = RegressionDriver(load_config("regression", "default.json"),
+                                device="cpu").converter
+        prefixes = nt_prefixes(conv, Datum, 2 * calls + 1)
+        rng = np.random.default_rng(seed + 2201)
+        one = nt_frames(rng, Datum, prefixes[:calls], 1)
+        many = nt_frames(rng, Datum, prefixes[calls:2 * calls], 1 + calls)
+        # one call before the timed feeds: a server's first flush builds
+        # its tables and loads S1 (~0.1 s)
+        warm = nt_frames(rng, Datum, prefixes[-1:], 1 + 2 * calls)
+        probes = [nt_datum(Datum, server_datum(rng, Datum, i),
+                           prefixes[i % calls]) for i in range(NT_ESTIMATES)]
+        await_started(started)
+
+        for name, _ in NT_TRANSPORTS:
+            port = started[name][1]
+            with RpcClient("127.0.0.1", port, timeout=120.0) as cli:
+                nt_feed(port, warm, 1, pipelined=False)
+                st0 = server_status(cli)
+                one_s, one_lat = nt_feed(port, one, 1, pipelined=False)
+                many_s, _ = nt_feed(port, many, NT_CLIENTS, pipelined=True)
+                est, est_lat = [], []
+                for d in probes:
+                    got, ms = timed(cli.call, "estimate", "smoke", [d])
+                    est += got
+                    est_lat.append(ms)
+                st = server_status(cli)
+                moved = {m: c - server_launches(st0)[m]
+                         for m, c in server_launches(st).items()}
+                check(moved["pa_scan"] > 0,
+                      f"S1 never launched on the {name} transport's server")
+                check(nt_trained(st) - nt_trained(st0) == 2 * NT_ROWS,
+                      f"the {name} server trained "
+                      f"{nt_trained(st) - nt_trained(st0)} rows")
+                check(all(np.isfinite(est)), f"{name} estimates not finite")
+                for m in RECORDED:
+                    launches[m] += moved[m]
+                packs[name] = saved_pack(cli, f"nt_{name}")
+                answers[name] = est
+                out[name] = dict(
+                    clients1=dict(rows_per_s=NT_ROWS / one_s,
+                                  train=pcts(one_lat)),
+                    clients4_pipelined=dict(rows_per_s=NT_ROWS / many_s),
+                    estimate=pcts(est_lat), s1_launches=moved["pa_scan"],
+                    flushes=int(st.get("microbatch.train_raw.flush_count", 0)
+                                + st.get("microbatch.train.flush_count", 0)))
+        try:
+            model_close(packs["native"], packs["python"], 0.0, "model")
+            bit_equal, err = True, 0.0
+        except SmokeError:
+            bit_equal = False
+            err = model_close(packs["native"], packs["python"], LINEAR_TOL,
+                              "model")
+        est_err = raw_err(answers["native"], answers["python"])
+        check(est_err <= 1.0, f"estimates differ across the transports by "
+              f"{est_err} of phase 9's limit")
+        out["models"] = dict(bit_equal=bit_equal, err_over_limit=err,
+                             estimates_equal=answers["native"]
+                             == answers["python"],
+                             estimate_err_over_limit=est_err)
+        return dict(out, config="config/regression/default.json",
+                    rows=2 * NT_ROWS, server_launches=launches)
+    except Exception:
+        for _, _, log_path in started.values():
+            print_server_log(log_path)
+        raise
+    finally:
+        for proc, _, _ in started.values():
+            stop_server(proc)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8261,16 +8611,18 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         from jubatus_tpu_torch import native
 
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            # one nvcc per source and the g++ of the ingest parser the
-            # linear servers load, started together
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            # one nvcc per source, and the g++ of the ingest parser the
+            # linear servers load and of the RPC front-end every server
+            # and proxy serves on, started together
             futs = [pool.submit(m.library) for m in (sig_scan, online_scan)]
-            futs.append(pool.submit(native.ensure_built, "fast_ingest"))
+            futs += [pool.submit(native.ensure_built, name)
+                     for name in ("fast_ingest", "rpc_frontend")]
             for fut in futs:
                 fut.result()
         log(f"[build] {sig_scan.SOURCE.name}, {online_scan.SOURCE.name} built "
-            f"and loaded, native/fast_ingest.cpp built, in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"and loaded, native/fast_ingest.cpp and native/rpc_frontend.cpp "
+            f"built, in {time.perf_counter() - t0:.2f} s")
         for line in (sig_scan.build_log + online_scan.build_log).splitlines():
             if "entry function" in line:
                 log(f"[build] {line.strip()[:120]}")
@@ -8490,6 +8842,13 @@ def main(argv=None) -> int:
             for key in ("nearest_neighbor", "anomaly", "regression",
                         "broadcasts", "drain"):
                 log(f"[deploy] {key} {json.dumps(res[key])} | {kind} | {smi}")
+            for method, q in res["nearest_neighbor"]["queries"].items():
+                log(f"[deploy] {method} p50 / p99 ms: direct "
+                    f"{q['direct']['p50_ms']:.3f} / {q['direct']['p99_ms']:.3f},"
+                    f" C++ relay {q['relay']['p50_ms']:.3f} / "
+                    f"{q['relay']['p99_ms']:.3f}, Python-transport proxy "
+                    f"{q['python_proxy']['p50_ms']:.3f} / "
+                    f"{q['python_proxy']['p99_ms']:.3f} | {kind} | {smi}")
             log(f"[deploy] boot_s {res['boot_s']:.3f} visor children after "
                 f"stop {res['visor_children_after_stop']}")
             for line in res["watch_frame"]:
@@ -8710,6 +9069,25 @@ def main(argv=None) -> int:
 
         run_path("raw_ingest", raw_ingest_path)
         log(f"[phase21] {path_s['raw_ingest']:.3f} s")
+
+        def native_transport_path():
+            res = phase_native_transport(Datum, args.seed)
+            log(f"[native_transport] {json.dumps(res)} | {kind} | {smi}")
+            for name, _ in NT_TRANSPORTS:
+                r = res[name]
+                log(f"[native_transport] {name}: train rows/s "
+                    f"{r['clients1']['rows_per_s']:.1f} "
+                    f"(1 client, call p50 {r['clients1']['train']['p50_ms']:.3f}"
+                    f" p99 {r['clients1']['train']['p99_ms']:.3f} ms), "
+                    f"{r['clients4_pipelined']['rows_per_s']:.1f} "
+                    f"({NT_CLIENTS} pipelined clients); estimate p50 "
+                    f"{r['estimate']['p50_ms']:.3f} p99 "
+                    f"{r['estimate']['p99_ms']:.3f} ms; S1 launches "
+                    f"{r['s1_launches']} | {kind} | {smi}")
+            return {"server_launches": res["server_launches"]}
+
+        run_path("native_transport", native_transport_path)
+        log(f"[phase22] {path_s['native_transport']:.3f} s")
         log(f"[paths] {json.dumps(paths)} seconds {json.dumps(path_s)}")
         log(f"[deploy_launches] phase 13, read from the members' get_status: "
             f"K1 sig_scan.hamming {paths['deploy']['hamming']}, "
@@ -8760,6 +9138,9 @@ def main(argv=None) -> int:
         check(paths["raw_ingest"]["pa_scan"] > 0,
               "online_scan.pa never launched on the raw ingest path "
               "(phase 21)")
+        check(paths["native_transport"]["pa_scan"] > 0,
+              "online_scan.pa never launched on the native transport path "
+              "(phase 22)")
         check(paths["ring"]["hamming"] == RING_SHARDS ** 2,
               f"the ring path launched K1 {paths['ring']['hamming']} times, "
               f"not S² = {RING_SHARDS ** 2}")

@@ -48,6 +48,11 @@ thread that resolves it, with its result or its exception as the error.
 A long operator call (``profile_device``) so holds no worker; its span
 ``rpc.<method>`` covers the hand-off only.
 
+The transport ends at ``_dispatch``, which serves one request and hands
+the packed answer to a writer the transport gives it: the native
+transport (rpc/native_server.py) shares the whole dispatch and answer
+path.
+
 ``stop()`` waits on nothing: it shuts the listening socket and every open
 connection down (which wakes a reader blocked in ``recv`` and a worker
 blocked in ``sendall`` to a peer that does not read), drops the requests
@@ -374,6 +379,14 @@ class RpcServer:
         base = 0       # stream offset of buf[0]
         msg_start = 0  # stream offset of the next undelivered message
         wlock = threading.Lock()
+
+        def send(payload: bytes) -> None:
+            try:
+                with wlock:
+                    conn.sendall(payload)
+            except OSError:
+                pass
+
         try:
             peer = "%s:%s" % conn.getpeername()[:2]
         except (OSError, TypeError):
@@ -411,7 +424,7 @@ class RpcServer:
                         if len(raw) <= 1024 or (nreq & (nreq - 1)) == 0:
                             conn_state["legacy"] = wire_is_legacy(raw)
                             scanning = conn_state["legacy"]
-                    self._handle_raw(conn, wlock, raw, conn_state)
+                    self._handle_raw(send, raw, conn_state)
                 del buf[:msg_start - base]
                 base = msg_start
         except (OSError, ValueError):
@@ -424,8 +437,8 @@ class RpcServer:
             except OSError:
                 pass
 
-    def _handle_raw(self, conn: socket.socket, wlock: threading.Lock,
-                    raw: bytes, conn_state: Dict[str, Any]) -> None:
+    def _handle_raw(self, send: Callable[[bytes], None], raw: bytes,
+                    conn_state: Dict[str, Any]) -> None:
         env = _parse_envelope(raw)
         if env is not None:
             msgid, method, off, n_extra = env
@@ -434,7 +447,7 @@ class RpcServer:
                 if n_extra:
                     params_span, trace, dl, pr = split_extras(raw, off)
                 self._work.put((self._dispatch, (
-                    conn, wlock, msgid, method, params_span, True,
+                    send, msgid, method, params_span, True,
                     conn_state, trace, dl, pr, len(raw))))
                 return
         msg = _unpack(raw)
@@ -448,14 +461,19 @@ class RpcServer:
             dl = msg[5] if len(msg) >= 6 else None
             pr = msg[6] if len(msg) == 7 else None
             self._work.put((self._dispatch, (
-                conn, wlock, msgid, method, params, False, conn_state, trace,
+                send, msgid, method, params, False, conn_state, trace,
                 dl, pr, len(raw))))
         elif msg[0] == NOTIFY and len(msg) == 3:
             self._work.put((self._invoke_silent, (msg[1], msg[2])))
 
-    def _dispatch(self, conn, wlock, msgid, method, params, raw: bool,
+    def _dispatch(self, send: Callable[[bytes], None], msgid: int,
+                  method: str, params: Any, raw: bool,
                   conn_state: Dict[str, Any], trace: Any, dl: Any, pr: Any,
                   nbytes: int = 0) -> None:
+        """Serve one request and answer it through ``send`` (the
+        transport's writer of one response frame); ``raw`` says whether
+        ``params`` is the undecoded span of a raw-registered method.
+        ``nbytes`` is the request frame's size, billed as bytes in."""
         # adopt the caller's trace context (or root a fresh one), its
         # deadline AND its principal for the duration of the dispatch;
         # restore after — worker threads are reused
@@ -478,12 +496,12 @@ class RpcServer:
         legacy = self.response_legacy(method, conn_state)
         if error is None and isinstance(result, concurrent.futures.Future):
             result.add_done_callback(
-                lambda fut: self._reply_deferred(conn, wlock, msgid,
-                                                 method, fut, bill, legacy))
+                lambda fut: self._reply_deferred(send, msgid, method, fut,
+                                                 bill, legacy))
             return
-        self._reply(conn, wlock, msgid, error, result, bill, legacy)
+        self._reply(send, msgid, error, result, bill, legacy)
 
-    def _reply(self, conn, wlock, msgid, error, result,
+    def _reply(self, send: Callable[[bytes], None], msgid, error, result,
                bill: Optional[tuple] = None, legacy: bool = False) -> None:
         payload = build_response(msgid, error, result, legacy=legacy)
         rec = self.usage_recorder
@@ -492,13 +510,10 @@ class RpcServer:
             rec.account(method, principal=p_req, resolve=False,
                         bytes_in=float(nbytes),
                         bytes_out=float(len(payload)))
-        try:
-            with wlock:
-                conn.sendall(payload)
-        except OSError:
-            pass
+        send(payload)
 
-    def _reply_deferred(self, conn, wlock, msgid, method: str,
+    def _reply_deferred(self, send: Callable[[bytes], None], msgid,
+                        method: str,
                         fut: "concurrent.futures.Future",
                         bill: Optional[tuple] = None,
                         legacy: bool = False) -> None:
@@ -510,7 +525,7 @@ class RpcServer:
             log.debug("rpc method %s raised", method, exc_info=True)
             self._note_error(method)
             error = error_to_wire(e)
-        self._reply(conn, wlock, msgid, error, result, bill, legacy)
+        self._reply(send, msgid, error, result, bill, legacy)
 
     def _execute_fast(self, method: str, raw_params: bytes):
         """Raw-span invoke; falls back to the generic decode + handler when

@@ -5,7 +5,9 @@ engine's IDL methods plus the built-ins get_config, get_status, save, load
 and do_mix. Models are saved in the JAX package's file format
 (framework/save_load.py) under ``<datadir>/<ip>_<port>_<type>_<id>.jubatus``,
 so a file saved by either package's server loads in the other's; ``-m``
-loads one at start.
+loads one at start. The RPC server is the C++ front-end
+(rpc/native_server.py), as in the JAX server, unless
+``JUBATUS_TPU_NATIVE_RPC=0`` selects the Python transport.
 
 Given a coordinator (``-z``: a directory, ``file://``, or the
 coordination service at ``tcp://host:port``), the server registers its
@@ -112,7 +114,7 @@ from jubatus_tpu_torch.ops import online_scan, sig_scan
 from jubatus_tpu_torch.parallel.mesh import local_shard_mesh
 from jubatus_tpu_torch.rpc.client import RpcClient
 from jubatus_tpu_torch.rpc.errors import EpochMismatch
-from jubatus_tpu_torch.rpc.server import RpcServer
+from jubatus_tpu_torch.rpc.native_server import create_rpc_server
 from jubatus_tpu_torch.server.args import ServerArgs
 from jubatus_tpu_torch.server.factory import create_driver
 from jubatus_tpu_torch.utils import events, faults, tracing
@@ -169,9 +171,11 @@ class EngineServer:
         #: this server's metrics (rpc and mix spans, counters, gauges,
         #: events); the RPC server records its dispatch spans here
         self.trace = Registry()
-        self.rpc = RpcServer(trace=self.trace,
-                             legacy_wire=self.args.legacy_wire,
-                             wire_detect=not self.args.modern_wire)
+        # the C++ front-end unless JUBATUS_TPU_NATIVE_RPC=0 (a failed
+        # build raises NativeBuildError here)
+        self.rpc = create_rpc_server(trace=self.trace,
+                                     legacy_wire=self.args.legacy_wire,
+                                     wire_detect=not self.args.modern_wire)
         # forensics plane: the slow-request ring off the --slowlog-*
         # flags, the runtime telemetry sampler, the always-on stack
         # sampler and the slow log's tail trigger that snapshots it when

@@ -39,7 +39,17 @@ Beyond the reference, as in the JAX proxy:
 - **the zero-decode raw relay**: random-routed methods forward the raw
   params span to one backend and splice its raw result span into the
   response, so train/classify payloads never materialize as Python
-  objects here; anything irregular declines to the generic path.
+  objects here; anything irregular declines to the generic path;
+- **the C++ relay** (the native transport, rpc/native_server.py, the
+  default): a cluster first seen on the Python path enters the C++
+  routing table at the refresher's next 1 s tick, and its random-routed
+  requests are then forwarded in C++ without entering Python (no proxy
+  span, slow-log record, breaker probe or fault site sees them). The
+  table withholds backends whose breaker is open, keeps a cluster's last
+  routing when its lookup fails, and drops a cluster that stays empty
+  for 60 s. ``get_proxy_status`` folds the relay's counts into
+  ``forward_count``, ``request.<method>`` and ``relay_count``, and its
+  synthesized backend-loss answers into ``forward_errors``.
 
 The observability planes at the proxy hop, as in the JAX proxy (one
 telemetry thread ticks them, started and stopped with the listener):
@@ -72,10 +82,10 @@ The legacy wire (rpc/legacy.py): the proxy fingerprints each client
 connection as the engine servers do and answers a legacy client in the
 pre-2013 msgpack format (a relayed span is decoded and re-packed old-raw);
 ``--legacy-wire`` forces that format on every connection, ``--modern-wire``
-turns the detection off. Relays to the backends stay modern (``call_raw``
-sends the method name as str8).
-
-Not carried over: the C++ relay of the native transport.
+turns the detection off. Python relays to the backends stay modern
+(``call_raw`` sends the method name as str8); the C++ relay forwards a
+legacy client's frames verbatim on a pipe of that client's own, so its
+backend answers it legacy.
 """
 
 from __future__ import annotations
@@ -112,7 +122,9 @@ from jubatus_tpu_torch.rpc.errors import (
     RpcTimeoutError,
 )
 from jubatus_tpu_torch.rpc.retry import RetryBudget
-from jubatus_tpu_torch.rpc.server import RAW_FALLBACK, RawResult, RpcServer
+from jubatus_tpu_torch.rpc.native_server import (NativeRpcServer,
+                                                 create_rpc_server)
+from jubatus_tpu_torch.rpc.server import RAW_FALLBACK, RawResult
 from jubatus_tpu_torch.utils import events, faults, tracing
 from jubatus_tpu_torch.utils import usage as usage_mod
 from jubatus_tpu_torch.utils.incidents import IncidentManager
@@ -282,7 +294,8 @@ class MemberCache:
     """Watch-invalidated actives cache (≙ cached_zk, common/cached_zk.hpp:
     31-59): one entry per cluster name, cleared when the coordinator signals
     a child change, with a TTL backstop for coordinators whose watches are
-    best-effort."""
+    best-effort. ``on_invalidate``, when set, is called after each
+    clearing (the proxy's relay refresher wakes on it)."""
 
     def __init__(self, coord: Coordinator, engine: str, ttl: float = 2.0) -> None:
         self._coord = coord
@@ -291,6 +304,7 @@ class MemberCache:
         self._lock = threading.Lock()
         self._cache: Dict[str, Tuple[float, List[NodeInfo]]] = {}
         self._watched: set = set()
+        self.on_invalidate: Optional[Callable[[], None]] = None
 
     def actives(self, name: str) -> List[NodeInfo]:
         now = time.monotonic()
@@ -315,6 +329,8 @@ class MemberCache:
     def invalidate(self, name: str) -> None:
         with self._lock:
             self._cache.pop(name, None)
+        if self.on_invalidate is not None:
+            self.on_invalidate()
 
 
 def _peek_cluster_name(raw_params: bytes) -> Optional[str]:
@@ -369,8 +385,10 @@ class Proxy:
         self.engine = args.engine
         self.coord = coord or create_coordinator(args.coordinator)
         self.members = MemberCache(self.coord, self.engine)
-        self.rpc = RpcServer(legacy_wire=args.legacy_wire,
-                             wire_detect=not args.modern_wire)
+        # the engine servers' transport: the C++ front-end unless
+        # JUBATUS_TPU_NATIVE_RPC=0 (a failed build raises here)
+        self.rpc = create_rpc_server(legacy_wire=args.legacy_wire,
+                                     wire_detect=not args.modern_wire)
         self.start_time = time.time()  # wall-clock
         self._pool: Dict[Tuple[str, int], List[_Session]] = {}
         self._pool_lock = threading.Lock()
@@ -396,6 +414,17 @@ class Proxy:
         self._idempotent = idempotent_methods(self.engine)
         #: member-list-keyed ring cache + the double-dispatch window
         self.rings = _RingCache(handoff_window=args.handoff_window)
+        #: the C++ relay plane (native transport only): the random-routed
+        #: methods it forwards, and the clusters seen on the Python path
+        #: (cluster -> when it last had actives); the refresher thread
+        #: keeps the C++ routing table to their current actives
+        self._relay_methods: List[str] = []
+        self._relay_seen: Dict[str, float] = {}
+        self._relay_lock = threading.Lock()
+        #: set when a cluster's actives change: the refresher pushes the
+        #: new table then, not only on its 1 s tick
+        self._relay_wake = threading.Event()
+        self.members.on_invalidate = self._relay_wake.set
         #: the /metrics + /healthz endpoint, with --metrics-port >= 0
         self.metrics = None
         self._init_planes()
@@ -693,6 +722,77 @@ class Proxy:
                 raise
         raise RpcNoClient(f"no active {self.engine} servers")
 
+    #: clusters with no actives for this long fall out of the relay table
+    #: and the seen-set: client-supplied names must not grow state without
+    #: bound (a mistyped cluster costs one window, not forever)
+    _RELAY_SEEN_TTL = 60.0
+    _RELAY_SEEN_CAP = 1024
+
+    def _note_cluster(self, cluster: str) -> None:
+        """A cluster seen on the Python path enters the relay table at the
+        refresher's next tick; after that its random-routed traffic is
+        forwarded in C++."""
+        with self._relay_lock:
+            if cluster not in self._relay_seen and \
+                    len(self._relay_seen) >= self._RELAY_SEEN_CAP:
+                return  # a flood of bogus names relays nothing anyway
+            self._relay_seen.setdefault(cluster, time.monotonic())
+
+    def _relay_refresher(self) -> None:
+        """Every second, and at once when a cluster's actives change (the
+        member cache's watch), push the current actives of every cluster
+        seen to the C++ relay, replacing the table wholesale (a
+        de-registered backend's pipes retire with the table's generation).
+        The JAX proxy pushes on its tick alone; waking on the watch drops
+        a draining member from the table within the watch's latency,
+        before its handoff ends and it exits. A cluster whose lookup FAILS
+        keeps its last routing (a coordinator hiccup must not bounce
+        traffic to the Python path); one that stays EMPTY past the TTL is
+        dropped. Backends with an OPEN breaker are withheld, as the Python
+        path skips them (all open: route anyway, fail static)."""
+        last_table: Dict[str, List[Tuple[str, int]]] = {}
+        while not self._stop_event.is_set():
+            self._relay_wake.wait(1.0)
+            self._relay_wake.clear()
+            if self._stop_event.is_set():
+                return
+            with self._relay_lock:
+                seen = dict(self._relay_seen)
+            if not seen:
+                continue
+            now = time.monotonic()
+            table: Dict[str, List[Tuple[str, int]]] = {}
+            expired = []
+            for cluster, last_live in seen.items():
+                try:
+                    nodes = [(n.host, n.port)
+                             for n in self.members.actives(cluster)]
+                except Exception:  # broad-ok — carry the last known
+                    log.debug("relay refresh failed for %s", cluster,
+                              exc_info=True)
+                    nodes = last_table.get(cluster, [])
+                if nodes:
+                    healthy = [k for k in nodes
+                               if self.breakers.available(k)]
+                    table[cluster] = healthy or nodes
+                    with self._relay_lock:
+                        if cluster in self._relay_seen:
+                            self._relay_seen[cluster] = now
+                elif now - last_live > self._RELAY_SEEN_TTL:
+                    expired.append(cluster)
+            if expired:
+                with self._relay_lock:
+                    for cluster in expired:
+                        self._relay_seen.pop(cluster, None)
+            last_table = table
+            try:
+                self.rpc.relay_config(
+                    self._relay_methods, table,
+                    timeout=self.args.interconnect_timeout,
+                    idle_expire=self.args.session_pool_expire)
+            except Exception:  # broad-ok — the next tick retries
+                log.debug("relay config push failed", exc_info=True)
+
     def _route_cht(self, name: str, cht_n: int,
                    reducer: Callable[[Any, Any], Any],
                    cluster: str, actives: Sequence[NodeInfo],
@@ -753,6 +853,8 @@ class Proxy:
             return self._call_random(name, actives, params)
 
         def handle(*params: Any) -> Any:
+            if params and isinstance(params[0], (str, bytes)):
+                self._note_cluster(_text(params[0]))
             self._count(name)
             self._expire_sessions()
             try:
@@ -792,6 +894,7 @@ class Proxy:
             cluster = _peek_cluster_name(raw_params)
             if cluster is None:
                 return RAW_FALLBACK  # odd wire: generic path decides
+            self._note_cluster(cluster)
             self._expire_sessions()
             actives = self.members.actives(cluster)
             if not actives:
@@ -871,6 +974,7 @@ class Proxy:
                           arity=arity)
         if routing == "random":
             self.rpc.register_raw(name, self._raw_handler(name))
+            self._relay_methods.append(name)
 
     def _register_methods(self) -> None:
         for m in get_service(self.engine):
@@ -1115,13 +1219,23 @@ class Proxy:
 
     def get_proxy_status(self, _name: str = "") -> Dict[str, Dict[str, Any]]:
         """This proxy's counters (the JAX proxy's keys): requests per
-        method, forwards and forward errors, the requests a C++ relay
-        served (``relay_count``: 0 on the Python transport, whose raw
+        method, forwards and forward errors, the requests the C++ relay
+        served (``relay_count``, also folded into ``forward_count``,
+        ``request.<method>`` and, for its synthesized backend-loss
+        answers, ``forward_errors``; 0 on the Python transport, whose raw
         relay counts as a forward), the session pool, the breakers, the
         ring cache, the retry budget, the flags, the dispatch spans and
         counters of its registry, and the planes' ``runtime.*``,
         ``slowlog.*``, ``profiler.*``, ``events.*``, ``incident.*`` and
         ``usage.*`` rows."""
+        relayed: Dict[str, int] = {}
+        if isinstance(self.rpc, NativeRpcServer):
+            try:
+                relayed = self.rpc.relay_stats()
+            except Exception:  # broad-ok — status must never fail
+                log.debug("relay stats fetch failed", exc_info=True)
+        relay_errors = relayed.pop("__errors__", 0)
+        n_relayed = sum(relayed.values())
         breakers = self.breakers.snapshot()
         with self._counters_lock, self._pool_lock:
             st: Dict[str, Any] = {
@@ -1129,17 +1243,16 @@ class Proxy:
                 "uptime": int(time.time() - self.start_time),  # wall-clock
                 "type": f"{self.engine}_proxy",
                 "version": __version__,
-                "forward_count": self.forward_count,
-                "forward_errors": self.forward_errors,
-                # the requests a C++ relay served without entering
-                # Python; the Python transport has none (its raw relay
-                # counts in forward_count), as in the JAX proxy
-                "relay_count": 0,
+                "forward_count": self.forward_count + n_relayed,
+                "forward_errors": self.forward_errors + relay_errors,
+                "relay_count": n_relayed,
                 "session_pool_size": sum(
                     len(v) for v in self._pool.values()),
             }
-            st.update({f"request.{k}": v
-                       for k, v in self.request_counts.items()})
+            counts = dict(self.request_counts)
+            for m, c in relayed.items():
+                counts[m] = counts.get(m, 0) + c
+            st.update({f"request.{k}": v for k, v in counts.items()})
         st["breaker_backends"] = len(breakers)
         st["breaker_open"] = sum(
             1 for b in breakers.values() if b["state"] == "open")
@@ -1175,6 +1288,9 @@ class Proxy:
                                               actual).name
         self.telemetry.start()
         self.profiler.start()
+        if isinstance(self.rpc, NativeRpcServer):
+            threading.Thread(target=self._relay_refresher, daemon=True,
+                             name="proxy-relay-refresh").start()
         if self.args.metrics_port >= 0:
             from jubatus_tpu_torch.utils.metrics_http import MetricsServer
 
@@ -1216,6 +1332,7 @@ class Proxy:
         self._executor.shutdown(wait=False)
         self.coord.close()
         self._stop_event.set()
+        self._relay_wake.set()
 
 
 def _text(x: Any) -> str:

@@ -6,7 +6,7 @@ and two backends assembles into one tree with the per-backend client-call
 hop; get_slow_log through the proxy), tests/test_model_health.py (the
 proxy folds get_timeseries / get_alerts), tests/test_event_plane.py (the
 proxy folds get_events / get_incidents) and tests/test_quality.py (the
-proxy folds get_quality, the Python transport); then the port's own: the
+proxy folds get_quality, on both transports); then the port's own: the
 client-call span on both forward paths (the decoded one and the raw
 relay), the two paths billing the same usage row, the plane rows of
 get_proxy_status, /metrics and /healthz on --metrics-port, the SLO and
@@ -61,6 +61,16 @@ def _proxy(store, **flags):
                         **flags), coord=MemoryCoordinator(store))
     p.start(0)
     return p
+
+
+@pytest.fixture()
+def python_transport(monkeypatch):
+    """Servers and proxies made after it serve on the Python transport:
+    the tests that count the proxy's Python relay with the ``relayed`` spy
+    ask for it first, since the C++ relay of the native transport takes
+    random-routed calls from the refresher's first tick on, and they never
+    reach ``call_raw`` then."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
 
 
 @pytest.fixture()
@@ -133,7 +143,8 @@ def _spans(per_node):
 
 # -- tests/test_metrics_plane.py ---------------------------------------------
 
-def test_proxied_call_shares_one_trace_id(one_node_cluster, relayed):
+def test_proxied_call_shares_one_trace_id(python_transport,
+                                           one_node_cluster, relayed):
     """A proxied call yields ONE trace id across the proxy's and the
     backend's status maps, on the decoded path and on the raw relay."""
     srv, proxy = one_node_cluster
@@ -209,7 +220,8 @@ def test_get_slow_log_rpc_through_proxy(proxy_two_backends):
 
 # -- the client-call hop on both forward paths -----------------------------------
 
-def test_client_records_a_hop_span_on_both_paths(proxy_two_backends,
+def test_client_records_a_hop_span_on_both_paths(python_transport,
+                                                  proxy_two_backends,
                                                   relayed):
     """The proxy's backend client records ``rpc.client.<method>`` under
     the child id it ships, on the decoded path (a broadcast) and on the
@@ -261,7 +273,8 @@ def test_client_hop_span_needs_a_trace(one_node_cluster):
 
 # -- usage: the relay and the decoded path bill alike ----------------------------
 
-def test_relayed_and_decoded_forwards_bill_the_same_row(one_node_cluster,
+def test_relayed_and_decoded_forwards_bill_the_same_row(python_transport,
+                                                       one_node_cluster,
                                                        relayed):
     """One tenant's classify through the zero-decode relay and another's
     (a same-length name) through the decoded path: the proxy's ledger
@@ -371,11 +384,15 @@ def test_proxy_folds_events_and_incidents(tmp_path):
             s.stop()
 
 
-# -- tests/test_quality.py (the Python transport) ------------------------------
+# -- tests/test_quality.py ------------------------------------------------------
 
-def test_get_quality_rpc_and_proxy_fold():
+@pytest.mark.parametrize("native", [False, True])
+def test_get_quality_rpc_and_proxy_fold(monkeypatch, native):
     """get_quality is served by the member and folded through the proxy:
-    the proxy's own (empty) doc folds away, the backend doc survives."""
+    the proxy's own (empty) doc folds away, the backend doc survives. On
+    both transports (get_quality is a broadcast: the C++ relay never
+    takes it)."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "1" if native else "0")
     store = _Store()
     srv = _server(store, "ql", telemetry_interval=0, quality_sample=1.0,
                   quality_window=1.0, quality_ref_windows=1)

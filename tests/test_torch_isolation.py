@@ -142,6 +142,7 @@ SLICE_MODULES = (
     "jubatus_tpu_torch.parallel",
     "jubatus_tpu_torch.parallel.ring",
     "jubatus_tpu_torch.native.ingest",
+    "jubatus_tpu_torch.rpc.native_server",
 )
 
 
@@ -218,6 +219,7 @@ import os, sys
 from pathlib import Path
 from jubatus_tpu_torch import native
 from jubatus_tpu_torch.native import ingest
+from jubatus_tpu_torch.rpc.native_server import NativeRpcServer
 from jubatus_tpu_torch.server import EngineServer
 from jubatus_tpu_torch.server.args import ServerArgs
 print(native.BUILD_DIR)
@@ -228,7 +230,8 @@ srv = EngineServer("classifier", conf, ServerArgs(
     engine="classifier", listen_addr="127.0.0.1", telemetry_interval=0),
     device="cpu")
 srv.start(0)
-print("train" in srv.rpc._raw_methods, native.crc32(b"x"))
+print("train" in srv.rpc._raw_methods, native.crc32(b"x"),
+      isinstance(srv.rpc, NativeRpcServer))
 srv.stop()
 print(",".join(sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -246,10 +249,11 @@ def _tree(path):
 
 
 def test_native_build_writes_only_under_build_torch_native(tmp_path):
-    """The native ingest parser and jt_native build into
-    build/torch_native/ by default; a build (here into a fresh directory,
-    so it really runs) writes its libraries there and nothing under
-    native/, and a server on the raw path loads nothing of jax."""
+    """The native ingest parser, jt_native and the RPC front-end build
+    into build/torch_native/ by default; a build (here into a fresh
+    directory, so it really runs) writes its libraries there and nothing
+    under native/, and a server on the raw path and the native transport
+    loads nothing of jax."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     before = _tree(os.path.join(ROOT, "native"))
@@ -262,10 +266,11 @@ def test_native_build_writes_only_under_build_torch_native(tmp_path):
     assert os.path.samefile(os.path.dirname(default),
                             os.path.join(ROOT, "build"))
     assert os.path.basename(default) == "torch_native"
-    assert served.split()[0] == "True"
+    assert served.split()[0] == "True" and served.split()[2] == "True"
     assert bad == "", f"imported: {bad}"
     built = sorted(p.name for p in out.iterdir())
-    assert [n.split("_")[0] for n in built] == ["libfast", "libjt"]
+    assert [n.split("_")[0] for n in built] == ["libfast", "libjt",
+                                               "librpc"]
     assert all(n.endswith(".so") for n in built)
     assert _tree(os.path.join(ROOT, "native")) == before
 

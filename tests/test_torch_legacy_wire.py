@@ -208,13 +208,16 @@ def _frame_is_legacy_format(frame: bytes) -> bool:
         return False
 
 
-@pytest.mark.parametrize("transport", ["python"])
-def test_autodetect_upgrades_on_later_modern_byte(tmp_path, transport):
+@pytest.mark.parametrize("transport", ["python", "native"])
+def test_autodetect_upgrades_on_later_modern_byte(tmp_path, monkeypatch,
+                                                  transport):
     """A modern client whose FIRST call is all-fixtype (short method, tiny
     args — zero post-2013 bytes) must not be latched legacy forever: the
     first request that does carry a modern type byte upgrades the
-    connection, and it stays modern afterwards. (The JAX package runs
-    this on its native transport too, which the port has not yet.)"""
+    connection, and it stays modern afterwards. Both transports share the
+    rule."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC",
+                       "1" if transport == "native" else "0")
     srv = EngineServer(
         "classifier", CLASSIFIER_CONF,
         args=ServerArgs(engine="classifier", datadir=str(tmp_path)),
@@ -239,6 +242,31 @@ def test_autodetect_upgrades_on_later_modern_byte(tmp_path, transport):
         sock.sendall(msgpack.packb([0, 3, "get_config", ["m"]],
                                    use_bin_type=True))
         frame, buf = _read_one_frame(sock, buf)
+        assert not _frame_is_legacy_format(frame)
+    finally:
+        sock.close()
+        srv.stop()
+
+
+def test_native_str8_envelope_pins_modern(tmp_path, monkeypatch):
+    """``RpcClient.call_raw`` pins a connection modern by sending the METHOD
+    name as str8. The C++ front-end strips the envelope before Python sees
+    the request, so it hands the envelope's era evidence on (flag bit 0):
+    a request whose params span is pure legacy bytes is still answered
+    modern."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "1")
+    srv = EngineServer(
+        "classifier", CLASSIFIER_CONF,
+        args=ServerArgs(engine="classifier", datadir=str(tmp_path)),
+        device="cpu")
+    port = srv.start(0)
+    sock = socket.create_connection(("127.0.0.1", port), timeout=10)
+    try:
+        # call_raw's wire shape: [0, msgid, str8 method, params]
+        m = b"get_config"
+        sock.sendall(b"\x94\x00\x01\xd9" + bytes([len(m)]) + m
+                     + msgpack.packb(["m"], use_bin_type=False))
+        frame, _ = _read_one_frame(sock, b"")
         assert not _frame_is_legacy_format(frame)
     finally:
         sock.close()

@@ -348,13 +348,15 @@ def test_profile_device_rpc_list_and_capture(tmp_path):
         srv.stop()
 
 
-def test_profile_device_holds_no_rpc_worker(tmp_path):
+def test_profile_device_holds_no_rpc_worker(tmp_path, monkeypatch):
     """A capture runs on a thread of its own, not on an RPC worker: while
     it is in flight the capturing thread is the capture's, other calls
     answer, and the capture's reply (artifact, bytes, timing) arrives when
-    it ends."""
+    it ends. The Python transport's workers (the native transport's case
+    is tests/test_torch_native_rpc.py's)."""
     import sys
 
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
     srv = _server(profile_dir=str(tmp_path / "artifacts"), thread=2)
     port = srv.start(0)
     out = {}
@@ -435,9 +437,11 @@ def test_profile_device_default_dir_carries_the_bound_port(tmp_path):
         srv.stop()
 
 
-def test_profile_rpcs_envelope_compat(tmp_path):
+@pytest.mark.parametrize("native", [False, True])
+def test_profile_rpcs_envelope_compat(tmp_path, monkeypatch, native):
     """get_profile / profile_device answer the plain 4-element envelope and
-    the traced + deadlined one."""
+    the traced + deadlined one, on both transports."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "1" if native else "0")
     srv = _server(profile_dir=str(tmp_path / "artifacts"))
     port = srv.start(0)
     try:

@@ -1,6 +1,6 @@
 """The port's routing proxy (jubatus_tpu_torch/server/proxy.py), mirroring
 tests/test_proxy.py (routing classes, built-ins, dead backends, the member
-cache; not the C++ relay tests) and tests/test_proxy_engines.py (CHT
+cache; its C++ relay tests are tests/test_torch_native_rpc.py's) and tests/test_proxy_engines.py (CHT
 replication, the server-side CHT(2) placement of anomaly ``add`` and graph
 ``create_node``, broadcast folds, internal methods) on port servers on the
 CPU; then the mixed fleets: a port proxy in front of one JAX and one port
@@ -152,6 +152,16 @@ def test_save_broadcast_merge_and_load(classifier_cluster, tmp_path):
 
 
 @pytest.fixture()
+def python_transport(monkeypatch):
+    """Servers and proxies made after it serve on the Python transport:
+    the tests that count the proxy's Python relay with the ``relayed`` spy
+    ask for it first, since the C++ relay of the native transport takes
+    random-routed calls from the refresher's first tick on, and they never
+    reach ``call_raw`` then."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
+
+
+@pytest.fixture()
 def relayed(monkeypatch):
     """The methods the proxies' zero-decode relay forwarded: each relay is
     one ``RpcClient.call_raw``, in the port's proxy and in the JAX
@@ -169,7 +179,8 @@ def relayed(monkeypatch):
     return calls
 
 
-def test_proxy_status_counters(classifier_cluster, relayed):
+def test_proxy_status_counters(python_transport, classifier_cluster,
+                               relayed):
     _, proxy, _ = classifier_cluster
     c = ClassifierClient("127.0.0.1", proxy.args.rpc_port, NAME)
     c.train([["a", Datum({"x": 1.0})]])

@@ -344,8 +344,9 @@ def _both_servers(monkeypatch, engine, conf, **flags):
     from jubatus_tpu_torch.server import EngineServer
     from jubatus_tpu_torch.server.args import ServerArgs
 
-    # the JAX server's native transport and ingest parse are optional
-    # fast paths; the port serves the generic path, so compare on it
+    # the native transport and ingest parse are fast paths that record
+    # through other paths (the parse scores hashed features): compare
+    # both packages on the generic path
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_INGEST", "0")
     common = dict(engine=engine, listen_addr="127.0.0.1",

@@ -310,12 +310,13 @@ def _terminate(proc, bound=30):
                     f"stderr:\n{err}")
 
 
-def _start_main(engine, path):
+def _start_main(engine, path, env=None):
     proc = subprocess.Popen(
         [sys.executable, "-m", "jubatus_tpu_torch.server", engine,
          "-f", os.path.join(ROOT, "config", path), "-p", "0",
          "-b", "127.0.0.1", "--device", "cpu"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=None if env is None else dict(os.environ, **env))
     line = proc.stdout.readline()
     if "serving on port" not in line:
         proc.kill()
@@ -323,11 +324,15 @@ def _start_main(engine, path):
     return proc, int(line.split("serving on port")[1].split()[0])
 
 
-def test_server_exits_on_sigterm_with_a_stalled_client_and_an_idle_one():
+@pytest.mark.parametrize("transport", ["python", "native"])
+def test_server_exits_on_sigterm_with_a_stalled_client_and_an_idle_one(
+        transport):
     """SIGTERM with one idle open connection and one client that pipelined
-    requests but reads no replies: a worker is then blocked in sendall on
-    a full socket. The server must still exit within the bound, with 0."""
-    proc, port = _start_main("classifier", "classifier/nn.json")
+    requests but reads no replies: a worker (the Python transport) or the
+    connection's C++ reader (the native one) is then blocked sending to a
+    full socket. The server must still exit within the bound, with 0."""
+    proc, port = _start_main("classifier", "classifier/nn.json", env={
+        "JUBATUS_TPU_NATIVE_RPC": "1" if transport == "native" else "0"})
     idle = socket.create_connection(("127.0.0.1", port))
     stalled = socket.create_connection(("127.0.0.1", port))
     try:

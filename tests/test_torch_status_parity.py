@@ -53,9 +53,9 @@ def _keys(st):
 
 @pytest.fixture(autouse=True)
 def _python_transport(monkeypatch):
-    # the JAX server's native transport bills and counts through other
-    # paths (the port has the Python transport only); the ingest is on in
-    # both packages in test_get_status_key_set_with_the_ingest_on
+    # both packages on the Python transport (their native ones bill and
+    # count through other paths); the ingest is on in both packages in
+    # test_get_status_key_set_with_the_ingest_on
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "0")
     monkeypatch.setenv("JUBATUS_TPU_NATIVE_INGEST", "0")
 

@@ -628,9 +628,11 @@ def test_mix_round_spans_share_one_trace():
 # -- the server's forensics RPCs ----------------------------------------------
 
 
-def test_forensics_rpcs_envelope_compat():
+@pytest.mark.parametrize("native", [False, True])
+def test_forensics_rpcs_envelope_compat(monkeypatch, native):
     """get_spans / get_slow_log answer the plain 4-element envelope and the
-    traced + deadlined one."""
+    traced + deadlined one, on both transports."""
+    monkeypatch.setenv("JUBATUS_TPU_NATIVE_RPC", "1" if native else "0")
     srv = _server(slowlog_min_count=1, slowlog_quantile=0.5)
     port = srv.start(0)
     try:
